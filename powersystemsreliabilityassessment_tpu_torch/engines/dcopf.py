@@ -1,0 +1,584 @@
+"""Batched DC-OPF minimum-load-shedding evaluator (HL2 state evaluation).
+
+Port of ``powersystemsreliabilityassessment_tpu/engines/dcopf.py``, the
+parts on the NSQ main path:
+
+**Tier 1 — exact certificate (no LP).** The copper-sheet deficit
+max(0, load - available capacity) lower-bounds DNS; a balanced
+dispatch/shed candidate at exactly that bound whose post-outage flows
+(PTDF, rank-1 LODF, rank-2 Woodbury) fit the ratings proves it optimal
+(``certify_states``). A flow-repair descent rescues candidates that
+overload a line.
+
+**Tier 2 — interior-point LP in B-theta form** for everything else:
+
+    variables  x = [Pg (ng), shed (nd), f (nl), theta (nb)]
+    minimize   sum(shed)
+    s.t.       Cg Pg + Cd shed - Minc' f = bus_load          (nb rows)
+               (1/b_l) f_l - status_l (theta_i - theta_j) = 0 (nl rows)
+               box bounds on every variable
+
+solved by ``lp_ipm_structured.solve_box_lp_structured`` (the fused K1
+kernel on CUDA) on the lanes tier 1 leaves, compacted into a ``max_lp``
+buffer (``evaluate_states_screened``).
+
+Not ported yet (ROADMAP.md Queue 1): the island-PF tier
+(``certify_island_pf``, ``pf_buffer``), ``certify_finish`` and the
+``pre`` certificate of the fused sampler kernel, ``island_blackout``,
+the generic and large-m LP paths.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from powersystemsreliabilityassessment_tpu_torch.core.system import System
+from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+    CompatFlags, IPMConfig)
+
+
+class EvalResult(NamedTuple):
+    """Mirrors reference ``engines/dcopf.py::EvalResult``."""
+    dns_mw: torch.Tensor           # [B] demand not supplied, MW
+    nodal_mw: torch.Tensor         # [B, nb] per-bus shed, MW
+    failure: torch.Tensor          # [B] bool: dns above the failure threshold
+    primal_residual: torch.Tensor  # [B] LP lane-quality score
+    gen_dispatch: torch.Tensor     # [B, ng] p.u.
+    infeasible: torch.Tensor       # [B] bool: no feasible dispatch
+
+
+class Certificate(NamedTuple):
+    """Mirrors reference ``engines/dcopf.py::Certificate``."""
+    certified: torch.Tensor  # [B] bool: deficit proven optimal
+    deficit: torch.Tensor    # [B] p.u. copper-sheet DNS lower bound
+    shed: torch.Tensor       # [B, nd] p.u. certificate shed pattern
+    dispatch: torch.Tensor   # [B, ng] p.u. certificate dispatch
+
+
+def _fdt(sys: System):
+    return sys.bus_pd.dtype
+
+
+def _lp_bounds(sys: System, compat: CompatFlags, theta_max: float):
+    """Shared parts of the LP boxes: (pmin, pmax, theta box)."""
+    pmin = sys.gen_pmin if compat.enforce_pmin else torch.zeros_like(
+        sys.gen_pmin)
+    pmax = torch.maximum(sys.gen_pmax, pmin + 1e-6)
+    pmax = torch.where(sys.gen_pmax > 0, pmax, 1.0)   # zero-cap: dummy box
+    tb = torch.clamp_max(sys.theta_bound, theta_max)
+    return pmin, pmax, tb
+
+
+def build_state_lp(sys: System, gen_up: torch.Tensor, br_up: torch.Tensor,
+                   load_pu: torch.Tensor, compat: CompatFlags,
+                   theta_max: float):
+    """(c, A, b, l, u) of one state's LP with A materialized; mirrors
+    reference ``engines/dcopf.py::build_state_lp``. Out-of-service and
+    zero-capacity units are zeroed balance columns; the reference bus's
+    theta column is zeroed (gauge fix). Used by the tests only."""
+    ng, nd, nl, nb = sys.n_gen, sys.n_load, sys.n_branch, sys.n_bus
+    dt, dev = _fdt(sys), sys.device
+    zeros = lambda *s: torch.zeros(s, dtype=dt, device=dev)
+    c = torch.cat([zeros(ng), torch.ones(nd, dtype=dt, device=dev),
+                   zeros(nl + nb)])
+    gen_col = gen_up * (sys.gen_pmax > 0).to(dt)
+    bal = torch.cat([sys.gen_bus_onehot * gen_col[None, :], sys.load_onehot,
+                     -sys.incidence.T, zeros(nb, nb)], dim=1)
+    ref_mask = (torch.arange(nb, device=dev) != 0).to(dt)
+    flow = torch.cat([zeros(nl, ng + nd), torch.diag(1.0 / sys.b_susceptance),
+                      -br_up[:, None] * sys.incidence * ref_mask[None, :]],
+                     dim=1)
+    A = torch.cat([bal, flow], dim=0)
+    b = torch.cat([sys.load_onehot @ load_pu, zeros(nl)])
+    pmin, pmax, tb = _lp_bounds(sys, compat, theta_max)
+    l = torch.cat([pmin, zeros(nd), -sys.br_rate, -tb])
+    u = torch.cat([pmax, torch.clamp_min(load_pu, 1e-6), sys.br_rate, tb])
+    return c, A, b, l, u
+
+
+def build_state_lp_vectors(sys: System, gen_up: torch.Tensor,
+                           br_up: torch.Tensor, load_pu: torch.Tensor,
+                           compat: CompatFlags, theta_max: float):
+    """Batched (c, b, l, u, colscale) without materializing A; mirrors
+    reference ``engines/dcopf.py::build_state_lp_vectors``. Across lanes
+    A differs from the shared blocks (``ops/ipm_fused.LPStructure``) only
+    by ``colscale`` (generator availability) and ``br_up``."""
+    ng, nd, nl, nb = sys.n_gen, sys.n_load, sys.n_branch, sys.n_bus
+    dt, dev = _fdt(sys), sys.device
+    B = gen_up.shape[0]
+    bcast = lambda v: v[None, :].expand(B, v.shape[0])
+    ones = torch.ones(nd + nl + nb, dtype=dt, device=dev)
+    colscale = torch.cat([gen_up * (sys.gen_pmax > 0).to(dt)[None, :],
+                          bcast(ones)], dim=1)
+    c = bcast(torch.cat([torch.zeros(ng, dtype=dt, device=dev),
+                         torch.ones(nd, dtype=dt, device=dev),
+                         torch.zeros(nl + nb, dtype=dt, device=dev)]))
+    b = torch.cat([load_pu @ sys.load_onehot.T,
+                   torch.zeros((B, nl), dtype=dt, device=dev)], dim=1)
+    pmin, pmax, tb = _lp_bounds(sys, compat, theta_max)
+    l = bcast(torch.cat([pmin, torch.zeros(nd, dtype=dt, device=dev),
+                         -sys.br_rate, -tb]))
+    u = torch.cat([bcast(pmax), torch.clamp_min(load_pu, 1e-6),
+                   bcast(sys.br_rate), bcast(tb)], dim=1)
+    return (c.contiguous(), b.contiguous(), l.contiguous(), u.contiguous(),
+            colscale.contiguous())
+
+
+def _rebalance_shed(cand, caps, target):
+    """Rebalance a nonnegative pattern to sum ``target`` within ``caps``:
+    scale down multiplicatively, or up in proportion to the headroom.
+    Mirrors reference ``dcopf.py::_rebalance_shed``."""
+    total = cand.sum(1)
+    resid = total - target
+    down_scale = torch.where(
+        total > 1e-9,
+        torch.clamp_min(target, 0.0) / torch.clamp_min(total, 1e-9), 0.0)
+    headroom = torch.clamp_min(caps - cand, 0.0)
+    head_tot = torch.clamp_min(headroom.sum(1), 1e-9)
+    up = cand + headroom * ((-resid) / head_tot)[:, None]
+    return torch.where((resid >= 0)[:, None], cand * down_scale[:, None],
+                       torch.minimum(up, caps))
+
+
+def _unrolled_det(E: list) -> torch.Tensor:
+    """Determinant of a k x k matrix of [B] tensors by Laplace expansion
+    (k <= 4). Mirrors reference ``dcopf.py::_unrolled_det``."""
+    k = len(E)
+    if k == 1:
+        return E[0][0]
+    det = None
+    for j in range(k):
+        minor = [[E[r][c] for c in range(k) if c != j] for r in range(1, k)]
+        term = E[0][j] * _unrolled_det(minor)
+        term = term if j % 2 == 0 else -term
+        det = term if det is None else det + term
+    return det
+
+
+def _cramer_solve(E: list, f: list, safe_det: torch.Tensor) -> list:
+    """Solve E c = f by Cramer's rule (k <= 4). Mirrors reference
+    ``dcopf.py::_cramer_solve``."""
+    k = len(E)
+    return [_unrolled_det([[f[r] if c == i else E[r][c] for c in range(k)]
+                           for r in range(k)]) / safe_det for i in range(k)]
+
+
+def _shed_candidate(sys: System, load_pu, deficit, load_tot, shed_hint):
+    """Load-proportional (or hint-shaped) shed at exactly the copper bound,
+    rebalanced within per-load caps. Mirrors reference
+    ``dcopf.py::_shed_candidate``."""
+    prop = load_pu * (deficit / torch.clamp_min(load_tot, 1e-9))[:, None]
+    if shed_hint is None:
+        cand = prop
+    else:
+        hint_sum = shed_hint.sum(1)
+        scaled = shed_hint * (deficit / torch.clamp_min(hint_sum, 1e-9)
+                              )[:, None]
+        cand = torch.where((hint_sum > 1e-6)[:, None], scaled, prop)
+    cand = torch.minimum(cand, load_pu)
+    return _rebalance_shed(cand, load_pu, deficit)
+
+
+def _dispatch_candidate(sys: System, gen_cap, load_pu, cand, served):
+    """Locally self-balancing dispatch: each bus's units cover its own
+    post-shed load first, the residual is pooled over the remaining
+    headroom. Mirrors reference ``dcopf.py::_dispatch_candidate``."""
+    served_bus = (load_pu - cand) @ sys.load_onehot.T
+    cap_bus = gen_cap @ sys.gen_bus_onehot.T
+    local_frac = torch.clamp_max(
+        served_bus / torch.clamp_min(cap_bus, 1e-9), 1.0)
+    disp_local = gen_cap * (local_frac @ sys.gen_bus_onehot)
+    return _rebalance_shed(disp_local, gen_cap, served)
+
+
+def _repair_descent(sys: System, repair_iters: int, rate_ok, ptdf_gen,
+                    ptdf_load, lp_, cand_, disp_, gcap_, brd_, served_,
+                    deficit_, post0_, ok0_):
+    """Flow-repair descent on LODF-corrected post-outage flows: move shed
+    and dispatch along their PTDF sensitivities, rebalance each to its
+    exact total, re-check. Mirrors reference ``dcopf.py::_repair_descent``.
+    """
+    load_bus_ = lp_ @ sys.load_onehot.T
+
+    def flows_full_(disp, shed):
+        inj = (disp @ sys.gen_bus_onehot.T + shed @ sys.load_onehot.T
+               - load_bus_)
+        return inj @ sys.ptdf.T
+
+    def post_flows_(f):
+        return (f + (brd_ * f) @ sys.lodf.T) * (1.0 - brd_)
+
+    best_ok_, best_shed_, best_disp_ = ok0_, cand_, disp_
+    cur_shed, cur_disp, cur_post = cand_, disp_, post0_
+    elig_ = brd_.sum(1) <= 1
+    for _ in range(repair_iters):
+        over = torch.clamp_min(cur_post.abs() - sys.br_rate[None, :], 0.0)
+        sgn_over = torch.sign(cur_post) * over
+        w = sgn_over + brd_ * (sgn_over @ sys.lodf)
+        grad_g = w @ ptdf_gen
+        grad_g = grad_g - grad_g.mean(1, keepdim=True)
+        step_g = (over.sum(1) / torch.clamp_min(
+            grad_g.abs().amax(1), 1e-9))[:, None]
+        disp_t = torch.clamp(cur_disp - step_g * grad_g, min=0.0)
+        disp_t = torch.minimum(disp_t, gcap_)
+        disp_t = _rebalance_shed(disp_t, gcap_, served_)
+        grad = w @ ptdf_load
+        grad = grad - grad.mean(1, keepdim=True)
+        step_sz = (deficit_ / torch.clamp_min(
+            grad.abs().amax(1), 1e-9))[:, None]
+        trial = torch.minimum(
+            torch.clamp(cur_shed - step_sz * grad, min=0.0), lp_)
+        trial = _rebalance_shed(trial, lp_, deficit_)
+        post_t = post_flows_(flows_full_(disp_t, trial))
+        ok_trial = (post_t.abs() <= rate_ok).all(1)
+        # the rank-1-corrected check is exact only for n_out <= 1
+        newly = ~best_ok_ & ok_trial & elig_
+        best_shed_ = torch.where(newly[:, None], trial, best_shed_)
+        best_disp_ = torch.where(newly[:, None], disp_t, best_disp_)
+        best_ok_ = best_ok_ | ok_trial
+        cur_shed, cur_disp, cur_post = trial, disp_t, post_t
+    return best_ok_, best_shed_, best_disp_
+
+
+def _woodbury_multi_ok(sys: System, flows, br_down, n_out, rate_ok,
+                       woodbury_k: int):
+    """Exact rank-k Woodbury post-outage flow check for outage sets of
+    size 2..woodbury_k, gather-free through one-hot selectors, with an
+    unrolled Cramer solve. Mirrors reference
+    ``dcopf.py::_woodbury_multi_ok``."""
+    kk = int(woodbury_k)
+    multi = (n_out >= 2) & (n_out <= kk)
+    rem = br_down
+    iota = torch.arange(br_down.shape[1], device=br_down.device)
+    hs, fk, rows = [], [], []
+    for _ in range(kk):
+        vi, ki = rem.max(1)
+        hi = (ki[:, None] == iota[None, :]).to(flows.dtype) * vi[:, None]
+        rem = rem * (1.0 - hi)
+        hs.append(hi)
+        rows.append(hi @ sys.br_transfer)
+        fk.append((flows * hi).sum(1))
+    E = [[(1.0 if i == j else 0.0) - (rows[i] * hs[j]).sum(1)
+          for j in range(kk)] for i in range(kk)]
+    det = _unrolled_det(E)
+    nonsing = det.abs() > 1e-5
+    safe_det = torch.where(nonsing, det, 1.0)
+    cs = _cramer_solve(E, fk, safe_det)
+    corr = cs[0][:, None] * hs[0]
+    for ci, hi in zip(cs[1:], hs[1:]):
+        corr = corr + ci[:, None] * hi
+    post_m = (flows + corr @ sys.br_transfer.T) * (1.0 - br_down)
+    return multi & nonsing & (post_m.abs() <= rate_ok).all(1)
+
+
+def _topk_lanes(need: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the first ``k`` lanes with needy lanes first, each group
+    in ascending lane order (the reference's top_k compaction: unique
+    integer scores, so the selected set and order are exact)."""
+    B = need.shape[0]
+    score = need.to(torch.int32) * (2 * B) - torch.arange(
+        B, dtype=torch.int32, device=need.device)
+    return torch.topk(score, k).indices
+
+
+def certify_states(sys: System, comp_down: torch.Tensor,
+                   load_pu: torch.Tensor, shed_hint=None,
+                   repair_iters: int = 3, repair_buffer: int | None = None,
+                   woodbury_k: int = 2) -> Certificate:
+    """Tier-1 exact bound certificate (batch); mirrors reference
+    ``engines/dcopf.py::certify_states``.
+
+    DNS >= deficit = max(0, load - cap). A balanced dispatch/shed
+    candidate at exactly that bound whose post-outage flows fit the
+    ratings proves the bound optimal: intact and single-outage lanes via
+    the LODF rank-1 update (with the repair descent), 2..``woodbury_k``
+    outages via the rank-k Woodbury update. ``repair_buffer`` compacts
+    the repair descent onto that many needy lanes (same results while
+    the buffer covers them; excess lanes stay uncertified).
+    """
+    ng = sys.n_gen
+    dt = _fdt(sys)
+    gen_up = 1.0 - comp_down[:, :ng].to(dt)
+    cap = gen_up @ sys.gen_pmax
+    load_tot = load_pu.sum(1)
+    deficit = torch.clamp_min(load_tot - cap, 0.0)
+
+    served = load_tot - deficit
+    cand = _shed_candidate(sys, load_pu, deficit, load_tot, shed_hint)
+    gen_cap = sys.gen_pmax[None, :] * gen_up
+    dispatch = _dispatch_candidate(sys, gen_cap, load_pu, cand, served)
+
+    def flows_of(shed):
+        inj = (dispatch @ sys.gen_bus_onehot.T + shed @ sys.load_onehot.T
+               - load_pu @ sys.load_onehot.T)
+        return inj @ sys.ptdf.T
+
+    rate_ok = sys.br_rate[None, :] + 1e-4
+    ptdf_load = sys.ptdf @ sys.load_onehot
+    flows = flows_of(cand)
+
+    # Post-outage flows via the LODF rank-1 update as a shared matmul
+    # ((br_down * f) @ lodf.T == lodf[:, k] f_k for one outage k), exact
+    # for n_out <= 1; islanding columns carry the 1e6 sentinel.
+    br_down = comp_down[:, ng:].to(dt)
+    n_out = br_down.sum(1)
+    eligible = n_out <= 1
+
+    def post_flows(f):
+        return (f + (br_down * f) @ sys.lodf.T) * (1.0 - br_down)
+
+    best_ok = (post_flows(flows).abs() <= rate_ok).all(1)
+    ptdf_gen = sys.ptdf @ sys.gen_bus_onehot
+
+    def repair_loop(*lane_args):
+        return _repair_descent(sys, repair_iters, rate_ok, ptdf_gen,
+                               ptdf_load, *lane_args)
+
+    if repair_iters > 0 and repair_buffer is not None:
+        B = comp_down.shape[0]
+        rbuf = min(int(repair_buffer), B)
+        need = (~best_ok) & eligible
+        ridx = _topk_lanes(need, rbuf)   # unique lanes: plain writes are exact
+        rvalid = (torch.arange(rbuf, device=need.device) < need.sum()) \
+            & need[ridx]
+        okr, bshed_r, bdisp_r = repair_loop(
+            load_pu[ridx], cand[ridx], dispatch[ridx], gen_cap[ridx],
+            br_down[ridx], served[ridx], deficit[ridx],
+            post_flows(flows)[ridx],
+            torch.zeros(rbuf, dtype=torch.bool, device=need.device))
+        upd = rvalid & okr
+        best_ok = best_ok.clone()
+        best_ok[ridx] = best_ok[ridx] | upd
+        cand = cand.clone()
+        cand[ridx] = torch.where(upd[:, None], bshed_r, cand[ridx])
+        dispatch = dispatch.clone()
+        dispatch[ridx] = torch.where(upd[:, None], bdisp_r, dispatch[ridx])
+    elif repair_iters > 0:
+        best_ok, cand, dispatch = repair_loop(
+            load_pu, cand, dispatch, gen_cap, br_down, served, deficit,
+            post_flows(flows), best_ok)
+    certified = (eligible & best_ok) | _woodbury_multi_ok(
+        sys, flows, br_down, n_out, rate_ok, woodbury_k)
+    return Certificate(certified=certified, deficit=deficit, shed=cand,
+                       dispatch=dispatch)
+
+
+def calibrate_shed_hint(sys: System, batch: int = 8192, seed: int = 987,
+                        margin_frac: float = 0.02) -> np.ndarray | None:
+    """One-time static shed-direction calibration; mirrors reference
+    ``engines/dcopf.py::calibrate_shed_hint``.
+
+    Samples a calibration batch, collects the repaired sheds of lanes the
+    first flow check fails but six repair steps rescue (against ratings
+    tightened by ``margin_frac``, falling back to the real ratings when
+    that rescues < 32 lanes), and returns their mean normalized pattern
+    ([n_load] float32, sums to 1), or None. The hint only picks which
+    optimal candidate is tried, so a different sampler stream (Philox
+    here, threefry in the reference) moves LP routing, never results.
+    """
+    from powersystemsreliabilityassessment_tpu_torch.sampling.state import (
+        sample_states)
+    sys_tight = dataclasses.replace(
+        sys, br_rate=sys.br_rate * (1.0 - margin_frac))
+    gen = torch.Generator(device=sys.device)
+    gen.manual_seed(seed)
+    down = sample_states(gen, sys.unavail, sys.always_up_nsq, batch)
+    load = sys.load_pd[None, :].expand(batch, sys.n_load)
+    r0 = certify_states(sys_tight, down, load, repair_iters=0)
+    r3 = certify_states(sys_tight, down, load, repair_iters=6)
+    rescued = (r3.certified & ~r0.certified).cpu().numpy()
+    if int(rescued.sum()) < 32:
+        if margin_frac > 0.0:
+            return calibrate_shed_hint(sys, batch, seed, margin_frac=0.0)
+        return None
+    shed = r3.shed.cpu().numpy().astype(np.float64)[rescued]
+    pat = (shed / np.maximum(shed.sum(axis=1, keepdims=True), 1e-9)
+           ).mean(axis=0)
+    s = float(pat.sum())
+    if not np.isfinite(s) or s <= 0:
+        # Every rescued lane had zero deficit (a dispatch-only repair
+        # against the tightened ratings), so there is no shed pattern to
+        # average: fall back to the real ratings as for too few lanes.
+        # (The reference returns None here; ROADMAP.md Queue 3.)
+        if margin_frac > 0.0:
+            return calibrate_shed_hint(sys, batch, seed, margin_frac=0.0)
+        return None
+    return (pat / s).astype(np.float32)
+
+
+def default_repair_buffer(batch: int, outage_boost: float = 1.0,
+                          hinted: bool = False) -> int | None:
+    """Compacted-repair buffer policy; mirrors reference
+    ``engines/dcopf.py::default_repair_buffer``: ``batch // 8`` covers the
+    ~7% of RTS-24 peak lanes that fail the first flow check; with a shed
+    hint ~0.04% do, and ``batch // 64`` remains. Boosted sampling repairs
+    full-batch (None)."""
+    if outage_boost > 1.0:
+        return None
+    return min(batch, max(2048, batch // (64 if hinted else 8)))
+
+
+def overgen_infeasible(sys: System, comp_down, load_pu,
+                       compat: CompatFlags) -> torch.Tensor:
+    """[B] bool: committed minimum generation exceeds demand (only with
+    ``compat.enforce_pmin``). Mirrors reference
+    ``engines/dcopf.py::overgen_infeasible``."""
+    if not compat.enforce_pmin:
+        return torch.zeros(comp_down.shape[0], dtype=torch.bool,
+                           device=comp_down.device)
+    dt = _fdt(sys)
+    gen_up = 1.0 - comp_down[:, :sys.n_gen].to(dt)
+    pmin_committed = (gen_up * (sys.gen_pmax > 0).to(dt)) @ sys.gen_pmin
+    return pmin_committed > load_pu.sum(1) + 1e-9
+
+
+def _solve_batch(sys: System, comp_down, load_pu, compat: CompatFlags,
+                 ipm: IPMConfig):
+    """LP tier on every lane through the structured route (K1 + polish);
+    mirrors reference ``engines/dcopf.py::_solve_batch`` (structured
+    branch; any batch size, no padding). Returns (shed, pg, quality)."""
+    from powersystemsreliabilityassessment_tpu_torch.engines import (
+        lp_ipm_structured)
+    from powersystemsreliabilityassessment_tpu_torch.ops.ipm_fused import (
+        build_structure)
+    ng, nd, nl = sys.n_gen, sys.n_load, sys.n_branch
+    n_vars = ng + nd + nl + sys.n_bus
+    up = 1.0 - comp_down.to(_fdt(sys))
+    gen_up, br_up = up[:, :ng], up[:, ng:ng + nl].contiguous()
+    c, b, l, u, colscale = build_state_lp_vectors(
+        sys, gen_up, br_up, load_pu, compat, ipm.theta_max)
+    sol = lp_ipm_structured.solve_box_lp_structured(
+        build_structure(sys), colscale, br_up, c, b, l, u, ipm)
+    # Lane quality: primal infeasibility plus the duality-gap bound 2n*mu.
+    quality = sol.primal_residual + 2 * n_vars * sol.duality_gap
+    return sol.x[:, ng:ng + nd], sol.x[:, :ng], quality
+
+
+def _finalize(sys: System, compat: CompatFlags, shed, pg, res, comp_down,
+              load_pu, woodbury_k: int = 2) -> EvalResult:
+    """Certificate override, quality guard and noise floors; mirrors
+    reference ``engines/dcopf.py::_finalize``."""
+    cert = certify_states(sys, comp_down, load_pu, shed_hint=shed,
+                          woodbury_k=woodbury_k)
+    shed = torch.where(cert.certified[:, None], cert.shed, shed)
+    pg = torch.where(cert.certified[:, None], cert.dispatch, pg)
+    base = sys.base_mva
+    dns = torch.where(cert.certified, cert.deficit * base, shed.sum(1) * base)
+    # Untrustworthy LP lanes (large residual or gap, NaN included) fall
+    # back to the copper-sheet bound and the certificate's pattern.
+    bad = (~cert.certified) & ~(res <= 5e-3)
+    dns = torch.where(bad, cert.deficit * base, dns)
+    shed = torch.where(bad[:, None], cert.shed, shed)
+    nodal = (shed * base) @ sys.load_onehot.T
+    dns = torch.where(dns < compat.dns_noise_floor_mw, 0.0, dns)
+    nodal = torch.where((nodal > compat.nodal_noise_threshold_mw)
+                        & (dns[:, None] > 0), nodal, 0.0)
+    return EvalResult(dns_mw=dns, nodal_mw=nodal,
+                      failure=dns > compat.nsq_fail_flag_threshold_mw,
+                      primal_residual=res, gen_dispatch=pg,
+                      infeasible=overgen_infeasible(sys, comp_down, load_pu,
+                                                    compat))
+
+
+def _check_compat(compat: CompatFlags) -> None:
+    if compat.island_blackout:
+        raise NotImplementedError(
+            "compat.island_blackout is not ported yet (ROADMAP.md Queue 1 "
+            "item 14)")
+
+
+def evaluate_states(sys: System, comp_down: torch.Tensor,
+                    load_pu: torch.Tensor,
+                    compat: CompatFlags = CompatFlags(),
+                    ipm: IPMConfig = IPMConfig(),
+                    woodbury_k: int = 2) -> EvalResult:
+    """Evaluate a batch of states: the LP on every lane plus the
+    certificate override; mirrors reference
+    ``engines/dcopf.py::evaluate_states``.
+
+    ``comp_down`` [B, n_comp] bool (True = failed); ``load_pu`` [B, n_load].
+    """
+    _check_compat(compat)
+    shed, pg, res = _solve_batch(sys, comp_down, load_pu, compat, ipm)
+    return _finalize(sys, compat, shed, pg, res, comp_down, load_pu,
+                     woodbury_k)
+
+
+def _scatter_valid(dst, idx, valid, src):
+    """dst[idx[j]] = src[j] for every valid slot j, without a host sync.
+    Invalid slots (which may repeat lane indices) are sent to a scratch
+    row past the end, so the valid, unique indices are the only writes
+    that land and no write has an undefined winner."""
+    B = dst.shape[0]
+    buf = torch.cat([dst, dst[:1]], dim=0)
+    buf[torch.where(valid, idx, B)] = src
+    return buf[:B]
+
+
+def evaluate_states_screened(sys: System, comp_down: torch.Tensor,
+                             load_pu: torch.Tensor, max_lp: int,
+                             compat: CompatFlags = CompatFlags(),
+                             ipm: IPMConfig = IPMConfig(),
+                             nodal_mode: str = "lp",
+                             repair_buffer: int | None = None,
+                             woodbury_k: int = 2, shed_hint=None):
+    """Screened evaluation: the LP only on lanes that need it; mirrors
+    reference ``engines/dcopf.py::evaluate_states_screened`` (without
+    ``pre`` and ``pf_buffer``).
+
+    Lanes certified at zero deficit are resolved by tier 1; the rest
+    (``nodal_mode="lp"``: every uncertified or positive-deficit lane;
+    ``"proportional"``: uncertified lanes only) are compacted into a
+    ``max_lp`` buffer and solved by ``evaluate_states``. Lanes that do
+    not fit keep the tier-1 bound and are counted in ``n_overflow``.
+    ``shed_hint`` [n_load] is the ``calibrate_shed_hint`` pattern.
+
+    Returns ``(EvalResult, n_overflow)``, both on the device; nothing in
+    here waits for the device when ``shed_hint`` is already a tensor on
+    it (a host array is copied, which synchronizes the stream).
+    """
+    _check_compat(compat)
+    B = comp_down.shape[0]
+    hint_b = None
+    if shed_hint is not None:
+        hint = torch.as_tensor(shed_hint, dtype=load_pu.dtype,
+                               device=load_pu.device)
+        hint_b = hint[None, :].expand(load_pu.shape)
+    pre = certify_states(sys, comp_down, load_pu, shed_hint=hint_b,
+                         repair_buffer=repair_buffer, woodbury_k=woodbury_k)
+    if nodal_mode == "proportional":
+        need_lp = ~pre.certified
+    else:
+        need_lp = ~(pre.certified & (pre.deficit <= 0))
+
+    idx = _topk_lanes(need_lp, min(max_lp, B))
+    if idx.shape[0] < max_lp:
+        idx = torch.cat([idx, torch.zeros(max_lp - idx.shape[0],
+                                          dtype=idx.dtype,
+                                          device=idx.device)])
+    valid = (torch.arange(max_lp, device=idx.device) < need_lp.sum()) \
+        & need_lp[idx]
+
+    sub = evaluate_states(sys, comp_down[idx], load_pu[idx], compat, ipm,
+                          woodbury_k)
+
+    base = sys.base_mva
+    dns = _scatter_valid(pre.deficit * base, idx, valid, sub.dns_mw)
+    nodal = _scatter_valid((pre.shed * base) @ sys.load_onehot.T, idx,
+                           valid, sub.nodal_mw)
+    pg = _scatter_valid(pre.dispatch, idx, valid, sub.gen_dispatch)
+    res = _scatter_valid(torch.zeros_like(dns), idx, valid,
+                         sub.primal_residual)
+
+    dns = torch.where(dns < compat.dns_noise_floor_mw, 0.0, dns)
+    nodal = torch.where((nodal > compat.nodal_noise_threshold_mw)
+                        & (dns[:, None] > 0), nodal, 0.0)
+    n_overflow = torch.clamp_min(need_lp.sum() - max_lp, 0)
+    return EvalResult(dns_mw=dns, nodal_mw=nodal,
+                      failure=dns > compat.nsq_fail_flag_threshold_mw,
+                      primal_residual=res, gen_dispatch=pg,
+                      infeasible=overgen_infeasible(sys, comp_down, load_pu,
+                                                    compat)), n_overflow

@@ -1,0 +1,115 @@
+"""Build and load the package's hand-written CUDA kernels.
+
+The CUDA C++ sources in ``csrc/`` are compiled at first use by ``nvcc``
+for Hopper (``-gencode arch=compute_90a,code=sm_90a``) into one shared
+library with a plain C interface, bound with ``ctypes``. The library is
+cached in ``_build/`` inside the package directory (listed in
+``.gitignore``) under a name that hashes the sources, so an edited
+source is rebuilt and a stale library is never loaded. Nothing here runs
+at import time: a machine without ``nvcc`` or a card imports the package
+and uses the kernels' plain PyTorch versions on CPU tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lib: ctypes.CDLL | None = None
+# Filled by the first load: wall seconds spent building (0.0 when the
+# cached library was reused) and the compiler's per-kernel resource
+# report (registers, shared memory, spills).
+build_info: dict = {}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "psra_cholesky": [_P, _P, _I, _I, _P],
+    "psra_cho_solve": [_P, _P, _P, _I, _I, _P],
+    "psra_fused_ipm": [_P] * 15 + [_I] * 6 + [_F] * 4 + [_P],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit on the machine with the card")
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        _lib = _build_and_load()
+    return _lib
+
+
+def _build_and_load() -> ctypes.CDLL:
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256()
+    for path in sorted(CSRC.glob("*.cu*")):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    so = BUILD_DIR / f"libpsra_kernels_{digest.hexdigest()[:16]}.so"
+    t0 = time.perf_counter()
+    report = ""
+    if not so.exists():
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        report = proc.stderr
+        os.replace(tmp, so)   # atomic: a concurrent process never loads a partial file
+    build_info.update(seconds=time.perf_counter() - t0, library=so.name,
+                      ptxas=report)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check_launch(err: int, name: str) -> None:
+    """Raise if a C launcher reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def stream_handle(t: torch.Tensor) -> int:
+    """PyTorch's current stream on ``t``'s device, as a pointer value."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_operand(t: torch.Tensor, name: str, shape: tuple) -> None:
+    """Validate a kernel operand: CUDA, float32, contiguous, ``shape``."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name}: expected float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

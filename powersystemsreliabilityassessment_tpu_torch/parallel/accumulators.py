@@ -1,0 +1,136 @@
+"""Reliability-index accumulators: device partial sums, host float64 stats.
+
+Port of ``powersystemsreliabilityassessment_tpu/parallel/accumulators.py``
+(``BatchMoments``, ``batch_moments``, ``RunningStats``). Each batch's
+partial sums are taken on the device; the host folds them into float64
+running statistics and evaluates the beta stopping rule. The mesh
+``psum`` is not ported (one device; ROADMAP.md Queue 1 item 18).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+class BatchMoments(NamedTuple):
+    """Partial sums over one batch; mirrors reference ``BatchMoments``.
+    Fields are device tensors after ``batch_moments`` and float64 numpy
+    values once fetched (``RunningStats.update`` takes either)."""
+    n: object             # sample count
+    sum_dns: object       # sum of DNS (MW), or of control-variate residuals
+    sum_dns_sq: object    # sum of squares of the same
+    sum_flag: object      # failure count (or residuals)
+    sum_nodal: object     # [nb] sum of nodal shed (MW)
+    sum_comp_fail: object  # [n_comp] comp-down counts over failure states
+    sum_flag_raw: object  # raw failure count (importance denominator)
+
+
+def batch_moments(dns_mw, nodal_mw, failure, comp_down,
+                  cv=None) -> BatchMoments:
+    """Partial sums of one batch; mirrors reference
+    ``parallel/accumulators.py::batch_moments`` (unweighted).
+
+    ``cv = (c_mw, c_flag)``: the DNS/flag sums and second moment track
+    the RESIDUALS dns - c / flag - c_flag, and ``RunningStats.mu_dns`` /
+    ``mu_flag`` add the exact means back on the host. Keeping the device
+    sums residual-only matters: float32 accumulation of sum((r + mu)^2)
+    loses the whole residual variance to cancellation (the reference's
+    silent early stop, NEXT.md #11).
+    """
+    f = failure.to(dns_mw.dtype)
+    v, vf = dns_mw, f
+    if cv is not None:
+        c_mw, c_flag = cv
+        v = dns_mw - c_mw
+        vf = f - c_flag.to(dns_mw.dtype)
+    return BatchMoments(
+        n=dns_mw.new_full((), float(dns_mw.shape[0])),
+        sum_dns=v.sum(), sum_dns_sq=(v * v).sum(), sum_flag=vf.sum(),
+        sum_nodal=nodal_mw.sum(0),
+        sum_comp_fail=f @ comp_down.to(dns_mw.dtype),
+        sum_flag_raw=f.sum())
+
+
+def _f64(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a, np.float64)
+
+
+@dataclasses.dataclass
+class RunningStats:
+    """Host-side float64 cross-batch accumulator (NSQ path); mirrors
+    reference ``parallel/accumulators.py::RunningStats``.
+
+    Under a control variate the dns/flag sums hold residuals and
+    ``mu_dns`` / ``mu_flag`` carry the exact means added back when
+    reporting; both default to 0 (plain Monte Carlo). The reference's
+    enumeration-hybrid offsets (``mu_nodal``, ``mu_comp_fail``,
+    ``mu_flag_raw``) come with the enumeration hybrid.
+    """
+
+    n: float = 0.0
+    sum_dns: float = 0.0
+    sum_dns_sq: float = 0.0
+    sum_flag: float = 0.0
+    sum_nodal: np.ndarray | None = None
+    sum_comp_fail: np.ndarray | None = None
+    mu_dns: float = 0.0
+    mu_flag: float = 0.0
+    sum_flag_raw: float = 0.0
+
+    def update(self, m: BatchMoments) -> None:
+        m = BatchMoments(*(_f64(a) for a in m))
+        self.n += float(m.n)
+        self.sum_dns += float(m.sum_dns)
+        self.sum_dns_sq += float(m.sum_dns_sq)
+        self.sum_flag += float(m.sum_flag)
+        self.sum_flag_raw += float(m.sum_flag_raw)
+        self.sum_nodal = (m.sum_nodal if self.sum_nodal is None
+                          else self.sum_nodal + m.sum_nodal)
+        self.sum_comp_fail = (m.sum_comp_fail if self.sum_comp_fail is None
+                              else self.sum_comp_fail + m.sum_comp_fail)
+
+    @property
+    def edns(self) -> float:
+        return self.mu_dns + self.sum_dns / max(self.n, 1.0)
+
+    @property
+    def plc(self) -> float:
+        return self.mu_flag + self.sum_flag / max(self.n, 1.0)
+
+    def lole(self, hours_per_year: float = 8760.0) -> float:
+        return self.plc * hours_per_year
+
+    @property
+    def beta(self) -> float:
+        """Coefficient of variation of the EDNS estimator (nsqMain.m:297-301):
+        sqrt(sum (dns - mean)^2) / (N * EDNS), the spread taken from the
+        (residual) moments and the mean including the offset."""
+        mean = self.edns
+        if self.n <= 0 or mean <= 0:
+            return float("inf")
+        rbar = self.sum_dns / self.n
+        ss = max(self.sum_dns_sq - self.n * rbar * rbar, 0.0)
+        if ss == 0.0 and self.mu_dns > 0.0:
+            # Residual mode with no residual variance observed yet:
+            # convergence cannot be assessed.
+            return float("inf")
+        return float(np.sqrt(ss) / (self.n * mean))
+
+    def nodal_eens(self, hours_per_year: float = 8760.0) -> np.ndarray:
+        """Per-bus EENS MWh/yr (nsqMain.m:345-358)."""
+        return self.sum_nodal / max(self.n, 1.0) * hours_per_year
+
+    def component_importance(self) -> np.ndarray:
+        """P(component down | system failure) (nsqMain.m:360-376), from
+        the raw failure count."""
+        if self.sum_comp_fail is None:
+            return np.zeros(0)
+        den = self.sum_flag_raw or self.sum_flag
+        if den == 0:
+            return np.zeros(0)
+        return self.sum_comp_fail / den

@@ -1,0 +1,67 @@
+"""Dataclass configuration objects.
+
+Port of ``powersystemsreliabilityassessment_tpu/utils/config.py``
+(``CompatFlags``, ``IPMConfig``, ``MCSConfig``). Field names, defaults and
+meanings are the reference's. The port carries only the fields its
+ported code reads; the reference's options for paths not ported yet
+(antithetic and importance sampling, cross-entropy proposals, the fused
+tier-1 kernel, the large-m rescue ladder) arrive with those paths
+(ROADMAP.md Queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class CompatFlags:
+    """Reproducibility switches; mirrors reference ``CompatFlags``
+    (utils/config.py). Defaults replicate the reference behaviour."""
+
+    # mc_sampling.m:40-41: the sync condenser (component 15, 1-based) is
+    # pinned up in the NSQ sampler.
+    sync_cond_always_up_nsq: bool = True
+    # mc_simulation.m:57-59: DNS noise floor.
+    dns_noise_floor_mw: float = 0.1
+    # nsqMain.m:270: failure flag threshold on total DNS.
+    nsq_fail_flag_threshold_mw: float = 1e-4
+    # mc_simulation.m:86: nodal shed noise threshold.
+    nodal_noise_threshold_mw: float = 1e-3
+    # NSQ LOLE annualization uses 8760 h.
+    hours_per_year_annualize: int = 8760
+    # Committed-unit Pmin in the min-shed LP (reference default False).
+    enforce_pmin: bool = False
+    # Shed islands outright (reference option; not ported yet — the port
+    # raises NotImplementedError when it is set).
+    island_blackout: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class MCSConfig:
+    """Monte Carlo study configuration; mirrors reference ``MCSConfig``."""
+
+    seed: int = 0
+    batch_size: int = 8192
+    max_samples: int = 100_000      # NSQ cap (nsqMain.m:61)
+    beta_limit: float = 0.0017      # NSQ convergence target (nsqMain.m:60)
+    # Certificate multi-branch-outage rank; None = auto per system
+    # (studies.hl2_nsq.default_woodbury_k).
+    woodbury_k: int | None = None
+    # "lp": deficit states get their nodal split from the LP;
+    # "proportional": certified deficit states keep the certificate's
+    # pattern (same aggregate indices, fewer LP lanes).
+    nodal_mode: str = "lp"
+
+
+@dataclasses.dataclass(frozen=True)
+class IPMConfig:
+    """Batched interior-point settings; mirrors reference ``IPMConfig``."""
+
+    iterations: int = 16
+    tau: float = 0.99               # fraction-to-boundary
+    regularization: float = 1e-7    # normal-matrix diagonal shift
+    theta_max: float = 6.0          # voltage-angle box, rad
+    # Freeze threshold on the mean complementarity product mu.
+    mu_tol: float = 1e-7
+    # Below this mu, damped pure-centering steps replace Mehrotra steps.
+    center_tol: float = 1e-4

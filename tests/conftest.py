@@ -21,3 +21,8 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skipped where there is none")

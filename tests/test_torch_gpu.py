@@ -1,0 +1,217 @@
+"""PyTorch port on a CUDA card: the hand-written kernels against their
+plain PyTorch versions, the main path on the card against the same path
+on the CPU, and the 98-state golden replay on the card
+(tests/test_torch_nsq.py runs it on the CPU through the same helper).
+
+Tests that need a card carry the ``gpu`` marker and skip without one.
+The file imports neither JAX nor the JAX package, so it also runs where
+JAX is not installed, without the suite's conftest:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+"""
+import json
+import math
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from powersystemsreliabilityassessment_tpu_torch.core import cases
+from powersystemsreliabilityassessment_tpu_torch.core.system import (
+    build_system)
+from powersystemsreliabilityassessment_tpu_torch.engines import (
+    dcopf, lp_ipm_structured)
+from powersystemsreliabilityassessment_tpu_torch.models import twostate
+from powersystemsreliabilityassessment_tpu_torch.ops import (
+    batched_chol as bc, ipm_fused)
+from powersystemsreliabilityassessment_tpu_torch.studies import hl2_nsq
+from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+    CompatFlags, IPMConfig, MCSConfig)
+
+# The suite runs several pytest workers side by side: one PyTorch
+# intra-op thread per worker keeps them from oversubscribing the cores.
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _stressed_states(n, seed):
+    """3x unavailability, three branch outages on every 32nd lane."""
+    case = cases.rts24()
+    u = twostate.unavailability(case)
+    rng = np.random.default_rng(seed)
+    down = rng.uniform(size=(n, case.n_comp)) < 3 * u[None, :]
+    down[:, 14] = False
+    for lane in range(0, n, 32):
+        down[lane, case.n_gen + rng.choice(case.n_branch, 3,
+                                           replace=False)] = True
+    return down
+
+
+def _lp_inputs(sys_, down):
+    up = 1.0 - torch.as_tensor(down, device=sys_.device).float()
+    gen_up, br_up = up[:, :sys_.n_gen], up[:, sys_.n_gen:].contiguous()
+    load = sys_.load_pd[None, :].expand(down.shape[0], sys_.n_load)
+    c, b, l, u, cs = dcopf.build_state_lp_vectors(
+        sys_, gen_up, br_up, load, CompatFlags(), IPMConfig().theta_max)
+    return cs, br_up, c, b, l, u
+
+
+def golden_states(case, sys_):
+    """scripts/golden_replay.py::build_state_set, in numpy: 40 stressed
+    states, every N-1 branch outage, 12 N-2 pairs, 8 off-peak states."""
+    rng = np.random.default_rng(2024)
+    u = twostate.unavailability(case)
+    nc, nl, ng = case.n_comp, case.n_branch, case.n_gen
+    peak = sys_.load_pd.double().numpy()
+    downs, loads, tags = [], [], []
+    st = rng.uniform(size=(40, nc)) < 3 * u[None, :]
+    st[:, 14] = False
+    for i, s in enumerate(st):
+        downs.append(s); loads.append(peak); tags.append(f"stress{i}")
+    for k in range(nl):
+        s = np.zeros(nc, bool); s[ng + k] = True
+        downs.append(s); loads.append(peak); tags.append(f"N-1 line{k}")
+    for i in range(12):
+        k1, k2 = rng.choice(nl, 2, replace=False)
+        s = np.zeros(nc, bool); s[ng + k1] = True; s[ng + k2] = True
+        downs.append(s); loads.append(peak); tags.append(f"N-2 l{k1}+l{k2}")
+    st2 = rng.uniform(size=(8, nc)) < 3 * u[None, :]
+    st2[:, 14] = False
+    for i, s in enumerate(st2):
+        downs.append(s); loads.append(0.6 * peak); tags.append(f"offpeak{i}")
+    return np.asarray(downs), np.asarray(loads, np.float32), tags
+
+
+def check_golden_replay(device):
+    """The 98 golden states through ``evaluate_states`` on ``device``,
+    against tests/golden/golden_replay.json within 0.05 MW (the oracle
+    tolerance of scripts/golden_replay.py:53, ORACLE_TOL_MW)."""
+    golden = json.loads((ROOT / "tests" / "golden"
+                         / "golden_replay.json").read_text())
+    case = cases.rts24()
+    sys_ = build_system(case, device=device)
+    downs, loads, tags = golden_states(case, build_system(case))
+    assert tags == golden["tags"]
+    res = dcopf.evaluate_states(sys_, torch.as_tensor(downs, device=device),
+                                torch.as_tensor(loads, device=device))
+    err = np.abs(res.dns_mw.double().cpu().numpy()
+                 - np.asarray(golden["dns_mw"]))
+    assert err.max() <= 0.05, (tags[int(err.argmax())], err.max())
+
+
+@pytest.mark.gpu
+def test_golden_replay_on_card(cuda):
+    check_golden_replay(cuda)
+
+
+@pytest.mark.gpu
+def test_k2_kernels_match_plain(cuda):
+    rng = np.random.default_rng(3)
+    G = rng.normal(size=(256, 62, 66))
+    M = G @ G.transpose(0, 2, 1)
+    s = 1.0 / np.sqrt(np.einsum("bii->bi", M))
+    M = M * s[:, :, None] * s[:, None, :] + 1e-7 * np.eye(62)
+    M[0] = np.eye(62)
+    M[0, 0, 1] = M[0, 1, 0] = 1.0005          # floored negative pivot
+    M = torch.as_tensor(M, dtype=torch.float32, device=cuda)
+    r = torch.as_tensor(rng.normal(size=(256, 62)), dtype=torch.float32,
+                        device=cuda)
+    before = dict(bc.launches)
+    L_k, L_p = bc.cholesky(M), bc.cholesky_plain(M)
+    x_k, x_p = bc.cho_solve(L_p, r), bc.cho_solve_plain(L_p, r)
+    torch.cuda.synchronize()
+    assert bc.launches["cholesky"] == before["cholesky"] + 1
+    assert bc.launches["cho_solve"] == before["cho_solve"] + 1
+    # Same algorithm in float32: rounding order and rsqrtf only.
+    assert float((L_k - L_p).abs().max()) < 1e-4
+    scale = torch.clamp_min(x_p.abs().amax(1, keepdim=True), 1.0)
+    assert float(((x_k - x_p) / scale).abs().max()) < 1e-4
+    assert float(L_k[0, 1, 1]) == pytest.approx(-1.0, abs=1e-3)
+
+
+@pytest.mark.gpu
+def test_k1_kernel_matches_plain(cuda):
+    sys_ = build_system(cases.rts24(), device=cuda)
+    st = ipm_fused.build_structure(sys_)
+    args = _lp_inputs(sys_, _stressed_states(256, 11))
+    before = ipm_fused.launches["fused_ipm_iterations"]
+    ker = ipm_fused.fused_ipm_iterations(st, *args, IPMConfig())
+    pla = ipm_fused.fused_ipm_iterations_plain(st, *args, IPMConfig())
+    torch.cuda.synchronize()
+    assert ipm_fused.launches["fused_ipm_iterations"] == before + 1
+    assert all(bool(torch.isfinite(t).all()) for t in ker)
+    assert float((ker[4] - pla[4]).abs().max()) < 1e-3
+    sol = lp_ipm_structured.solve_box_lp_structured(st, *args, IPMConfig())
+    assert float(sol.primal_residual.max()) < 2e-3
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_reject_bad_operands(cuda):
+    M = torch.eye(62, device=cuda).repeat(4, 1, 1)
+    with pytest.raises(ValueError, match="float32"):
+        bc.cholesky(M.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        bc.cholesky(M.transpose(1, 2))
+    with pytest.raises(ValueError, match="m <= 72"):
+        bc.cholesky(torch.eye(80, device=cuda).repeat(2, 1, 1))
+
+
+@pytest.mark.gpu
+def test_screened_evaluation_on_card_matches_cpu(cuda):
+    down = _stressed_states(4096, 23)
+    out = {}
+    for dev in ("cpu", cuda):
+        sys_ = build_system(cases.rts24(), device=dev)
+        load = sys_.load_pd[None, :].expand(down.shape[0], sys_.n_load)
+        res, over = dcopf.evaluate_states_screened(
+            sys_, torch.as_tensor(down, device=dev), load, 256,
+            nodal_mode="proportional",
+            repair_buffer=dcopf.default_repair_buffer(4096))
+        out[str(dev)] = (res.dns_mw.cpu().numpy(), res.failure.cpu().numpy(),
+                         int(over))
+    (d_cpu, f_cpu, o_cpu), (d_gpu, f_gpu, o_gpu) = out.values()
+    assert o_cpu == o_gpu == 0
+    assert np.abs(d_gpu - d_cpu).max() <= 0.05   # ORACLE_TOL_MW
+    assert (f_gpu == f_cpu).mean() >= 0.999
+
+
+@pytest.mark.gpu
+def test_batch_step_never_waits_for_the_device(cuda):
+    sys_ = build_system(cases.rts24(), device=cuda)
+    step = hl2_nsq.make_nsq_batch_step(
+        sys_, 8192, CompatFlags(), IPMConfig(), max_lp=256,
+        nodal_mode="proportional",
+        shed_hint=np.full(sys_.n_load, 1.0 / sys_.n_load, np.float32))
+    step(hl2_nsq.batch_generator(0, 0, cuda))      # builds the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m, n_over, n_infeas = step(hl2_nsq.batch_generator(0, 1, cuda))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float(m.n) == 8192 and int(n_over) == 0
+
+
+@pytest.mark.gpu
+def test_small_study_on_card(cuda):
+    ref = json.loads((ROOT / "results" / "nsq_results.json").read_text())
+    before = ipm_fused.launches["fused_ipm_iterations"]
+    res = hl2_nsq.run_nsq_study(
+        cases.rts24(), MCSConfig(batch_size=4096, max_samples=16384),
+        device=cuda, log_every=0)
+    assert ipm_fused.launches["fused_ipm_iterations"] > before
+    se_e = math.hypot(ref["beta"] * ref["edns_mw"], res.beta * res.edns_mw)
+    assert abs(res.edns_mw - ref["edns_mw"]) <= 4 * se_e
+    se_p = math.hypot(
+        math.sqrt(ref["plc"] * (1 - ref["plc"]) / ref["samples"]),
+        math.sqrt(res.plc * (1 - res.plc) / res.samples))
+    assert abs(res.plc - ref["plc"]) <= 4 * se_p

@@ -1,0 +1,170 @@
+"""PyTorch port: the K1 fused IPM (``ops/ipm_fused.py``) and the structured
+LP solver (``engines/lp_ipm_structured.py``).
+
+The plain PyTorch K1 is held against the reference Pallas kernel
+``fused_ipm_iterations``, run in interpret mode on the CPU (as
+tests/test_ipm_fused.py runs it), on B = 128 stressed RTS-24 lanes: tightly
+after 2 iterations, and after the full 16 plus the polish on the LP
+objective within 1e-3 p.u. (0.1 MW, tests/test_ipm_fused.py's bound). The
+CUDA kernel is held against the plain version on the card in
+tests/test_torch_gpu.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from powersystemsreliabilityassessment_tpu.core import cases as ref_cases
+from powersystemsreliabilityassessment_tpu.core.system import (
+    build_system as ref_build_system)
+from powersystemsreliabilityassessment_tpu.engines import (
+    dcopf as ref_dcopf, lp_ipm_structured as ref_structured)
+from powersystemsreliabilityassessment_tpu.ops import ipm_fused as ref_fused
+from powersystemsreliabilityassessment_tpu.utils.config import (
+    CompatFlags as RefCompat, IPMConfig as RefIPM)
+
+from powersystemsreliabilityassessment_tpu_torch.core.system import (
+    from_reference)
+from powersystemsreliabilityassessment_tpu_torch.engines import (
+    dcopf, lp_ipm_batched, lp_ipm_structured)
+from powersystemsreliabilityassessment_tpu_torch.ops import ipm_fused
+from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+    CompatFlags, IPMConfig)
+
+# The suite runs several pytest workers side by side: one PyTorch
+# intra-op thread per worker keeps them from oversubscribing the cores.
+torch.set_num_threads(1)
+
+B = 128
+
+
+@pytest.fixture(scope="module")
+def setup():
+    """tests/test_ipm_fused.py's lanes: 3x unavailability, a single line
+    outage on every third lane, peak load."""
+    ref_sys = ref_build_system(ref_cases.rts24())
+    sys_ = from_reference(ref_sys)
+    ng, nl, nc = ref_sys.n_gen, ref_sys.n_branch, ref_sys.n_comp
+    rng = np.random.default_rng(11)
+    down = rng.uniform(size=(B, nc)) < 3 * np.asarray(ref_sys.unavail)[None]
+    down[:, 14] = False
+    down[np.arange(0, B, 3),
+         ng + rng.integers(0, nl, len(range(0, B, 3)))] = True
+    gu = (1.0 - down[:, :ng]).astype(np.float32)
+    bu = (1.0 - down[:, ng:]).astype(np.float32)
+    load = np.tile(np.asarray(ref_sys.load_pd)[None, :], (B, 1))
+    ref_vec = ref_dcopf.build_state_lp_vectors(
+        ref_sys, jnp.asarray(gu), jnp.asarray(bu), jnp.asarray(load),
+        RefCompat(), RefIPM().theta_max)
+    vec = dcopf.build_state_lp_vectors(
+        sys_, torch.as_tensor(gu), torch.as_tensor(bu),
+        torch.as_tensor(load), CompatFlags(), IPMConfig().theta_max)
+    return ref_sys, sys_, bu, ref_vec, vec
+
+
+def _np(t):
+    return np.array(t)
+
+
+def test_lp_vectors_match_reference(setup):
+    _, _, _, ref_vec, vec = setup
+    for r, g in zip(ref_vec, vec):
+        np.testing.assert_array_equal(_np(r), g.numpy())
+
+
+def test_materialized_lp_matches_reference(setup):
+    ref_sys, sys_, bu, _, _ = setup
+    gu, load = np.ones(33, np.float32), _np(ref_sys.load_pd)
+    ref = ref_dcopf.build_state_lp(ref_sys, jnp.asarray(gu),
+                                   jnp.asarray(bu[1]), jnp.asarray(load),
+                                   RefCompat(), 6.0)
+    got = dcopf.build_state_lp(sys_, torch.as_tensor(gu),
+                               torch.as_tensor(bu[1]),
+                               torch.as_tensor(load), CompatFlags(), 6.0)
+    for r, g in zip(ref, got):
+        np.testing.assert_array_equal(_np(r), g.numpy())
+
+
+def test_structure_matches_reference(setup):
+    ref_sys, sys_, _, _, _ = setup
+    ref_st, st = ref_fused.build_structure(ref_sys), \
+        ipm_fused.build_structure(sys_)
+    np.testing.assert_array_equal(_np(ref_st.a0_bal), st.a0_bal.numpy())
+    np.testing.assert_array_equal(_np(ref_st.minc_ref), st.minc_ref.numpy())
+    np.testing.assert_array_equal(_np(ref_st.inv_b)[:, 0], st.inv_b.numpy())
+    assert (st.n, st.m) == (ref_st.n, ref_st.m) == (112, 62)
+
+
+def test_structured_products_match_reference(setup):
+    ref_sys, sys_, bu, ref_vec, vec = setup
+    ref_st, st = ref_fused.build_structure(ref_sys), \
+        ipm_fused.build_structure(sys_)
+    rng = np.random.default_rng(5)
+    v = rng.normal(size=(B, 112)).astype(np.float32)
+    y = rng.normal(size=(B, 62)).astype(np.float32)
+    w = rng.uniform(0.5, 2.0, size=(B, 112)).astype(np.float32)
+    cs, rcs = vec[4], ref_vec[4]
+    bt, bj = torch.as_tensor(bu), jnp.asarray(bu)
+    # float32 sums of O(1) terms in another order: 2e-5, as
+    # tests/test_ipm_fused.py holds the same products.
+    pairs = [
+        (ref_structured.mv(ref_st, rcs, bj, jnp.asarray(v)),
+         lp_ipm_structured.mv(st, cs, bt, torch.as_tensor(v))),
+        (ref_structured.mtv(ref_st, rcs, bj, jnp.asarray(y)),
+         lp_ipm_structured.mtv(st, cs, bt, torch.as_tensor(y))),
+        (ref_structured.normal_matrix(ref_st, rcs * rcs * jnp.asarray(w), bj),
+         lp_ipm_structured.normal_matrix(st, cs * cs * torch.as_tensor(w),
+                                         bt)),
+    ]
+    for r, g in pairs:
+        np.testing.assert_allclose(g.numpy(), _np(r), rtol=0, atol=2e-5)
+
+
+def test_plain_k1_matches_reference_after_two_iterations(setup):
+    ref_sys, sys_, bu, ref_vec, vec = setup
+    c, b, l, u, cs = vec
+    rc, rb, rl, ru, rcs = ref_vec
+    ref = ref_fused.fused_ipm_iterations(
+        ref_fused.build_structure(ref_sys), rcs, jnp.asarray(bu), rc, rb,
+        rl, ru, RefIPM(iterations=2))
+    got = ipm_fused.fused_ipm_iterations_plain(
+        ipm_fused.build_structure(sys_), cs, torch.as_tensor(bu), c, b, l,
+        u, IPMConfig(iterations=2))
+    # (x, y, zl, zu, best_score, best_x). Two Newton steps from the same
+    # start: only float32 rounding separates them (the reference solves
+    # through 8x8 block inverses, the port by plain substitution), held
+    # relative to each quantity's scale.
+    for name, r, g in zip(("x", "y", "zl", "zu", "best_score", "best_x"),
+                          ref, got):
+        r, g = _np(r), g.numpy()
+        scale = max(1.0, float(np.abs(r).max()))
+        np.testing.assert_allclose(g / scale, r / scale, rtol=0, atol=1e-4,
+                                   err_msg=name)
+
+
+def test_plain_solver_matches_reference_full_iterations(setup):
+    ref_sys, sys_, bu, ref_vec, vec = setup
+    c, b, l, u, cs = vec
+    rc, rb, rl, ru, rcs = ref_vec
+    ref = ref_structured.solve_box_lp_structured(
+        ref_fused.build_structure(ref_sys), rcs, jnp.asarray(bu), rc, rb,
+        rl, ru, RefIPM())
+    got = lp_ipm_structured.solve_box_lp_structured(
+        ipm_fused.build_structure(sys_), cs, torch.as_tensor(bu), c, b, l,
+        u, IPMConfig())
+    np.testing.assert_allclose(got.objective.numpy(), _np(ref.objective),
+                               rtol=0, atol=1e-3)
+    assert float(got.primal_residual.max()) < 2e-3
+    assert float(got.objective.max()) > 1.0      # lanes that really shed
+    assert bool((got.x >= l - 1e-5).all()) and bool((got.x <= u + 1e-5).all())
+
+
+def test_lp_route_table():
+    k = lp_ipm_batched.lp_kernels(torch.device("cpu"), 62)
+    assert k.iterate is ipm_fused.fused_ipm_iterations_plain
+    assert lp_ipm_batched.lp_kernels(torch.device("cuda"), 62).iterate \
+        is ipm_fused.fused_ipm_iterations
+    with pytest.raises(NotImplementedError, match="K3"):
+        lp_ipm_batched.lp_kernels(torch.device("cpu"), 73)
+    with pytest.raises(NotImplementedError):
+        lp_ipm_batched.lp_kernels(torch.device("meta"), 62)
