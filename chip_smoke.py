@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's HL2 NSQ main path on one CUDA card.
+"""Smoke run of the PyTorch port's HL2 NSQ paths on one CUDA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -18,17 +18,29 @@ Phases, one line each (any failure raises, so the exit code is not 0):
   6. study    run_nsq_study(rts24(), MCSConfig(max_samples=106496)) held
               against results/nsq_results.json (EDNS and PLC within 4
               combined standard errors)
+  7. k3       K3 triangular-solve kernels vs their plain versions on
+              equilibrated normal matrices of 256 real RTS-96 LP lanes
+              [256, 191, 191] (a fourth-iteration barrier weight and the
+              polish's A A'): forward at K = 56, 23 and 1, backward at
+              K = 1, and the blocked Cholesky route on the kernels vs the
+              same route on the plain versions; times at 2048 lanes
+  8. study96  run_nsq_study(rts96(), MCSConfig(max_samples=40960)) held
+              against results/study_sweep.json["rts96"] (EDNS and LOLE
+              within 4 combined standard errors), with the K2/K3 launch
+              counts and the probe's rescued share of factored lanes
 Then one JSON line of per-kernel results and, last, the device line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 ``--phases`` runs a subset (e.g. ``--phases build,k2,k1``); the default
 runs all of them. ``--phases profile`` runs only the opt-in breakdown of
-the bench-shaped step: per-layer times, the device-busy share and the
-kernels that take the most device time (torch.profiler).
+the RTS-24 bench-shaped step and of the RTS-96 study step: per-layer
+times, the device-busy share and the kernels that take the most device
+time (torch.profiler).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -38,10 +50,21 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PKG = "powersystemsreliabilityassessment_tpu_torch"
-ALL_PHASES = ("build", "k2", "k1", "bench", "study")
+ALL_PHASES = ("build", "k2", "k1", "bench", "study", "k3", "study96")
 # Not run by default: a per-layer and per-kernel breakdown of the
-# bench-shaped step (for PERF.md), not part of the smoke contract.
+# bench-shaped step and of the RTS-96 step (for PERF.md), not part of
+# the smoke contract.
 EXTRA_PHASES = ("profile",)
+# The kernels each main path must launch.
+RTS24_KERNELS = ("fused_ipm_iterations", "cholesky", "cho_solve")
+RTS96_KERNELS = ("cholesky", "trsm_fwd", "trsm_bwd")
+
+# Published peaks of one H100 SXM (NVIDIA's H100 datasheet):
+# float32 outside the tensor cores, and HBM3 bandwidth. A kernel's bound
+# is the larger of its operations and its bytes (each input read once,
+# each output written once) over these.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 
 # Bounds of the kernel-vs-plain checks. Both sides run the same
 # algorithm in float32; they differ in summation order and in rsqrtf,
@@ -52,6 +75,25 @@ K2_X_BOUND = 1e-3       # max |x_kernel - x_plain| / max(1, |x|) per lane
 # IPM paths (1e-3 p.u. = 0.1 MW, the reference's DNS noise floor).
 K1_OBJ_BOUND = 1e-3
 K1_SCORE_BOUND = 1e-3   # best_score = mu + max|rp|, absolute
+# K3: max |X_kernel - X_plain| / max(1, |X|) per lane. The same
+# substitution in another summation order: each element's rounding is
+# ~P eps cond(L_panel), and a lifted panel of an equilibrated matrix has
+# cond(L) <= ~1/sqrt(LIFT) ~ 316, so 56 * 6e-8 * 316 ~ 1e-3.
+K3_BOUND = 1e-3
+# Blocked route, kernels vs plain versions: per lane
+# max |x_kernel - x_plain| / max(1, |x|) against max(1e-3, 4 cond(M) eps).
+# Each refined f32 solve of these matrices (cond up to ~3e6) lands within
+# ~cond(M) eps of the exact solution (measured against float64 solves),
+# so two of them differ by at most ~2 cond(M) eps; 1e-3 is K2's solve
+# bound for well-conditioned lanes.
+BLOCKED_X_FLOOR = 1e-3
+BLOCKED_X_COND = 4.0
+EPS_F32 = 2.0 ** -24
+# Lanes whose probe decision is borderline (max|x - 1| within rounding of
+# PROBE_BAD_REL) can take the rescue on one route and not on the other;
+# at most this share of lanes may differ in the rescue count or exceed
+# the blocked bound.
+RESCUE_DIFF_BOUND = 0.01
 
 
 def _line(phase: str, **kv) -> None:
@@ -72,30 +114,63 @@ def _time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def _bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take for ``flops`` float32
+    operations moving ``nbytes`` bytes, and which of the two bounds it."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops > t_bytes else "bytes")
+
+
+# The least bytes each function must move: a symmetric M and a triangular
+# L carry only their lower triangles, n (n + 1) / 2 floats.
+def _tri(n):
+    return n * (n + 1) // 2
+
+
+def _chol_work(B, m):
+    return B * m ** 3 / 3, 4 * B * 2 * _tri(m)             # M in, L out
+
+
+def _solve_work(B, m):
+    return B * 2 * m * m, 4 * B * (_tri(m) + 2 * m)        # L, r in; x out
+
+
+def _trsm_work(B, P, K):
+    return B * P * P * K, 4 * B * (_tri(P) + 2 * P * K)    # L, B in; X out
+
+
 def _reset_counts():
     from powersystemsreliabilityassessment_tpu_torch.ops import (
-        batched_chol, ipm_fused)
-    for d in (batched_chol.launches, ipm_fused.launches):
+        batched_chol, blocked_chol, ipm_fused)
+    for d in (batched_chol.launches, ipm_fused.launches,
+              blocked_chol.launches, blocked_chol.rescues):
         for k in d:
             d[k] = 0
 
 
 def _counts() -> dict:
     from powersystemsreliabilityassessment_tpu_torch.ops import (
-        batched_chol, ipm_fused)
-    return {**ipm_fused.launches, **batched_chol.launches}
+        batched_chol, blocked_chol, ipm_fused)
+    return {**ipm_fused.launches, **batched_chol.launches,
+            **blocked_chol.launches}
 
 
-def _lp_lanes(sys_, n_lanes: int, seed: int):
-    """LP inputs of ``n_lanes`` real RTS-24 lanes: sampled states whose
-    tier-1 certificate fails or whose deficit is positive (the lanes the
-    screened evaluator sends to the LP in "lp" nodal mode)."""
+def _check_launched(phase: str, counts: dict, names) -> None:
+    missing = [k for k in names if counts[k] <= 0]
+    if missing:
+        raise RuntimeError(f"{phase}: kernels never launched: {missing}")
+
+
+def _lp_states(sys_, n_lanes: int, seed: int):
+    """(comp_down, load) of ``n_lanes`` real lanes of ``sys_``: sampled
+    states whose tier-1 certificate fails or whose deficit is positive
+    (the lanes the screened evaluator sends to the LP in "lp" nodal
+    mode)."""
     import torch
     from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
     from powersystemsreliabilityassessment_tpu_torch.sampling.state import (
         sample_states)
-    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
-        CompatFlags, IPMConfig)
     gen = torch.Generator(device=sys_.device)
     gen.manual_seed(seed)
     down = sample_states(gen, sys_.unavail, sys_.always_up_nsq, 65536)
@@ -105,12 +180,88 @@ def _lp_lanes(sys_, n_lanes: int, seed: int):
     idx = torch.nonzero(need).flatten()[:n_lanes]
     if idx.numel() < n_lanes:
         raise RuntimeError(f"only {idx.numel()} LP lanes sampled")
-    down = down[idx]
+    return down[idx], load[idx]
+
+
+def _lp_lanes(sys_, n_lanes: int, seed: int):
+    """Structured LP inputs (colscale, br_up, c, b, l, u) of
+    :func:`_lp_states` lanes (the K1 route, m <= 72)."""
+    from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        CompatFlags, IPMConfig)
+    down, load = _lp_states(sys_, n_lanes, seed)
     up = 1.0 - down.float()
     gen_up, br_up = up[:, :sys_.n_gen], up[:, sys_.n_gen:].contiguous()
     c, b, l, u, colscale = dcopf.build_state_lp_vectors(
-        sys_, gen_up, br_up, load[idx], CompatFlags(), IPMConfig().theta_max)
+        sys_, gen_up, br_up, load, CompatFlags(), IPMConfig().theta_max)
     return colscale, br_up, c, b, l, u
+
+
+def _dense_lp(sys_, n_lanes: int, seed: int):
+    """Materialized-A LP inputs (c, A, b, l, u) of :func:`_lp_states`
+    lanes (the blocked route, 72 < m <= 336)."""
+    from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        CompatFlags, IPMConfig)
+    down, load = _lp_states(sys_, n_lanes, seed)
+    up = 1.0 - down.float()
+    return dcopf.build_state_lp(
+        sys_, up[:, :sys_.n_gen], up[:, sys_.n_gen:].contiguous(), load,
+        CompatFlags(), IPMConfig().theta_max)
+
+
+@contextlib.contextmanager
+def _capturing_blocked_factor(store: list):
+    """While active, every matrix the CUDA blocked route factors is
+    appended to ``store`` (a copy) before it is factored."""
+    from powersystemsreliabilityassessment_tpu_torch.engines import (
+        lp_ipm_batched as lpb)
+    orig = lpb._BLOCKED_KERNELS
+
+    def factor(M):
+        store.append(M.clone())
+        return orig.factor(M)
+
+    lpb._BLOCKED_KERNELS = orig._replace(factor=factor)
+    try:
+        yield
+    finally:
+        lpb._BLOCKED_KERNELS = orig
+
+
+@contextlib.contextmanager
+def _capturing_panels(store: list):
+    """While active, every diagonal panel the blocked factor hands to K2
+    (the lifted Schur complement) is appended to ``store`` (a copy)."""
+    from powersystemsreliabilityassessment_tpu_torch.ops import (
+        batched_chol as bc)
+    orig = bc.cholesky
+
+    def cholesky(S):
+        store.append(S.clone())
+        return orig(S)
+
+    bc.cholesky = cholesky
+    try:
+        yield
+    finally:
+        bc.cholesky = orig
+
+
+@contextlib.contextmanager
+def _plain_blocked_kernels():
+    """While active, the blocked Cholesky runs the plain PyTorch versions
+    of K2 and K3 on CUDA tensors (the reference the kernels are held
+    against); the main path never does."""
+    from powersystemsreliabilityassessment_tpu_torch.ops import (
+        batched_chol as bc, blocked_chol as bl)
+    saved = (bc.cholesky, bl.trsm_fwd, bl.trsm_bwd)
+    bc.cholesky, bl.trsm_fwd, bl.trsm_bwd = (
+        bc.cholesky_plain, bl.trsm_fwd_plain, bl.trsm_bwd_plain)
+    try:
+        yield
+    finally:
+        bc.cholesky, bl.trsm_fwd, bl.trsm_bwd = saved
 
 
 def phase_device():
@@ -179,8 +330,11 @@ def phase_k2(sys_, results):
                    / torch.clamp_min(xp.abs().amax(1), 1.0)).max())
     ms = {"chol": _time_ms(lambda: bc.cholesky(M)),
           "chol_plain": _time_ms(lambda: bc.cholesky_plain(M), reps=3),
+          "chol_library": _time_ms(lambda: torch.linalg.cholesky_ex(M)),
           "solve": _time_ms(lambda: bc.cho_solve(Lp, r)),
-          "solve_plain": _time_ms(lambda: bc.cho_solve_plain(Lp, r), reps=3)}
+          "solve_plain": _time_ms(lambda: bc.cho_solve_plain(Lp, r), reps=3),
+          "solve_library": _time_ms(
+              lambda: torch.cholesky_solve(r[:, :, None], Lp))}
     _line("k2", shape=tuple(M.shape), pivot_floor_lane=floor_hit,
           chol_rel_err=f"{l_err:.3e}<={K2_L_BOUND}",
           solve_rel_err=f"{x_err:.3e}<={K2_X_BOUND}",
@@ -196,12 +350,16 @@ def phase_k2(sys_, results):
         name="cholesky", route="cuda", source=src,
         replaces="powersystemsreliabilityassessment_tpu/ops/batched_chol.py:143",
         max_abs_err=float((Lk - Lp).abs().max()), max_rel_err=l_err,
-        tolerance=K2_L_BOUND, ms=ms["chol"], plain_ms=ms["chol_plain"])
+        tolerance=K2_L_BOUND, shape=list(M.shape), ms=ms["chol"],
+        plain_ms=ms["chol_plain"], library_ms=ms["chol_library"],
+        **_bound(*_chol_work(*M.shape[:2])))
     results["cho_solve"] = dict(
         name="cho_solve", route="cuda", source=src,
         replaces="powersystemsreliabilityassessment_tpu/ops/batched_chol.py:161",
         max_abs_err=float((xk - xp).abs().max()), max_rel_err=x_err,
-        tolerance=K2_X_BOUND, ms=ms["solve"], plain_ms=ms["solve_plain"])
+        tolerance=K2_X_BOUND, shape=list(r.shape), ms=ms["solve"],
+        plain_ms=ms["solve_plain"], library_ms=ms["solve_library"],
+        **_bound(*_solve_work(*r.shape)))
 
 
 def phase_k1(sys_, results):
@@ -227,12 +385,27 @@ def phase_k1(sys_, results):
     ms = _time_ms(lambda: ipm_fused.fused_ipm_iterations(st, *args, cfg))
     plain_ms = _time_ms(
         lambda: ipm_fused.fused_ipm_iterations_plain(st, *args, cfg), reps=2)
+    # The work this run's lanes need: a lane frozen at mu < mu_tol never
+    # changes again, and the kernel stops its block. Count the lane-
+    # iterations that moved x by replaying the loop 1..16 iterations; each
+    # needs at least the m x m factor and two solves (the normal-matrix
+    # assembly and the elementwise work are not counted).
+    prev, active = args[2].new_full(args[2].shape, float("nan")), 0
+    for k in range(1, cfg.iterations + 1):
+        xk = ipm_fused.fused_ipm_iterations(
+            st, *args, IPMConfig(iterations=k))[0]
+        active += int((xk != prev).any(1).sum())
+        prev = xk
+    B, n, m = c.shape[0], st.n, st.m
+    k1_bound = _bound(active * (m ** 3 / 3 + 4 * m * m),
+                      4 * B * ((4 * n + st.nl + m) + (4 * n + m + 1)))
     _line("k1", lanes=c.shape[0], finite=finite,
           objective_err_pu=f"{obj_err:.3e}<={K1_OBJ_BOUND}",
           best_score_err=f"{score_err:.3e}<={K1_SCORE_BOUND}",
           best_x_err=f"{x_err:.3e}", kernel_ms=f"{ms:.4f}",
           plain_ms=f"{plain_ms:.4f}",
-          shed_lanes=int((obj_p > 1e-3).sum()))
+          shed_lanes=int((obj_p > 1e-3).sum()), active_lane_iterations=active,
+          bound_ms=f"{k1_bound['bound_ms']:.4f}({k1_bound['bound_by']})")
     if not (finite and obj_err <= K1_OBJ_BOUND
             and score_err <= K1_SCORE_BOUND):
         raise RuntimeError("k1: kernel disagrees with the plain version")
@@ -244,7 +417,8 @@ def phase_k1(sys_, results):
         source=f"{PKG}/csrc/ipm_fused.cu",
         replaces="powersystemsreliabilityassessment_tpu/ops/ipm_fused.py:459",
         max_abs_err=max(obj_err, score_err), tolerance=K1_OBJ_BOUND,
-        ms=ms, plain_ms=plain_ms)
+        shape=[B, m, n], ms=ms, plain_ms=plain_ms, library_ms=None,
+        active_lane_iterations=active, **k1_bound)
 
 
 def phase_bench(sys_, results):
@@ -292,12 +466,11 @@ def phase_bench(sys_, results):
           overflow_warmup=n_over_warm, peak_mem_bytes=peak,
           last_batch_edns_mw=f"{edns:.4f}",
           launches=json.dumps(counts).replace(" ", ""))
-    if min(counts.values()) <= 0:
-        raise RuntimeError(f"bench: a kernel was never launched: {counts}")
+    _check_launched("bench", counts, RTS24_KERNELS)
     if not np.isfinite(edns):
         raise RuntimeError("bench: non-finite DNS")
-    for name, n in counts.items():
-        results.setdefault(name, {})["launches"] = n
+    for name in RTS24_KERNELS:
+        results.setdefault(name, {})["launches"] = counts[name]
 
 
 def phase_study():
@@ -328,16 +501,353 @@ def phase_study():
           wall_s=f"{wall:.2f}",
           peak_mem_bytes=torch.cuda.max_memory_allocated(),
           launches=json.dumps(counts).replace(" ", ""))
-    if min(counts.values()) <= 0:
-        raise RuntimeError(f"study: a kernel was never launched: {counts}")
+    _check_launched("study", counts, RTS24_KERNELS)
     if not (z_e <= 4 and z_p <= 4):
         raise RuntimeError("study: estimates outside 4 combined standard "
                            "errors of results/nsq_results.json")
 
 
-def phase_profile(sys_):
+def _rel_err(a, b) -> float:
+    """max over lanes of max|a - b| / max(1, max|b|)."""
+    lane = lambda t: t.abs().flatten(1).amax(1)
+    return float((lane(a - b) / lane(b).clamp_min(1.0)).max())
+
+
+def phase_k3(sys96, results):
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.engines import (
+        lp_ipm_batched as lpb)
+    from powersystemsreliabilityassessment_tpu_torch.ops import (
+        batched_chol as bc, blocked_chol as bl)
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        IPMConfig)
+    c, A, b, l, u = _dense_lp(sys96, 256, seed=9)
+    mats: list = []
+    with _capturing_blocked_factor(mats):
+        lpb.solve_box_lp_batched(c, A, b, l, u, IPMConfig(iterations=4))
+    # The factored matrices, in order: four IPM iterations' equilibrated
+    # A D^-1 A', then the polish's A A' and A W^-1 A' + I. Lanes 0-127
+    # at the fourth iteration's barrier weights, lanes 128-255 the
+    # polish's A A'.
+    M = torch.cat([mats[3][:128], mats[4][128:]]).contiguous()
+    m, P = M.shape[-1], bl.PANEL
+    # The diagonal panels K2 factors (56, 56, 56 and 23 wide): the lifted
+    # Schur complements one blocked factorization of these lanes builds.
+    panels: list = []
+    with _capturing_panels(panels):
+        bl._factor_once(M)
+    P23 = panels[-1].shape[-1]
+
+    # Kernels against plain versions at the main path's shapes: 2048
+    # lanes (the study's max_lp), tiled from the 256 real lanes, with
+    # fresh right-hand sides.
+    nx = 2048
+    tile = lambda t: t.repeat(nx // t.shape[0],
+                              *([1] * (t.dim() - 1))).contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    S56x, S23x = tile(panels[0]), tile(panels[-1])
+    L56x, L23x = bc.cholesky(S56x), bc.cholesky(S23x)
+    # Real off-diagonal blocks of the first panel column: block (1, 0) is
+    # 56 x 56, block (3, 0) 23 x 56; K3 takes their transposes.
+    B56x = tile(M[:, P:2 * P, :P].transpose(1, 2))
+    B23x = tile(M[:, 3 * P:, :P].transpose(1, 2))
+    r56 = torch.randn((nx, P, 1), generator=gen, device="cuda")
+    r23 = torch.randn((nx, P23, 1), generator=gen, device="cuda")
+    k2_pairs = {"chol_p56": (L56x, bc.cholesky_plain(S56x)),
+                "chol_p23": (L23x, bc.cholesky_plain(S23x))}
+    fwd, bwd = (bl.trsm_fwd, bl.trsm_fwd_plain), (bl.trsm_bwd,
+                                                 bl.trsm_bwd_plain)
+    k3_pairs = {name: (fn[0](L, X), fn[1](L, X)) for name, fn, L, X in (
+        ("fwd_p56_k56", fwd, L56x, B56x), ("fwd_p56_k23", fwd, L56x, B23x),
+        ("fwd_p56_k1", fwd, L56x, r56), ("bwd_p56_k1", bwd, L56x, r56),
+        ("fwd_p23_k1", fwd, L23x, r23), ("bwd_p23_k1", bwd, L23x, r23))}
+    torch.cuda.synchronize()
+    pairs = {**k2_pairs, **k3_pairs}
+    errs = {k: _rel_err(a, b_) for k, (a, b_) in pairs.items()}
+    abs_errs = {k: float((a - b_).abs().max()) for k, (a, b_) in pairs.items()}
+    finite = all(bool(torch.isfinite(a).all()) for a, _ in pairs.values())
+
+    # The blocked route end to end on the 256 real lanes: kernels against
+    # plain versions.
+    r = torch.randn((256, m), generator=gen, device="cuda")
+    n0 = bl.rescues["lanes_flagged"]
+    xk = bl.blocked_cho_solve(bl.blocked_cholesky(M), r)
+    resc_k = bl.rescues["lanes_flagged"] - n0
+    with _plain_blocked_kernels():
+        n0 = bl.rescues["lanes_flagged"]
+        xp = bl.blocked_cho_solve(bl.blocked_cholesky(M), r)
+        resc_p = bl.rescues["lanes_flagged"] - n0
+    ev = torch.linalg.eigvalsh(M.double())
+    cond = ev[:, -1] / ev[:, 0].clamp_min(1e-300)
+    tol = torch.clamp_min(BLOCKED_X_COND * cond * EPS_F32, BLOCKED_X_FLOOR)
+    lane = lambda t: t.abs().amax(1)
+    x_rel = lane(xk - xp) / lane(xp).clamp_min(1.0)
+    n_over = int((x_rel > tol.float()).sum())
+    res_k = lane((M.double() @ xk.double()[:, :, None])[:, :, 0] - r) \
+        / lane(r)
+    res_p = lane((M.double() @ xp.double()[:, :, None])[:, :, 0] - r) \
+        / lane(r)
+
+    # Times at the same 2048-lane shapes.
+    Lt = L56x.transpose(1, 2)
+    lib = torch.linalg.solve_triangular
+    ms = {
+        "fwd_k56": _time_ms(lambda: bl.trsm_fwd(L56x, B56x)),
+        "fwd_k56_plain": _time_ms(lambda: bl.trsm_fwd_plain(L56x, B56x), 3),
+        "fwd_k56_library": _time_ms(lambda: lib(L56x, B56x, upper=False)),
+        "fwd_k1": _time_ms(lambda: bl.trsm_fwd(L56x, r56)),
+        "fwd_k1_plain": _time_ms(lambda: bl.trsm_fwd_plain(L56x, r56), 3),
+        "fwd_k1_library": _time_ms(lambda: lib(L56x, r56, upper=False)),
+        "bwd_k1": _time_ms(lambda: bl.trsm_bwd(L56x, r56)),
+        "bwd_k1_plain": _time_ms(lambda: bl.trsm_bwd_plain(L56x, r56), 3),
+        "bwd_k1_library": _time_ms(lambda: lib(Lt, r56, upper=True)),
+        "chol_panel": _time_ms(lambda: bc.cholesky(S56x)),
+        "chol_panel_plain": _time_ms(lambda: bc.cholesky_plain(S56x), 3),
+        "chol_panel_library": _time_ms(lambda: torch.linalg.cholesky_ex(S56x)),
+        "blocked": _time_ms(
+            lambda: bl.blocked_cho_solve(bl.blocked_cholesky(M), r), 5),
+        "blocked_library": _time_ms(lambda: torch.cholesky_solve(
+            r[:, :, None], torch.linalg.cholesky_ex(M)[0]), 5),
+    }
+    with _plain_blocked_kernels():
+        ms["blocked_plain"] = _time_ms(
+            lambda: bl.blocked_cho_solve(bl.blocked_cholesky(M), r), 2)
+    bounds = {"fwd_k56": _bound(*_trsm_work(nx, P, P)),
+              "fwd_k1": _bound(*_trsm_work(nx, P, 1)),
+              "bwd_k1": _bound(*_trsm_work(nx, P, 1)),
+              "chol_panel": _bound(*_chol_work(nx, P))}
+    k2_errs = {k: errs[k] for k in k2_pairs}
+    k3_errs = {k: errs[k] for k in k3_pairs}
+    _line("k3", shape=tuple(M.shape), checked_lanes=nx, finite=finite,
+          **{f"{k}_rel_err": f"{v:.3e}<={K2_L_BOUND}"
+             for k, v in k2_errs.items()},
+          **{f"{k}_rel_err": f"{v:.3e}<={K3_BOUND}"
+             for k, v in k3_errs.items()},
+          blocked_lanes_over_bound=f"{n_over}<={int(RESCUE_DIFF_BOUND * 256)}",
+          blocked_x_rel_err_max=f"{float(x_rel.max()):.3e}",
+          blocked_bound_max=f"{float(tol.max()):.3e}",
+          cond_median=f"{float(cond.median()):.3e}",
+          cond_max=f"{float(cond.max()):.3e}",
+          residual_kernel_max=f"{float(res_k.max()):.3e}",
+          residual_plain_max=f"{float(res_p.max()):.3e}",
+          flagged_lanes_kernel=resc_k, flagged_lanes_plain=resc_p,
+          flagged_share=f"{resc_k / 256:.4f}")
+    _line("k3", timed_lanes=nx,
+          **{f"{k}_ms": f"{v:.4f}" for k, v in ms.items()},
+          **{f"{k}_bound_ms": f"{v['bound_ms']:.4f}({v['bound_by']})"
+             for k, v in bounds.items()})
+    if not (finite and max(k2_errs.values()) <= K2_L_BOUND
+            and max(k3_errs.values()) <= K3_BOUND):
+        raise RuntimeError("k3: kernel disagrees with the plain version")
+    if n_over > RESCUE_DIFF_BOUND * 256 \
+            or abs(resc_k - resc_p) > RESCUE_DIFF_BOUND * 256:
+        raise RuntimeError("k3: the blocked route on the kernels disagrees "
+                           "with the same route on the plain versions")
+    src = f"{PKG}/csrc/blocked_trsm.cu"
+    ref_file = "powersystemsreliabilityassessment_tpu/ops/blocked_chol.py"
+    fwd_keys = [k for k in k3_pairs if k.startswith("fwd")]
+    bwd_keys = [k for k in k3_pairs if k.startswith("bwd")]
+    results["trsm_fwd"] = dict(
+        name="trsm_fwd", route="cuda", source=src, replaces=f"{ref_file}:97",
+        max_abs_err=max(abs_errs[k] for k in fwd_keys),
+        max_rel_err=max(errs[k] for k in fwd_keys),
+        tolerance=K3_BOUND, shape=[nx, P, P], ms=ms["fwd_k56"],
+        plain_ms=ms["fwd_k56_plain"], library_ms=ms["fwd_k56_library"],
+        **bounds["fwd_k56"], k1_ms=ms["fwd_k1"],
+        k1_plain_ms=ms["fwd_k1_plain"], k1_library_ms=ms["fwd_k1_library"],
+        k1_bound_ms=bounds["fwd_k1"]["bound_ms"])
+    results["trsm_bwd"] = dict(
+        name="trsm_bwd", route="cuda", source=src, replaces=f"{ref_file}:102",
+        max_abs_err=max(abs_errs[k] for k in bwd_keys),
+        max_rel_err=max(errs[k] for k in bwd_keys),
+        tolerance=K3_BOUND, shape=[nx, P, 1], ms=ms["bwd_k1"],
+        plain_ms=ms["bwd_k1_plain"], library_ms=ms["bwd_k1_library"],
+        **bounds["bwd_k1"])
+    results.setdefault("cholesky", {}).update(
+        panel_shape=[nx, P, P], panel_ms=ms["chol_panel"],
+        panel_plain_ms=ms["chol_panel_plain"],
+        panel_library_ms=ms["chol_panel_library"],
+        panel_bound_ms=bounds["chol_panel"]["bound_ms"],
+        panel_max_rel_err=max(k2_errs.values()))
+
+
+def _rts96_step(sys96, seed: int) -> dict:
+    """One RTS-96 study step's LP buffer as ``run_nsq_study`` builds it:
+    batch 8192, "lp" nodal mode, the default max_lp (2048) and
+    woodbury_k, the calibrated shed hint, and the states that need the
+    LP compacted first (``dcopf.evaluate_states_screened``)."""
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
+    from powersystemsreliabilityassessment_tpu_torch.sampling.state import (
+        sample_states)
+    from powersystemsreliabilityassessment_tpu_torch.studies import hl2_nsq
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        CompatFlags, IPMConfig)
+    batch = 8192
+    max_lp = hl2_nsq.default_max_lp(batch, "lp")
+    wk = hl2_nsq.default_woodbury_k(sys96)
+    hint = dcopf.calibrate_shed_hint(sys96)
+    rbuf = dcopf.default_repair_buffer(batch, hinted=hint is not None)
+    load = sys96.load_pd[None, :].expand(batch, sys96.n_load)
+    hint_b = None if hint is None else torch.as_tensor(
+        hint, device="cuda")[None, :].expand(batch, sys96.n_load)
+    down = sample_states(hl2_nsq.batch_generator(seed, 0, "cuda"),
+                         sys96.unavail, sys96.always_up_nsq, batch)
+    pre = dcopf.certify_states(sys96, down, load, shed_hint=hint_b,
+                               repair_buffer=rbuf, woodbury_k=wk)
+    need = ~(pre.certified & (pre.deficit <= 0))
+    idx = dcopf._topk_lanes(need, max_lp)
+    up = 1.0 - down[idx].float()
+    lp = dcopf.build_state_lp(
+        sys96, up[:, :sys96.n_gen], up[:, sys96.n_gen:].contiguous(),
+        load[idx], CompatFlags(), IPMConfig().theta_max)
+    return dict(batch=batch, max_lp=max_lp, wk=wk, hint=hint, rbuf=rbuf,
+                load=load, hint_b=hint_b, down=down, need=need, idx=idx,
+                lp=lp, n_need=min(int(need.sum()), max_lp))
+
+
+def phase_study96(sys96, results):
+    import math
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.core import cases
+    from powersystemsreliabilityassessment_tpu_torch.ops import (
+        blocked_chol as bl)
+    from powersystemsreliabilityassessment_tpu_torch.studies import hl2_nsq
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        MCSConfig)
+    ref = json.loads((ROOT / "results" / "study_sweep.json")
+                     .read_text())["rts96"]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = hl2_nsq.run_nsq_study(
+        cases.rts96(), MCSConfig(max_samples=40960, beta_limit=0.0),
+        device="cuda", log_every=0)
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    resc = {k: int(v) for k, v in bl.rescues.items()}
+    # The reference ran with antithetic pairing (same expectation); its
+    # EDNS standard error is beta * EDNS, its PLC's binomial.
+    se_e = math.hypot(ref["beta"] * ref["edns_mw"], res.beta * res.edns_mw)
+    plc_ref = ref["lole_hr_yr"] / 8760
+    se_p = math.hypot(
+        math.sqrt(plc_ref * (1 - plc_ref) / ref["samples"]),
+        math.sqrt(res.plc * (1 - res.plc) / res.samples))
+    z_e = abs(res.edns_mw - ref["edns_mw"]) / se_e
+    z_l = abs(res.plc - plc_ref) / se_p
+    share = resc["lanes"] / max(resc["lanes_factored"], 1)
+    _line("study96", samples=res.samples, edns_mw=f"{res.edns_mw:.4f}",
+          lole_hr_yr=f"{res.lole_hr_yr:.2f}", beta=f"{res.beta:.5f}",
+          edns_z=f"{z_e:.2f}<=4", lole_z=f"{z_l:.2f}<=4",
+          overflow=res.overflow_states, wall_s=f"{wall:.2f}",
+          peak_mem_bytes=peak,
+          launches=json.dumps(counts).replace(" ", ""),
+          rescue_factorizations=resc["factorizations"],
+          flagged_lanes=resc["lanes_flagged"], rescued_lanes=resc["lanes"],
+          lanes_factored=resc["lanes_factored"],
+          rescued_share_all_lanes=f"{share:.4f}")
+    _check_launched("study96", counts, RTS96_KERNELS)
+    if not (z_e <= 4 and z_l <= 4):
+        raise RuntimeError("study96: estimates outside 4 combined standard "
+                           "errors of results/study_sweep.json['rts96']")
+    for name in ("trsm_fwd", "trsm_bwd"):
+        results.setdefault(name, {})["launches"] = counts[name]
+    results.setdefault("cholesky", {})["launches_rts96"] = counts["cholesky"]
+    _rescue_check(sys96)
+
+
+def _rescue_check(sys96):
+    """The rescued share at the reference's level on the same matrices
+    (after the counted study run): every matrix one study-shaped LP
+    buffer factors, probed on the kernels and on the plain versions,
+    whose probe tests/test_torch_blocked_chol.py holds to the
+    reference's lane for lane. Shares over the lanes that need the LP
+    (the first n_need of the buffer) and over all factored lanes."""
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.engines import (
+        lp_ipm_batched as lpb)
+    from powersystemsreliabilityassessment_tpu_torch.ops import (
+        blocked_chol as bl)
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        IPMConfig)
+    st = _rts96_step(sys96, seed=5)
+    mats: list = []
+    with _capturing_blocked_factor(mats):
+        lpb.solve_box_lp_batched(*st["lp"], IPMConfig())
+    flag_k, flag_p = [], []
+    for M in mats:
+        flag_k.append(bl._probe(*bl._factor_once(M), M))
+        with _plain_blocked_kernels():
+            flag_p.append(bl._probe(*bl._factor_once(M), M))
+    del mats
+    fk, fp = torch.stack(flag_k), torch.stack(flag_p)  # [factor., lanes]
+    nn = st["n_need"]
+    share = lambda f: (float(f[:, :nn].float().mean()),
+                       float(f.float().mean()))
+    (need_k, all_k), (need_p, all_p) = share(fk), share(fp)
+    split = fk != fp
+    split_need, split_all = int(split[:, :nn].sum()), int(split.sum())
+    lim_need = RESCUE_DIFF_BOUND * fk.shape[0] * nn
+    lim_all = RESCUE_DIFF_BOUND * fk.numel()
+    _line("rescue96", factorizations=fk.shape[0],
+          lanes=fk.shape[1], needy_lanes=nn,
+          flagged_share_needy_kernel=f"{need_k:.4f}",
+          flagged_share_needy_plain=f"{need_p:.4f}",
+          flagged_share_all_kernel=f"{all_k:.4f}",
+          flagged_share_all_plain=f"{all_p:.4f}",
+          split_needy=f"{split_need}<={lim_need:.0f}",
+          split_all=f"{split_all}<={lim_all:.0f}")
+    if split_need > lim_need or split_all > lim_all:
+        raise RuntimeError("rescue96: the probe on the kernels flags other "
+                           "lanes than the probe on the plain versions")
+
+
+def _measure(fn, reps=16):
+    """(host wall ms, device kernel ms, kernel launches, kernel events)
+    per call. Only kernel events are summed: a CPU op's self device time
+    repeats the kernels it launched."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if "cuda" in str(getattr(e, "device_type", "")).lower()
+               and _dev_us(e) > 0]
+    dev = sum(_dev_us(e) for e in kernels) / 1e3 / reps
+    return wall, dev, sum(e.count for e in kernels) / reps, kernels
+
+
+def _dev_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def _profile_lines(tag, layers, reps=16, top=12):
+    step_kernels = None
+    for name, fn in layers.items():
+        wall, dev, n, kernels = _measure(fn, reps)
+        step_kernels = step_kernels or kernels
+        _line(tag, layer=name, wall_ms=f"{wall:.3f}",
+              device_ms=f"{dev:.3f}", device_busy_share=f"{dev / wall:.3f}",
+              kernel_launches=f"{n:.0f}")
+    for e in sorted(step_kernels, key=_dev_us, reverse=True)[:top]:
+        print(f"  step kernel {_dev_us(e) / 1e3 / reps:8.3f} ms/step "
+              f"{e.count / reps:6.0f}x  {e.key[:90]}")
+
+
+def phase_profile(sys_):
+    import torch
     from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
     from powersystemsreliabilityassessment_tpu_torch.sampling.state import (
         sample_states)
@@ -355,54 +865,84 @@ def phase_profile(sys_):
     load = sys_.load_pd[None, :].expand(batch, sys_.n_load)
     hint_b = torch.as_tensor(hint, device="cuda")[None, :].expand(
         batch, sys_.n_load)
-
-    dev_us = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0.0))
-
-    def measure(fn, reps=16):
-        """(host wall ms, device kernel ms, kernel launches, kernel
-        events) per call. Only kernel events are summed: a CPU op's
-        self device time repeats the kernels it launched."""
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / reps
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
-                   if "cuda" in str(getattr(e, "device_type", "")).lower()
-                   and dev_us(e) > 0]
-        dev = sum(dev_us(e) for e in kernels) / 1e3 / reps
-        return wall, dev, sum(e.count for e in kernels) / reps, kernels
-
     down = sample_states(gen(), sys_.unavail, sys_.always_up_nsq, batch)
     pre = dcopf.certify_states(sys_, down, load, shed_hint=hint_b,
                                repair_buffer=rbuf)
     idx = dcopf._topk_lanes(~pre.certified, max_lp)
-    layers = {
+    _profile_lines("profile", {
         "step": lambda: step(gen()),
         "sampling": lambda: sample_states(
             gen(), sys_.unavail, sys_.always_up_nsq, batch),
         "tier1": lambda: dcopf.certify_states(
             sys_, down, load, shed_hint=hint_b, repair_buffer=rbuf),
         "lp_tier": lambda: dcopf.evaluate_states(sys_, down[idx], load[idx]),
-    }
-    step_kernels = None
-    for name, fn in layers.items():
-        wall, dev, n, kernels = measure(fn)
-        step_kernels = step_kernels or kernels
-        _line("profile", layer=name, wall_ms=f"{wall:.3f}",
-              device_ms=f"{dev:.3f}", device_busy_share=f"{dev / wall:.3f}",
-              kernel_launches=f"{n:.0f}")
-    for e in sorted(step_kernels, key=dev_us, reverse=True)[:12]:
-        print(f"  step kernel {dev_us(e) / 1e3 / 16:8.3f} ms/step "
-              f"{e.count / 16:6.0f}x  {e.key[:90]}")
+    })
+
+
+def phase_profile96(sys96):
+    """The RTS-96 study step (batch 8192, "lp" nodal mode, the default
+    max_lp 2048) by layer, with the LP tier split into its parts, each
+    timed alone at the step's shapes: the normal-matrix product (16 per
+    LP solve), the blocked factor (16 + 2 polish) and the blocked solve
+    (32 + 3 polish), and the polish."""
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.engines import (
+        dcopf, lp_ipm_batched as lpb)
+    from powersystemsreliabilityassessment_tpu_torch.ops import blocked_chol
+    from powersystemsreliabilityassessment_tpu_torch.sampling.state import (
+        sample_states)
+    from powersystemsreliabilityassessment_tpu_torch.studies import hl2_nsq
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        CompatFlags, IPMConfig)
+    st = _rts96_step(sys96, seed=2)
+    batch, max_lp, wk, rbuf = st["batch"], st["max_lp"], st["wk"], st["rbuf"]
+    down, load, hint_b, idx = st["down"], st["load"], st["hint_b"], st["idx"]
+    c, A, b, l, u = st["lp"]
+    step = hl2_nsq.make_nsq_batch_step(
+        sys96, batch, CompatFlags(), IPMConfig(), max_lp=max_lp,
+        nodal_mode="lp", woodbury_k=wk, shed_hint=st["hint"])
+    seeds = iter(range(1, 10**7))
+    gen = lambda: hl2_nsq.batch_generator(2, next(seeds), "cuda")
+    ops = lpb.dense_linops(A)
+    mats: list = []
+    polish_args: list = []
+    orig_polish = lpb.polish_box_lp
+
+    def polish(*a, **k):
+        polish_args.append((a, k))
+        return orig_polish(*a, **k)
+
+    lpb.polish_box_lp = polish
+    try:
+        with _capturing_blocked_factor(mats):
+            lpb.solve_box_lp_batched(c, A, b, l, u, IPMConfig())
+    finally:
+        lpb.polish_box_lp = orig_polish
+    d = torch.clamp(4.0 / (u - l), 1e-6, 1e10)   # the box midpoint's
+    M8 = mats[8]
+    F8 = blocked_chol.blocked_cholesky(M8)
+    r = M8.sum(2)
+    _reset_counts()
+    _profile_lines("profile96", {
+        "step": lambda: step(gen()),
+        "sampling": lambda: sample_states(
+            gen(), sys96.unavail, sys96.always_up_nsq, batch),
+        "tier1": lambda: dcopf.certify_states(
+            sys96, down, load, shed_hint=hint_b, repair_buffer=rbuf,
+            woodbury_k=wk),
+        "lp_tier": lambda: dcopf.evaluate_states(
+            sys96, down[idx], load[idx], woodbury_k=wk),
+        "lp_normal_x1": lambda: ops.normal(d),
+        "lp_blocked_factor_x1": lambda: blocked_chol.blocked_cholesky(M8),
+        "lp_blocked_solve_x1": lambda: blocked_chol.blocked_cho_solve(F8, r),
+        "lp_polish": lambda: orig_polish(*polish_args[0][0],
+                                         **polish_args[0][1]),
+    }, reps=4)
+    _line("profile96", lp_lanes=idx.shape[0], need_lp=int(st["need"].sum()),
+          factorizations_per_lp_solve=len(mats),
+          rescues_while_profiling=json.dumps(
+              {k: int(v) for k, v in blocked_chol.rescues.items()})
+          .replace(" ", ""))
 
 
 def main() -> int:
@@ -423,6 +963,7 @@ def main() -> int:
     results: dict = {}
     phase_build()
     sys_ = build_system(cases.rts24(), device="cuda")
+    sys96 = build_system(cases.rts96(), device="cuda")
     if "k2" in phases:
         phase_k2(sys_, results)
     if "k1" in phases:
@@ -431,8 +972,13 @@ def main() -> int:
         phase_bench(sys_, results)
     if "study" in phases:
         phase_study()
+    if "k3" in phases:
+        phase_k3(sys96, results)
+    if "study96" in phases:
+        phase_study96(sys96, results)
     if "profile" in phases:
         phase_profile(sys_)
+        phase_profile96(sys96)
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,11 @@ Plain tensor code is PyTorch; the Pallas kernels on the ported path are
 hand-written CUDA C++ for Hopper (``csrc/``), each with a plain PyTorch
 version beside it that CPU tensors take.
 
-Ported so far: the HL2 non-sequential Monte Carlo main path on IEEE
-RTS-24 (``studies.hl2_nsq.run_nsq_study``); see ROADMAP.md for the rest.
+Ported so far: the HL2 non-sequential Monte Carlo main path
+(``studies.hl2_nsq.run_nsq_study``) on IEEE RTS-24 and, through the
+blocked-Cholesky LP route for 72 < m <= 336, on IEEE RTS-96; see
+ROADMAP.md for the rest. Entry points run on the card unless the caller
+passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

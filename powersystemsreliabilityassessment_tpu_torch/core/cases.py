@@ -1,10 +1,11 @@
 """Built-in test systems as plain numpy data (host side).
 
 Port of ``powersystemsreliabilityassessment_tpu/core/cases.py``:
-``CaseData`` and ``rts24`` (IEEE RTS-24, 24 buses, 33 units including the
-synchronous condenser, 38 branches, 2850 MW peak), unchanged — the data is
-numpy and framework-free. The other reference cases (``replicate_case``,
-``rts96``, ``case300s``) come with the mid/large-m slice (ROADMAP.md).
+``CaseData``, ``rts24`` (IEEE RTS-24, 24 buses, 33 units including the
+synchronous condenser, 38 branches, 2850 MW peak), ``replicate_case`` and
+``rts96`` (IEEE RTS-96, three RTS-24 areas and five ties), unchanged — the
+data is numpy and framework-free. ``case300s`` comes with the large-m
+slice (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -196,4 +197,134 @@ def rts24() -> CaseData:
         br_rate=_f([r[3] for r in br_rows]),
         br_lambda=br_lambda,
         br_dur=br_dur,
+    )
+
+
+def replicate_case(case: CaseData, n_areas: int, tie_rate: float = 500.0,
+                   tie_x: float = 0.05) -> CaseData:
+    """Scale a case up by tiling it into ``n_areas`` interconnected areas.
+
+    Follows the IEEE RTS-96 construction principle (identical areas joined
+    by a small set of inter-area ties). Each consecutive area pair is
+    joined by two 230 kV tie lines anchored at strongly-connected buses
+    (bus 13 of area i to bus 15 of area i+1, and bus 23 of area i to bus 17
+    of area i+1) so the ties, not some internal radial line, bound the
+    inter-area transfer — giving a connected multi-area system suitable
+    for multi-chip scale-up studies.
+
+    Mirrors reference ``core/cases.py::replicate_case``.
+    """
+    nb = case.n_bus
+    reps = range(n_areas)
+
+    def tile_f(a):
+        return np.concatenate([a for _ in reps])
+
+    bus_pd = tile_f(case.bus_pd)
+    bus_qd = tile_f(case.bus_qd)
+    gen_bus = np.concatenate([case.gen_bus + k * nb for k in reps]).astype(np.int32)
+    br_from = [case.br_from + k * nb for k in reps]
+    br_to = [case.br_to + k * nb for k in reps]
+    br_x = [case.br_x for _ in reps]
+    br_rate = [case.br_rate for _ in reps]
+    br_lambda = [case.br_lambda for _ in reps]
+    br_dur = [case.br_dur for _ in reps]
+    # Inter-area ties (ring topology when n_areas > 2).
+    pairs = [(k, (k + 1) % n_areas) for k in range(n_areas if n_areas > 2 else 1)]
+    for a, b in pairs:
+        br_from.append(_i([a * nb + 12, a * nb + 22]))
+        br_to.append(_i([b * nb + 14, b * nb + 16]))
+        br_x.append(_f([tie_x, tie_x]))
+        br_rate.append(_f([tie_rate, tie_rate]))
+        br_lambda.append(_f([0.4, 0.4]))
+        br_dur.append(_f([11.0, 11.0]))
+
+    return CaseData(
+        name=f"{case.name}x{n_areas}",
+        base_mva=case.base_mva,
+        bus_pd=bus_pd,
+        bus_qd=bus_qd,
+        bus_area=np.repeat(np.arange(n_areas, dtype=np.int64), nb),
+        gen_bus=gen_bus,
+        gen_pmax=tile_f(case.gen_pmax),
+        gen_pmin=tile_f(case.gen_pmin),
+        gen_mttf=tile_f(case.gen_mttf),
+        gen_mttr=tile_f(case.gen_mttr),
+        gen_maint_weeks=tile_f(case.gen_maint_weeks),
+        br_from=np.concatenate(br_from).astype(np.int32),
+        br_to=np.concatenate(br_to).astype(np.int32),
+        br_x=np.concatenate(br_x),
+        br_rate=np.concatenate(br_rate),
+        br_lambda=np.concatenate(br_lambda),
+        br_dur=np.concatenate(br_dur),
+    )
+
+
+def rts96() -> CaseData:
+    """IEEE RTS-96 three-area system (Grigg et al., 1996).
+
+    The 1996 update replicates the RTS-79 single area three times (areas
+    A/B/C; buses renumbered 101-124 / 201-224 / 301-324, here 0-based
+    0..71) and joins them with five inter-area AC ties: 107-203, 113-215,
+    123-217, 223-318 and 325-121 (the paper's optional bus 25 / HVDC
+    variants are not modeled). Tie endpoints follow the publication;
+    impedance/rating/reliability parameters for the ties use values
+    typical of their voltage class (this build is offline and cannot
+    retrieve the paper's exact tie parameters; flows on ties are secondary
+    for adequacy indices). Bus "325" maps to area C bus 23 (the paper
+    inserts a new 230 kV bus 25 adjacent to 323; modeling the tie from
+    323 preserves the area-C attachment point's electrical neighborhood).
+
+    Mirrors reference ``core/cases.py::rts96``.
+    """
+    base = rts24()
+    nb = base.n_bus
+    areas = 3
+
+    def tile_f(a):
+        return np.concatenate([a for _ in range(areas)])
+
+    gen_bus = np.concatenate(
+        [base.gen_bus + k * nb for k in range(areas)]).astype(np.int32)
+    br_from = [base.br_from + k * nb for k in range(areas)]
+    br_to = [base.br_to + k * nb for k in range(areas)]
+    br_x = [base.br_x] * areas
+    br_rate = [base.br_rate] * areas
+    br_lambda = [base.br_lambda] * areas
+    br_dur = [base.br_dur] * areas
+
+    # Inter-area ties (1-based in-area bus numbers from the paper).
+    #   (area_from, bus_from, area_to, bus_to, x, rate, lambda, dur)
+    ties = [
+        (0, 7, 1, 3, 0.042, 175.0, 0.40, 10.0),    # 107-203 (138 kV)
+        (0, 13, 1, 15, 0.075, 500.0, 0.38, 11.0),  # 113-215 (230 kV)
+        (0, 23, 1, 17, 0.074, 500.0, 0.38, 11.0),  # 123-217 (230 kV)
+        (1, 23, 2, 18, 0.104, 500.0, 0.38, 11.0),  # 223-318 (230 kV)
+        (2, 23, 0, 21, 0.087, 500.0, 0.38, 11.0),  # 325-121 (230 kV)
+    ]
+    br_from.append(_i([a * nb + (bf - 1) for a, bf, _, _, _, _, _, _ in ties]))
+    br_to.append(_i([c * nb + (bt - 1) for _, _, c, bt, _, _, _, _ in ties]))
+    br_x.append(_f([t[4] for t in ties]))
+    br_rate.append(_f([t[5] for t in ties]))
+    br_lambda.append(_f([t[6] for t in ties]))
+    br_dur.append(_f([t[7] for t in ties]))
+
+    return CaseData(
+        name="rts96",
+        base_mva=base.base_mva,
+        bus_pd=tile_f(base.bus_pd),
+        bus_qd=tile_f(base.bus_qd),
+        bus_area=np.repeat(np.arange(areas, dtype=np.int64), nb),
+        gen_bus=gen_bus,
+        gen_pmax=tile_f(base.gen_pmax),
+        gen_pmin=tile_f(base.gen_pmin),
+        gen_mttf=tile_f(base.gen_mttf),
+        gen_mttr=tile_f(base.gen_mttr),
+        gen_maint_weeks=tile_f(base.gen_maint_weeks),
+        br_from=np.concatenate(br_from).astype(np.int32),
+        br_to=np.concatenate(br_to).astype(np.int32),
+        br_x=np.concatenate(br_x),
+        br_rate=np.concatenate(br_rate),
+        br_lambda=np.concatenate(br_lambda),
+        br_dur=np.concatenate(br_dur),
     )

@@ -143,8 +143,9 @@ def _to_device(arrays: dict, device, meta: dict) -> System:
 
 
 def build_system(case: CaseData, compat: CompatFlags = CompatFlags(),
-                 device: torch.device | str = "cpu") -> System:
-    """Compile raw case data into a device ``System``; mirrors reference
+                 device: torch.device | str = "cuda") -> System:
+    """Compile raw case data into a ``System`` on ``device`` (the card
+    unless the caller passes ``device="cpu"``); mirrors reference
     ``core/system.py::build_system``."""
     arrays = _host_arrays(case, compat)
     meta = dict(name=case.name, n_bus=case.n_bus, n_gen=case.n_gen,

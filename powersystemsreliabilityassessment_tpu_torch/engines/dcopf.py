@@ -18,14 +18,16 @@ overload a line.
                (1/b_l) f_l - status_l (theta_i - theta_j) = 0 (nl rows)
                box bounds on every variable
 
-solved by ``lp_ipm_structured.solve_box_lp_structured`` (the fused K1
-kernel on CUDA) on the lanes tier 1 leaves, compacted into a ``max_lp``
-buffer (``evaluate_states_screened``).
+solved on the lanes tier 1 leaves, compacted into a ``max_lp`` buffer
+(``evaluate_states_screened``): for m <= 72 by
+``lp_ipm_structured.solve_box_lp_structured`` (the fused K1 kernel on
+CUDA), for 72 < m <= 336 by ``lp_ipm_batched.solve_box_lp_batched`` on
+the materialized A (the blocked Cholesky, K2 + K3 on CUDA).
 
 Not ported yet (ROADMAP.md Queue 1): the island-PF tier
 (``certify_island_pf``, ``pf_buffer``), ``certify_finish`` and the
 ``pre`` certificate of the fused sampler kernel, ``island_blackout``,
-the generic and large-m LP paths.
+the large-m LP path (m > 336).
 """
 from __future__ import annotations
 
@@ -36,6 +38,10 @@ import numpy as np
 import torch
 
 from powersystemsreliabilityassessment_tpu_torch.core.system import System
+from powersystemsreliabilityassessment_tpu_torch.engines import (
+    lp_ipm_batched, lp_ipm_structured)
+from powersystemsreliabilityassessment_tpu_torch.ops.ipm_fused import (
+    build_structure)
 from powersystemsreliabilityassessment_tpu_torch.utils.config import (
     CompatFlags, IPMConfig)
 
@@ -75,27 +81,25 @@ def _lp_bounds(sys: System, compat: CompatFlags, theta_max: float):
 def build_state_lp(sys: System, gen_up: torch.Tensor, br_up: torch.Tensor,
                    load_pu: torch.Tensor, compat: CompatFlags,
                    theta_max: float):
-    """(c, A, b, l, u) of one state's LP with A materialized; mirrors
-    reference ``engines/dcopf.py::build_state_lp``. Out-of-service and
-    zero-capacity units are zeroed balance columns; the reference bus's
-    theta column is zeroed (gauge fix). Used by the tests only."""
+    """Batched (c, A, b, l, u) with A materialized as [B, m, n]; mirrors
+    reference ``engines/dcopf.py::build_state_lp`` under the reference's
+    ``vmap`` (``dcopf.py:1243-1246``): ``gen_up`` [B, ng], ``br_up``
+    [B, nl], ``load_pu`` [B, nd]. Out-of-service and zero-capacity units
+    are zeroed balance columns; the reference bus's theta column is zeroed
+    (gauge fix). c, b, l, u are those of :func:`build_state_lp_vectors`;
+    A is written block by block into one [B, m, n] tensor."""
     ng, nd, nl, nb = sys.n_gen, sys.n_load, sys.n_branch, sys.n_bus
-    dt, dev = _fdt(sys), sys.device
-    zeros = lambda *s: torch.zeros(s, dtype=dt, device=dev)
-    c = torch.cat([zeros(ng), torch.ones(nd, dtype=dt, device=dev),
-                   zeros(nl + nb)])
-    gen_col = gen_up * (sys.gen_pmax > 0).to(dt)
-    bal = torch.cat([sys.gen_bus_onehot * gen_col[None, :], sys.load_onehot,
-                     -sys.incidence.T, zeros(nb, nb)], dim=1)
-    ref_mask = (torch.arange(nb, device=dev) != 0).to(dt)
-    flow = torch.cat([zeros(nl, ng + nd), torch.diag(1.0 / sys.b_susceptance),
-                      -br_up[:, None] * sys.incidence * ref_mask[None, :]],
-                     dim=1)
-    A = torch.cat([bal, flow], dim=0)
-    b = torch.cat([sys.load_onehot @ load_pu, zeros(nl)])
-    pmin, pmax, tb = _lp_bounds(sys, compat, theta_max)
-    l = torch.cat([pmin, zeros(nd), -sys.br_rate, -tb])
-    u = torch.cat([pmax, torch.clamp_min(load_pu, 1e-6), sys.br_rate, tb])
+    c, b, l, u, colscale = build_state_lp_vectors(
+        sys, gen_up, br_up, load_pu, compat, theta_max)
+    f0, t0 = ng + nd, ng + nd + nl       # first flow / theta column
+    A = torch.zeros((gen_up.shape[0], nb + nl, t0 + nb), dtype=_fdt(sys),
+                    device=sys.device)
+    A[:, :nb, :ng] = sys.gen_bus_onehot * colscale[:, None, :ng]
+    A[:, :nb, ng:f0] = sys.load_onehot
+    A[:, :nb, f0:t0] = -sys.incidence.T
+    A[:, nb:, f0:t0] = torch.diag(1.0 / sys.b_susceptance)
+    ref_mask = (torch.arange(nb, device=sys.device) != 0).to(_fdt(sys))
+    A[:, nb:, t0:] = -br_up[:, :, None] * (sys.incidence * ref_mask)
     return c, A, b, l, u
 
 
@@ -437,21 +441,27 @@ def overgen_infeasible(sys: System, comp_down, load_pu,
 
 def _solve_batch(sys: System, comp_down, load_pu, compat: CompatFlags,
                  ipm: IPMConfig):
-    """LP tier on every lane through the structured route (K1 + polish);
-    mirrors reference ``engines/dcopf.py::_solve_batch`` (structured
-    branch; any batch size, no padding). Returns (shed, pg, quality)."""
-    from powersystemsreliabilityassessment_tpu_torch.engines import (
-        lp_ipm_structured)
-    from powersystemsreliabilityassessment_tpu_torch.ops.ipm_fused import (
-        build_structure)
+    """LP tier on every lane; mirrors reference
+    ``engines/dcopf.py::_solve_batch`` (any batch size, no padding): m <=
+    72 takes the structured route (K1 + polish), 72 < m <= 336 the
+    materialized-A solver ``solve_box_lp_batched`` (blocked Cholesky, K2
+    + K3); larger m raises NotImplementedError. Returns (shed, pg,
+    quality)."""
     ng, nd, nl = sys.n_gen, sys.n_load, sys.n_branch
     n_vars = ng + nd + nl + sys.n_bus
     up = 1.0 - comp_down.to(_fdt(sys))
     gen_up, br_up = up[:, :ng], up[:, ng:ng + nl].contiguous()
-    c, b, l, u, colscale = build_state_lp_vectors(
-        sys, gen_up, br_up, load_pu, compat, ipm.theta_max)
-    sol = lp_ipm_structured.solve_box_lp_structured(
-        build_structure(sys), colscale, br_up, c, b, l, u, ipm)
+    if sys.n_bus + nl <= lp_ipm_batched._PALLAS_MAX_M:
+        c, b, l, u, colscale = build_state_lp_vectors(
+            sys, gen_up, br_up, load_pu, compat, ipm.theta_max)
+        sol = lp_ipm_structured.solve_box_lp_structured(
+            build_structure(sys), colscale, br_up, c, b, l, u, ipm)
+    else:
+        # Before the [B, m, n] tensor is built.
+        lp_ipm_batched.check_lp_rows(sys.n_bus + nl)
+        c, A, b, l, u = build_state_lp(sys, gen_up, br_up, load_pu, compat,
+                                       ipm.theta_max)
+        sol = lp_ipm_batched.solve_box_lp_batched(c, A, b, l, u, ipm)
     # Lane quality: primal infeasibility plus the duality-gap bound 2n*mu.
     quality = sol.primal_residual + 2 * n_vars * sol.duality_gap
     return sol.x[:, ng:ng + nd], sol.x[:, :ng], quality
@@ -535,12 +545,19 @@ def evaluate_states_screened(sys: System, comp_down: torch.Tensor,
     ``max_lp`` buffer and solved by ``evaluate_states``. Lanes that do
     not fit keep the tier-1 bound and are counted in ``n_overflow``.
     ``shed_hint`` [n_load] is the ``calibrate_shed_hint`` pattern.
+    Systems with m > 336, where the reference adds the island-PF tier
+    (``pf_buffer``, ``default_pf_buffer``), raise NotImplementedError.
 
     Returns ``(EvalResult, n_overflow)``, both on the device; nothing in
     here waits for the device when ``shed_hint`` is already a tensor on
     it (a host array is copied, which synchronizes the stream).
     """
     _check_compat(compat)
+    if sys.n_bus + sys.n_branch > lp_ipm_batched._BLOCKED_MAX_M:
+        raise NotImplementedError(
+            "m > 336: the island-PF tier (certify_island_pf, "
+            "default_pf_buffer) and the large-m LP are not ported yet "
+            "(ROADMAP.md Queue 1 item 6)")
     B = comp_down.shape[0]
     hint_b = None
     if shed_hint is not None:

@@ -40,6 +40,7 @@ _SIGNATURES = {
     "psra_cholesky": [_P, _P, _I, _I, _P],
     "psra_cho_solve": [_P, _P, _P, _I, _I, _P],
     "psra_fused_ipm": [_P] * 15 + [_I] * 6 + [_F] * 4 + [_P],
+    "psra_trsm": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

@@ -50,7 +50,7 @@ def default_woodbury_k(sys: System) -> int:
     """Certificate rank: 2 unless >= 3 simultaneous branch outages have
     probability >= 1e-4 under the sampling measure (Poisson bound), then
     4. Mirrors reference ``studies/hl2_nsq.py::default_woodbury_k``
-    (plain MC). RTS-24 resolves to 2."""
+    (plain MC). RTS-24 resolves to 2, RTS-96 to 4."""
     q = sys.unavail.detach().cpu().numpy().astype(np.float64)[sys.n_gen:]
     lam = float(q.sum())
     p_ge3 = 1.0 - np.exp(-lam) * (1.0 + lam + lam * lam / 2.0)
@@ -171,10 +171,11 @@ class NSQResult:
 def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
                   compat: CompatFlags = CompatFlags(),
                   ipm: IPMConfig = IPMConfig(),
-                  device: torch.device | str = "cpu",
+                  device: torch.device | str = "cuda",
                   log_every: int = 10,
                   max_lp: int | None = None) -> NSQResult:
-    """HL2 NSQ study on one device; mirrors reference
+    """HL2 NSQ study on one device (the card unless the caller passes
+    ``device="cpu"``); mirrors reference
     ``studies/hl2_nsq.py::run_nsq_study`` (plain MC).
 
     ``max_lp``: initial LP-lane buffer per batch (None = the default for

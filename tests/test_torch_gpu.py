@@ -1,6 +1,8 @@
-"""PyTorch port on a CUDA card: the hand-written kernels against their
-plain PyTorch versions, the main path on the card against the same path
-on the CPU, and the 98-state golden replay on the card
+"""PyTorch port on a CUDA card: the hand-written kernels (K1, K2, K3)
+against their plain PyTorch versions, the blocked Cholesky route on the
+kernels against the same route on the plain versions, the RTS-24 main
+path on the card against the same path on the CPU, an RTS-96 step that
+must launch K2 and K3, and the 98-state golden replay on the card
 (tests/test_torch_nsq.py runs it on the CPU through the same helper).
 
 Tests that need a card carry the ``gpu`` marker and skip without one.
@@ -21,10 +23,10 @@ from powersystemsreliabilityassessment_tpu_torch.core import cases
 from powersystemsreliabilityassessment_tpu_torch.core.system import (
     build_system)
 from powersystemsreliabilityassessment_tpu_torch.engines import (
-    dcopf, lp_ipm_structured)
+    dcopf, lp_ipm_batched, lp_ipm_structured)
 from powersystemsreliabilityassessment_tpu_torch.models import twostate
 from powersystemsreliabilityassessment_tpu_torch.ops import (
-    batched_chol as bc, ipm_fused)
+    batched_chol as bc, blocked_chol as bl, ipm_fused)
 from powersystemsreliabilityassessment_tpu_torch.studies import hl2_nsq
 from powersystemsreliabilityassessment_tpu_torch.utils.config import (
     CompatFlags, IPMConfig, MCSConfig)
@@ -99,7 +101,8 @@ def check_golden_replay(device):
                          / "golden_replay.json").read_text())
     case = cases.rts24()
     sys_ = build_system(case, device=device)
-    downs, loads, tags = golden_states(case, build_system(case))
+    downs, loads, tags = golden_states(case,
+                                       build_system(case, device="cpu"))
     assert tags == golden["tags"]
     res = dcopf.evaluate_states(sys_, torch.as_tensor(downs, device=device),
                                 torch.as_tensor(loads, device=device))
@@ -215,3 +218,108 @@ def test_small_study_on_card(cuda):
         math.sqrt(ref["plc"] * (1 - ref["plc"]) / ref["samples"]),
         math.sqrt(res.plc * (1 - res.plc) / res.samples))
     assert abs(res.plc - ref["plc"]) <= 4 * se_p
+
+
+def rts96_normal_matrices(device, n=256):
+    """Equilibrated normal matrices of ``n`` real RTS-96 LP lanes (3x
+    unavailability states, numpy seed 96) as the IPM factors them: half
+    at the fourth iteration's barrier weights, half of the polish's
+    A A'. Shared with tests/test_torch_blocked_chol.py (CPU)."""
+    case = cases.rts96()
+    sys_ = build_system(case, device=device)
+    rng = np.random.default_rng(96)
+    down = rng.uniform(size=(n, case.n_comp)) < \
+        3 * twostate.unavailability(case)[None, :]
+    down[:, sys_.always_up_nsq.cpu().numpy()] = False
+    up = 1.0 - torch.as_tensor(down, device=device).float()
+    load = sys_.load_pd[None, :].expand(n, sys_.n_load)
+    lp = dcopf.build_state_lp(
+        sys_, up[:, :sys_.n_gen], up[:, sys_.n_gen:].contiguous(), load,
+        CompatFlags(), IPMConfig().theta_max)
+    kernels = lp_ipm_batched._BLOCKED_KERNELS
+    mats = []
+
+    def capture(M):
+        mats.append(M.clone())
+        return kernels.factor(M)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(lp_ipm_batched, "_BLOCKED_KERNELS",
+                   kernels._replace(factor=capture))
+        lp_ipm_batched.solve_box_lp_batched(*lp, IPMConfig(iterations=4))
+    return torch.cat([mats[3][:n // 2], mats[4][n // 2:]]).contiguous()
+
+
+def _lane_rel_err(a, b):
+    lane = lambda t: t.abs().flatten(1).amax(1)
+    return lane(a - b) / lane(b).clamp_min(1.0)
+
+
+@pytest.mark.gpu
+def test_k3_kernels_match_plain(cuda):
+    M = rts96_normal_matrices(cuda)
+    P = bl.PANEL
+    S = M[:, :P, :P]
+    lift = bl.LIFT * torch.diagonal(S, dim1=1, dim2=2).clamp_min(1e-30)
+    L0 = bc.cholesky((S + torch.diag_embed(lift)).contiguous())
+    B56 = M[:, P:2 * P, :P].transpose(1, 2).contiguous()   # block (1, 0)
+    r1 = torch.randn((M.shape[0], P, 1), device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(1))
+    # The last, 23-wide diagonal panel's factor (RTS-96's m = 191 splits
+    # 56 + 56 + 56 + 23), as the blocked factor builds it.
+    L23 = bl._factor_once(M)[1][-1]
+    assert L23.shape[1:] == (23, 23)
+    r23 = r1[:, :23].contiguous()
+    before = dict(bl.launches)
+    for fn, plain, L, rhs in ((bl.trsm_fwd, bl.trsm_fwd_plain, L0, B56),
+                              (bl.trsm_fwd, bl.trsm_fwd_plain, L0, r1),
+                              (bl.trsm_bwd, bl.trsm_bwd_plain, L0, r1),
+                              (bl.trsm_fwd, bl.trsm_fwd_plain, L23, r23),
+                              (bl.trsm_bwd, bl.trsm_bwd_plain, L23, r23)):
+        got, want = fn(L, rhs), plain(L, rhs)
+        torch.cuda.synchronize()
+        # Same substitution in float32 in another summation order;
+        # chip_smoke.py's K3_BOUND states the 1e-3 per-lane bound.
+        assert float(_lane_rel_err(got, want).max()) <= 1e-3
+    assert bl.launches["trsm_fwd"] == before["trsm_fwd"] + 3
+    assert bl.launches["trsm_bwd"] == before["trsm_bwd"] + 2
+    with pytest.raises(ValueError, match="contiguous"):
+        bl.trsm_fwd(L0.transpose(1, 2), r1)
+
+
+@pytest.mark.gpu
+def test_blocked_route_on_card_matches_plain(cuda, monkeypatch):
+    M = rts96_normal_matrices(cuda)
+    r = torch.randn((M.shape[0], M.shape[1]), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(2))
+    before = dict(bl.launches)
+    x_k = bl.blocked_cho_solve(bl.blocked_cholesky(M), r)
+    assert bl.launches["trsm_fwd"] > before["trsm_fwd"]
+    with monkeypatch.context() as mp:
+        mp.setattr(bc, "cholesky", bc.cholesky_plain)
+        mp.setattr(bl, "trsm_fwd", bl.trsm_fwd_plain)
+        mp.setattr(bl, "trsm_bwd", bl.trsm_bwd_plain)
+        x_p = bl.blocked_cho_solve(bl.blocked_cholesky(M), r)
+    ev = torch.linalg.eigvalsh(M.double())
+    cond = ev[:, -1] / ev[:, 0].clamp_min(1e-300)
+    # Each refined float32 solve lands within ~cond eps of the exact one
+    # (chip_smoke.py, BLOCKED_X_*): 4 cond eps per lane, 1e-3 floor; a
+    # lane whose probe sits on the rescue threshold may split (<= 1%).
+    tol = (4 * cond * 2.0 ** -24).clamp_min(1e-3)
+    over = _lane_rel_err(x_k, x_p).double() > tol
+    assert int(over.sum()) <= 0.01 * M.shape[0]
+
+
+@pytest.mark.gpu
+def test_rts96_step_launches_k2_and_k3(cuda):
+    sys_ = build_system(cases.rts96(), device=cuda)
+    assert sys_.n_bus + sys_.n_branch == 191
+    step = hl2_nsq.make_nsq_batch_step(sys_, 8192, CompatFlags(),
+                                       IPMConfig(), nodal_mode="lp")
+    before = {**bc.launches, **bl.launches}
+    m, n_over, _ = step(hl2_nsq.batch_generator(0, 0, cuda))
+    assert float(m.n) == 8192 and int(n_over) == 0
+    assert bool(torch.isfinite(m.sum_dns))
+    after = {**bc.launches, **bl.launches}
+    for name in ("cholesky", "trsm_fwd", "trsm_bwd"):
+        assert after[name] > before[name], name

@@ -9,6 +9,7 @@ objective within 1e-3 p.u. (0.1 MW, tests/test_ipm_fused.py's bound). The
 CUDA kernel is held against the plain version on the card in
 tests/test_torch_gpu.py.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,7 +28,8 @@ from powersystemsreliabilityassessment_tpu_torch.core.system import (
     from_reference)
 from powersystemsreliabilityassessment_tpu_torch.engines import (
     dcopf, lp_ipm_batched, lp_ipm_structured)
-from powersystemsreliabilityassessment_tpu_torch.ops import ipm_fused
+from powersystemsreliabilityassessment_tpu_torch.ops import (
+    blocked_chol, ipm_fused)
 from powersystemsreliabilityassessment_tpu_torch.utils.config import (
     CompatFlags, IPMConfig)
 
@@ -73,13 +75,17 @@ def test_lp_vectors_match_reference(setup):
 
 
 def test_materialized_lp_matches_reference(setup):
+    # The port builds the whole batch at once; the reference one state
+    # at a time under vmap (dcopf.py:1243-1246).
     ref_sys, sys_, bu, _, _ = setup
-    gu, load = np.ones(33, np.float32), _np(ref_sys.load_pd)
-    ref = ref_dcopf.build_state_lp(ref_sys, jnp.asarray(gu),
-                                   jnp.asarray(bu[1]), jnp.asarray(load),
-                                   RefCompat(), 6.0)
+    rng = np.random.default_rng(4)
+    gu = (rng.uniform(size=(8, 33)) > 0.1).astype(np.float32)
+    load = np.tile(_np(ref_sys.load_pd)[None], (8, 1))
+    ref = jax.vmap(lambda g, b_, ld: ref_dcopf.build_state_lp(
+        ref_sys, g, b_, ld, RefCompat(), 6.0))(
+        jnp.asarray(gu), jnp.asarray(bu[:8]), jnp.asarray(load))
     got = dcopf.build_state_lp(sys_, torch.as_tensor(gu),
-                               torch.as_tensor(bu[1]),
+                               torch.as_tensor(bu[:8]),
                                torch.as_tensor(load), CompatFlags(), 6.0)
     for r, g in zip(ref, got):
         np.testing.assert_array_equal(_np(r), g.numpy())
@@ -164,7 +170,19 @@ def test_lp_route_table():
     assert k.iterate is ipm_fused.fused_ipm_iterations_plain
     assert lp_ipm_batched.lp_kernels(torch.device("cuda"), 62).iterate \
         is ipm_fused.fused_ipm_iterations
-    with pytest.raises(NotImplementedError, match="K3"):
-        lp_ipm_batched.lp_kernels(torch.device("cpu"), 73)
+    # 72 < m <= 336: the blocked Cholesky on both devices (its K2 and K3
+    # wrappers pick kernel or plain version by the tensor's device).
+    for dev in ("cpu", "cuda"):
+        k = lp_ipm_batched.lp_kernels(torch.device(dev), 73)
+        assert k.factor is blocked_chol.blocked_cholesky
+        assert k.solve is blocked_chol.blocked_cho_solve
+        assert k.iterate is None
+    assert lp_ipm_batched.lp_kernels(torch.device("cuda"), 336).factor \
+        is blocked_chol.blocked_cholesky
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        lp_ipm_batched.lp_kernels(torch.device("cpu"), 337)
+    lp_ipm_batched.check_lp_rows(336)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        lp_ipm_batched.check_lp_rows(337)
     with pytest.raises(NotImplementedError):
         lp_ipm_batched.lp_kernels(torch.device("meta"), 62)

@@ -120,7 +120,7 @@ def test_small_study_matches_committed_results():
     ref = json.loads((ROOT / "results" / "nsq_results.json").read_text())
     res = hl2_nsq.run_nsq_study(
         cases.rts24(), MCSConfig(batch_size=4096, max_samples=16384),
-        log_every=0)
+        device="cpu", log_every=0)
     assert res.samples == 16384 and res.overflow_states == 0
     assert len(res.beta_history) == 4
     se_e = math.hypot(ref["beta"] * ref["edns_mw"], res.beta * res.edns_mw)
@@ -141,10 +141,11 @@ def test_study_lp_buffer_redo_is_exact(capsys):
     # with the same generator: the estimates equal a run that never
     # overflowed.
     cfg = MCSConfig(batch_size=1024, max_samples=2048, seed=4)
-    small = hl2_nsq.run_nsq_study(cases.rts24(), cfg, log_every=0,
-                                  max_lp=16)
+    small = hl2_nsq.run_nsq_study(cases.rts24(), cfg, device="cpu",
+                                  log_every=0, max_lp=16)
     assert "growing max_lp" in capsys.readouterr().out
-    full = hl2_nsq.run_nsq_study(cases.rts24(), cfg, log_every=0)
+    full = hl2_nsq.run_nsq_study(cases.rts24(), cfg, device="cpu",
+                                 log_every=0)
     assert small.samples == full.samples == 2048
     assert small.edns_mw == full.edns_mw and small.plc == full.plc
     assert small.overflow_states == full.overflow_states == 0
@@ -230,7 +231,7 @@ def test_double_buffered_loop_matches_reference(overflow_at):
 
 
 def test_island_blackout_is_not_ported_yet():
-    sys_ = build_system(cases.rts24())
+    sys_ = build_system(cases.rts24(), device="cpu")
     down = torch.zeros((4, 71), dtype=torch.bool)
     load = sys_.load_pd[None, :].expand(4, 17)
     with pytest.raises(NotImplementedError, match="island_blackout"):

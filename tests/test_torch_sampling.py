@@ -13,7 +13,7 @@ from powersystemsreliabilityassessment_tpu_torch.sampling.state import (
 from powersystemsreliabilityassessment_tpu_torch.studies.hl2_nsq import (
     batch_generator)
 
-SYS = build_system(cases.rts24())
+SYS = build_system(cases.rts24(), device="cpu")
 
 
 def test_bernoulli_marginals_within_5_sigma():

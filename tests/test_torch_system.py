@@ -41,7 +41,7 @@ def ref_sys():
 
 @pytest.fixture(scope="module")
 def port_sys():
-    return system.build_system(cases.rts24())
+    return system.build_system(cases.rts24(), device="cpu")
 
 
 def test_case_data_matches_reference():
