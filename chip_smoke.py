@@ -28,6 +28,29 @@ Phases, one line each (any failure raises, so the exit code is not 0):
               against results/study_sweep.json["rts96"] (EDNS and LOLE
               within 4 combined standard errors), with the K2/K3 launch
               counts and the probe's rescued share of factored lanes
+  9. k6       K6 Philox Bernoulli sampler bit-equal to its plain version
+              at [262144, 71] for two seed pairs; per-component failure
+              rates of 2^22 draws within 5 sigma, pinned never failing;
+              the rng_impl="hw" sampling path must launch K6 and give
+              the plain version's bits for its own key
+ 10. k4       K4 fused sampler + first-pass certificate at 262144 lanes
+              with the calibrated hint: states bit-equal to K6's and to
+              the plain version's, deficit and shed within 1e-5, first-
+              pass mask within 0.1% of the plain version's and inside
+              certify_states' certified set; certify_finish with a
+              buffer holding every needy lane equal to certify_states on
+              >= 99.99% of lanes; the guard band's routed share; the
+              same mask checks at the reference's wider band 2^-14,
+              which must route > 1% of lanes
+ 11. k5       K5 whole-certificate kernel vs certify_states(woodbury_k=2)
+              on a 262144-lane RTS-24 batch, the stressed batch of
+              tests/test_torch_gpu.py and 8192 RTS-96 lanes at 10x
+              unavailability; the certify_states_fused path must launch K5
+ 12. studyfused  run_nsq_study(rts24(), MCSConfig(max_samples=106496,
+              fused_tier1=True)) held against results/nsq_results.json as
+              in 6; K4 launches once per batch, K1 and K2 as before
+The bench phase also times the fused step (fused_tier1) at its shape,
+under the same sync check, and prints it on a line of its own.
 Then one JSON line of per-kernel results and, last, the device line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -50,7 +73,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PKG = "powersystemsreliabilityassessment_tpu_torch"
-ALL_PHASES = ("build", "k2", "k1", "bench", "study", "k3", "study96")
+ALL_PHASES = ("build", "k2", "k1", "bench", "study", "k3", "study96", "k6",
+              "k4", "k5", "studyfused")
 # Not run by default: a per-layer and per-kernel breakdown of the
 # bench-shaped step and of the RTS-96 step (for PERF.md), not part of
 # the smoke contract.
@@ -58,6 +82,8 @@ EXTRA_PHASES = ("profile",)
 # The kernels each main path must launch.
 RTS24_KERNELS = ("fused_ipm_iterations", "cholesky", "cho_solve")
 RTS96_KERNELS = ("cholesky", "trsm_fwd", "trsm_bwd")
+FUSED_KERNELS = ("sample_certify_quick", "fused_ipm_iterations", "cholesky",
+                 "cho_solve")
 
 # Published peaks of one H100 SXM (NVIDIA's H100 datasheet):
 # float32 outside the tensor cores, and HBM3 bandwidth. A kernel's bound
@@ -94,6 +120,24 @@ EPS_F32 = 2.0 ** -24
 # at most this share of lanes may differ in the rescue count or exceed
 # the blocked bound.
 RESCUE_DIFF_BOUND = 0.01
+# K4 and K5 against their plain versions: deficits and shed / dispatch
+# are float32 sums of <= 33 terms of up to ~34 p.u. (RTS-24) in another
+# order, a few ulps; RTS-96's ~90 p.u. capacity sums get the reference's
+# own tolerance (tests/test_certify_kernel.py:112, rtol = atol = 1e-4).
+CERT_DEF_BOUND = 1e-5       # absolute, p.u.
+CERT_DEF_BOUND_96 = 1e-4    # absolute and relative
+CERT_PATTERN_BOUND = 1e-4   # K5 shed / dispatch on lanes both certify
+QUICK_PATTERN_BOUND = 1e-5  # K4 shed candidate
+# Lanes whose certificate flips between two float32 summation orders:
+# flow checks bind at exactly zero margin on deficit optima.
+CERT_AGREE = 0.9999         # K5 masks, and K4 + finish vs certify_states
+QUICK_AGREE = 0.999         # K4 first-pass mask vs its plain version
+K6_MAX_Z = 5.0
+# The reference's band constant (its TPU dots): wider than the port's
+# guard_eps, it routes lanes to the finish, so the band's arithmetic is
+# held to its plain version there too, with a floor on the routed share.
+K4_WIDE_EPS = 2.0 ** -14
+K4_WIDE_MIN_ROUTED = 0.01
 
 
 def _line(phase: str, **kv) -> None:
@@ -140,20 +184,24 @@ def _trsm_work(B, P, K):
     return B * P * P * K, 4 * B * (_tri(P) + 2 * P * K)    # L, B in; X out
 
 
-def _reset_counts():
+def _launch_dicts():
     from powersystemsreliabilityassessment_tpu_torch.ops import (
-        batched_chol, blocked_chol, ipm_fused)
-    for d in (batched_chol.launches, ipm_fused.launches,
-              blocked_chol.launches, blocked_chol.rescues):
+        batched_chol, blocked_chol, certify_kernel, fused_sampler_cert,
+        hw_sampler, ipm_fused)
+    return (ipm_fused.launches, batched_chol.launches, blocked_chol.launches,
+            hw_sampler.launches, fused_sampler_cert.launches,
+            certify_kernel.launches)
+
+
+def _reset_counts():
+    from powersystemsreliabilityassessment_tpu_torch.ops import blocked_chol
+    for d in (*_launch_dicts(), blocked_chol.rescues):
         for k in d:
             d[k] = 0
 
 
 def _counts() -> dict:
-    from powersystemsreliabilityassessment_tpu_torch.ops import (
-        batched_chol, blocked_chol, ipm_fused)
-    return {**ipm_fused.launches, **batched_chol.launches,
-            **blocked_chol.launches}
+    return {k: v for d in _launch_dicts() for k, v in d.items()}
 
 
 def _check_launched(phase: str, counts: dict, names) -> None:
@@ -421,22 +469,13 @@ def phase_k1(sys_, results):
         active_lane_iterations=active, **k1_bound)
 
 
-def phase_bench(sys_, results):
-    import numpy as np
+def _bench_run(step, batch):
+    """Warm-up step, then 8 segments of 16 steps with fresh generator
+    seeds, each under torch.cuda.set_sync_debug_mode("error"). Returns
+    (segment rates, last output, warm-up overflow, peak bytes)."""
     import torch
-    from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
     from powersystemsreliabilityassessment_tpu_torch.studies import hl2_nsq
-    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
-        CompatFlags, IPMConfig)
-    batch, max_lp = 262144, 256
-    t0 = time.perf_counter()
-    hint = dcopf.calibrate_shed_hint(sys_)
-    hint_s = time.perf_counter() - t0
-    step = hl2_nsq.make_nsq_batch_step(
-        sys_, batch, CompatFlags(), IPMConfig(), max_lp=max_lp,
-        nodal_mode="proportional", shed_hint=hint)
     torch.cuda.reset_peak_memory_stats()
-    _reset_counts()
     m, n_over, _ = step(hl2_nsq.batch_generator(0, 10**6, "cuda"))
     n_over_warm = int(n_over)
     if not bool(torch.isfinite(m.sum_dns)):
@@ -455,25 +494,52 @@ def phase_bench(sys_, results):
         torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         rates.append(batch * seg_iters / (time.perf_counter() - t0))
-    counts = _counts()
-    peak = torch.cuda.max_memory_allocated()
-    edns = float(out[0].sum_dns) / batch
-    _line("bench", hinted=hint is not None,
-          hint_seconds=f"{hint_s:.2f}",
-          scen_per_s_best=f"{max(rates):.1f}",
-          scen_per_s_median=f"{statistics.median(rates):.1f}",
-          segment_rates=[round(r, 1) for r in rates],
-          overflow_warmup=n_over_warm, peak_mem_bytes=peak,
-          last_batch_edns_mw=f"{edns:.4f}",
-          launches=json.dumps(counts).replace(" ", ""))
-    _check_launched("bench", counts, RTS24_KERNELS)
-    if not np.isfinite(edns):
-        raise RuntimeError("bench: non-finite DNS")
-    for name in RTS24_KERNELS:
-        results.setdefault(name, {})["launches"] = counts[name]
+    return rates, out, n_over_warm, torch.cuda.max_memory_allocated()
 
 
-def phase_study():
+def phase_bench(sys_, results):
+    import numpy as np
+    from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
+    from powersystemsreliabilityassessment_tpu_torch.studies import hl2_nsq
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        CompatFlags, IPMConfig)
+    batch, max_lp = 262144, 256
+    t0 = time.perf_counter()
+    hint = dcopf.calibrate_shed_hint(sys_)
+    hint_s = time.perf_counter() - t0
+    # The default step, then the fused one (fused_tier1) at the same
+    # shape: information beside the default, each with its own counts.
+    for tag, fused, names in (("bench", False, RTS24_KERNELS),
+                              ("bench_fused", True, FUSED_KERNELS)):
+        step = hl2_nsq.make_nsq_batch_step(
+            sys_, batch, CompatFlags(), IPMConfig(), max_lp=max_lp,
+            nodal_mode="proportional", shed_hint=hint, fused_tier1=fused)
+        _reset_counts()
+        rates, out, n_over_warm, peak = _bench_run(step, batch)
+        counts = _counts()
+        edns = float(out[0].sum_dns) / batch
+        _line(tag, hinted=hint is not None,
+              hint_seconds=f"{hint_s:.2f}",
+              scen_per_s_best=f"{max(rates):.1f}",
+              scen_per_s_median=f"{statistics.median(rates):.1f}",
+              segment_rates=[round(r, 1) for r in rates],
+              overflow_warmup=n_over_warm, peak_mem_bytes=peak,
+              last_batch_edns_mw=f"{edns:.4f}",
+              launches=json.dumps(counts).replace(" ", ""))
+        _check_launched(tag, counts, names)
+        if not np.isfinite(edns):
+            raise RuntimeError(f"{tag}: non-finite DNS")
+        if not fused:
+            for name in RTS24_KERNELS:
+                results.setdefault(name, {})["launches"] = counts[name]
+        else:
+            results.setdefault("sample_certify_quick", {})[
+                "launches_bench_fused"] = counts["sample_certify_quick"]
+
+
+def phase_study(tag="study", fused=False, kernels=RTS24_KERNELS):
+    """The 106,496-sample RTS-24 study (default, or ``fused_tier1``) held
+    against results/nsq_results.json; returns the launch counts."""
     import math
     import torch
     from powersystemsreliabilityassessment_tpu_torch.core import cases
@@ -484,8 +550,9 @@ def phase_study():
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     t0 = time.perf_counter()
-    res = hl2_nsq.run_nsq_study(cases.rts24(), MCSConfig(max_samples=106496),
-                                device="cuda", log_every=0)
+    res = hl2_nsq.run_nsq_study(
+        cases.rts24(), MCSConfig(max_samples=106496, fused_tier1=fused),
+        device="cuda", log_every=0)
     wall = time.perf_counter() - t0
     counts = _counts()
     se_e = math.hypot(ref["beta"] * ref["edns_mw"], res.beta * res.edns_mw)
@@ -494,17 +561,24 @@ def phase_study():
         math.sqrt(res.plc * (1 - res.plc) / res.samples))
     z_e = abs(res.edns_mw - ref["edns_mw"]) / se_e
     z_p = abs(res.plc - ref["plc"]) / se_p
-    _line("study", samples=res.samples, edns_mw=f"{res.edns_mw:.4f}",
+    _line(tag, samples=res.samples, edns_mw=f"{res.edns_mw:.4f}",
           lole_hr_yr=f"{res.lole_hr_yr:.2f}", plc=f"{res.plc:.5f}",
           beta=f"{res.beta:.5f}", edns_z=f"{z_e:.2f}<=4",
           plc_z=f"{z_p:.2f}<=4", overflow=res.overflow_states,
           wall_s=f"{wall:.2f}",
           peak_mem_bytes=torch.cuda.max_memory_allocated(),
           launches=json.dumps(counts).replace(" ", ""))
-    _check_launched("study", counts, RTS24_KERNELS)
+    _check_launched(tag, counts, kernels)
     if not (z_e <= 4 and z_p <= 4):
-        raise RuntimeError("study: estimates outside 4 combined standard "
+        raise RuntimeError(f"{tag}: estimates outside 4 combined standard "
                            "errors of results/nsq_results.json")
+    if fused:
+        batches = res.samples // MCSConfig().batch_size
+        if res.overflow_states or counts["sample_certify_quick"] < batches:
+            raise RuntimeError(f"{tag}: overflow {res.overflow_states}, or "
+                               f"K4 launched on fewer than {batches} "
+                               "batches")
+    return counts
 
 
 def _rel_err(a, b) -> float:
@@ -803,6 +877,307 @@ def _rescue_check(sys96):
                            "lanes than the probe on the plain versions")
 
 
+def _cert_work(sys_, n_lanes, n_elig, flow_lanes=0, repair_steps=0,
+               single=0, pairs=0):
+    """Float32 operations a certificate kernel needs for this run's data
+    (csrc/cert_common.cuh): per lane the deficit, the candidate and the
+    dispatch; per lane with a flow check (n_out <= 1) the injections and
+    one [nb] x [nb, nl] PTDF product (``flow_lanes`` counts a second, the
+    K4 guard band's); per executed repair step the gradient's PTDF
+    product, the moves and a new flow check; per single or double outage
+    lane its LODF / Woodbury update. The one-hot products are gathers and
+    sums, counted as adds."""
+    ng, nd, nl, nb = sys_.n_gen, sys_.n_load, sys_.n_branch, sys_.n_bus
+    base = 2 * ng + 10 * nd + 11 * ng + 3 * nb
+    check = (ng + nd + 2 * nb) + 2 * nb * nl + 3 * nl
+    step = 2 * nb * nl + 12 * (ng + nd) + 8 * nl + check
+    return (n_lanes * base + n_elig * check + flow_lanes * 2 * nb * nl
+            + repair_steps * step + single * 6 * nl + pairs * (30 + 6 * nl))
+
+
+def phase_k6(sys_, results):
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.ops import (
+        hw_sampler as hw)
+    from powersystemsreliabilityassessment_tpu_torch.sampling.state import (
+        sample_states)
+    from powersystemsreliabilityassessment_tpu_torch.studies import hl2_nsq
+    B, nc = 262144, sys_.n_comp
+    thresh = hw.bernoulli_thresholds(sys_.unavail, sys_.always_up_nsq)
+    diffs = []
+    for seed in (0, 1):
+        seeds = hw.seed_words(hl2_nsq.batch_generator(seed, 0, "cuda"),
+                              "cuda")
+        k, p = hw.launch(seeds, thresh, B), hw.sample_states_hw_plain(
+            seeds, thresh, B)
+        diffs.append(int((k != p).sum()))
+    # The law: 2^22 rows against P(fail) = thresh / 2^24.
+    big = hw.launch(seeds, thresh, 1 << 22)
+    prob = thresh.double() / 2.0 ** 24
+    rate = big.sum(0).double() / big.shape[0]
+    sd = torch.sqrt(prob * (1 - prob) / big.shape[0])
+    z = torch.where(prob > 0, (rate - prob) / sd.clamp_min(1e-300), 0.0)
+    max_z = float(z.abs().max())
+    pinned = int(big[:, sys_.always_up_nsq].sum())
+    del big
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    u, up = sys_.unavail, sys_.always_up_nsq
+    ms = _time_ms(lambda: hw.launch(seeds, thresh, B))
+    plain_ms = _time_ms(lambda: hw.sample_states_hw_plain(seeds, thresh, B),
+                        reps=3)
+    lib_ms = _time_ms(lambda: (torch.rand((B, nc), generator=gen,
+                                          device="cuda") < u) & ~up)
+    # The path: rng_impl="hw" sampling at the bench shape.
+    _reset_counts()
+    down = sample_states(hl2_nsq.batch_generator(0, 5, "cuda"), u, up, B,
+                         rng_impl="hw")
+    torch.cuda.synchronize()
+    counts = _counts()
+    # The wrapper's own key drawing and thresholds against the plain bits.
+    path_diff = int((down != hw.sample_states_hw_plain(hw.seed_words(
+        hl2_nsq.batch_generator(0, 5, "cuda"), "cuda"), thresh, B)).sum())
+    bound = _bound(0.0, B * nc + 4 * nc + 8)   # bool out, thresholds, key
+    _line("k6", shape=(B, nc), differing_entries=diffs,
+          max_abs_z=f"{max_z:.2f}<={K6_MAX_Z}", pinned_failures=pinned,
+          draws=1 << 22, kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+          library_ms=f"{lib_ms:.4f}",
+          bound_ms=f"{bound['bound_ms']:.4f}({bound['bound_by']})",
+          path_launches=counts["sample_states_hw"],
+          path_differing_entries=path_diff,
+          path_fail_rate=f"{float(down.float().mean()):.5f}")
+    _check_launched("k6", counts, ("sample_states_hw",))
+    if any(diffs) or path_diff or max_z > K6_MAX_Z or pinned:
+        raise RuntimeError("k6: kernel differs from its plain version, or "
+                           "its failure rates miss the law")
+    results["sample_states_hw"] = dict(
+        name="sample_states_hw", route="cuda",
+        source=f"{PKG}/csrc/hw_sampler.cu",
+        replaces="powersystemsreliabilityassessment_tpu/ops/hw_sampler.py:89",
+        launches=counts["sample_states_hw"], max_abs_err=0.0,
+        differing_entries=sum(diffs) + path_diff, tolerance=0, shape=[B, nc], ms=ms,
+        plain_ms=plain_ms, library_ms=lib_ms, max_abs_z=max_z, **bound)
+
+
+def phase_k4(sys_, results):
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
+    from powersystemsreliabilityassessment_tpu_torch.ops import (
+        fused_sampler_cert as ff, hw_sampler as hw)
+    from powersystemsreliabilityassessment_tpu_torch.studies import hl2_nsq
+    B, nc, ng = 262144, sys_.n_comp, sys_.n_gen
+    hint = torch.as_tensor(dcopf.calibrate_shed_hint(sys_), device="cuda")
+    gen = lambda: hl2_nsq.batch_generator(0, 7, "cuda")
+    down, ok1, deficit, shed = ff.sample_certify_quick(gen(), sys_, B,
+                                                       shed_hint=hint)
+    seeds = hw.seed_words(gen(), "cuda")
+    thresh = hw.bernoulli_thresholds(sys_.unavail, sys_.always_up_nsq)
+    k6_down = hw.launch(seeds, thresh, B)
+    p_down, p_ok1, p_def, p_shed = ff.sample_certify_quick_plain(
+        sys_, B, seeds, thresh, hint=hint)
+    ops = ff.kernel_operands(sys_, hint)
+    e_down, e_ok1, _, _ = ff.launch(sys_, B, None, down, ops)
+    w_ok1 = ff.launch(sys_, B, seeds, None, ops, eps=K4_WIDE_EPS)[1]
+    w_p_ok1 = ff.sample_certify_quick_plain(sys_, B, seeds, thresh,
+                                            hint=hint, eps=K4_WIDE_EPS)[1]
+    load = sys_.load_pd[None, :].expand(B, sys_.n_load)
+    hint_b = hint[None, :].expand(B, sys_.n_load)
+    cert = dcopf.certify_states(sys_, down, load, shed_hint=hint_b)
+    first = dcopf.certify_states(sys_, down, load, shed_hint=hint_b,
+                                 repair_iters=0).certified
+    n_out = down[:, ng:].sum(1)
+    first = first & (n_out <= 1)
+    fin = dcopf.certify_finish(sys_, down, load, deficit, shed, ok1, B)
+    torch.cuda.synchronize()
+    states_equal = bool(torch.equal(down, k6_down)
+                        and torch.equal(down, p_down)
+                        and torch.equal(e_down, down))
+    explicit_equal = bool(torch.equal(e_ok1, ok1))
+    def_err = float((deficit - p_def).abs().max())
+    shed_err = float((shed - p_shed).abs().max())
+    agree = float((ok1 == p_ok1).float().mean())
+    unsound = int((ok1 & ~cert.certified).sum())
+    fin_diff = int((fin.certified != cert.certified).sum())
+    routed = int((first & ~ok1).sum())
+    wide_agree = float((w_ok1 == w_p_ok1).float().mean())
+    wide_routed = int((first & ~w_ok1).sum())
+    wide_unsound = int((w_ok1 & ~cert.certified).sum())
+    # Times: the kernel alone (prepared operands), its plain version, and
+    # certify_states' first pass (context: no library call computes K4).
+    ms = _time_ms(lambda: ff.launch(sys_, B, seeds, None, ops))
+    plain_ms = _time_ms(lambda: ff.sample_certify_quick_plain(
+        sys_, B, seeds, thresh, hint=hint), reps=3)
+    first_ms = _time_ms(lambda: dcopf.certify_states(
+        sys_, down, load, shed_hint=hint_b, repair_iters=0), reps=5)
+    n_elig = int((n_out <= 1).sum())
+    flops = _cert_work(sys_, B, n_elig, flow_lanes=n_elig,
+                       single=int((n_out == 1).sum()))
+    nbytes = B * nc + B * (1 + 4 + 4 * sys_.n_load) + 4 * ops[0].numel() \
+        + 4 * ops[1].numel() + 4 * nc + 8
+    bound = _bound(flops, nbytes)
+    _line("k4", lanes=B, states_equal_k6_and_plain=states_equal,
+          explicit_mode_mask_equal=explicit_equal,
+          deficit_err=f"{def_err:.3e}<={CERT_DEF_BOUND}",
+          shed_err=f"{shed_err:.3e}<={QUICK_PATTERN_BOUND}",
+          first_pass_agree=f"{agree:.6f}>={QUICK_AGREE}",
+          first_pass_certified=int(ok1.sum()),
+          first_pass_outside_certify_states=f"{unsound}==0",
+          finish_lanes_differing=f"{fin_diff}<={int((1 - CERT_AGREE) * B)}",
+          band_routed_lanes=routed,
+          band_routed_share=f"{routed / B:.6f}",
+          band_routed_share_of_first_pass=f"{routed / max(int(first.sum()), 1):.6f}",
+          wide_band_eps=f"{K4_WIDE_EPS:.4e}",
+          wide_band_agree=f"{wide_agree:.6f}>={QUICK_AGREE}",
+          wide_band_routed_share=f"{wide_routed / B:.6f}>{K4_WIDE_MIN_ROUTED}",
+          wide_band_outside_certify_states=f"{wide_unsound}==0",
+          eps=f"{ff.guard_eps(sys_):.4e}", kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+          certify_states_first_pass_ms=f"{first_ms:.4f}",
+          bound_ms=f"{bound['bound_ms']:.4f}({bound['bound_by']})")
+    if not (states_equal and explicit_equal and def_err <= CERT_DEF_BOUND
+            and shed_err <= QUICK_PATTERN_BOUND and agree >= QUICK_AGREE
+            and unsound == 0 and fin_diff <= (1 - CERT_AGREE) * B
+            and wide_agree >= QUICK_AGREE and wide_unsound == 0
+            and wide_routed > K4_WIDE_MIN_ROUTED * B):
+        raise RuntimeError("k4: kernel disagrees with its plain version, "
+                           "with K6, or with certify_states, or the wide "
+                           "band routes too few lanes to test it")
+    results["sample_certify_quick"] = dict(
+        results.get("sample_certify_quick", {}),
+        name="sample_certify_quick", route="cuda",
+        source=f"{PKG}/csrc/fused_sampler_cert.cu",
+        replaces="powersystemsreliabilityassessment_tpu/ops/fused_sampler_cert.py:259",
+        max_abs_err=max(def_err, shed_err), tolerance=CERT_DEF_BOUND,
+        first_pass_agree=agree, band_routed_share=routed / B,
+        wide_band_agree=wide_agree, wide_band_routed_share=wide_routed / B,
+        finish_lanes_differing=fin_diff, shape=[B, nc], ms=ms,
+        plain_ms=plain_ms, library_ms=None,
+        certify_states_first_pass_ms=first_ms, **bound)
+
+
+def _stressed_states(n, seed):
+    """tests/test_torch_gpu.py::_stressed_states: 3x unavailability, three
+    branch outages on every 32nd lane (numpy)."""
+    import numpy as np
+    from powersystemsreliabilityassessment_tpu_torch.core import cases
+    from powersystemsreliabilityassessment_tpu_torch.models import twostate
+    case = cases.rts24()
+    u = twostate.unavailability(case)
+    rng = np.random.default_rng(seed)
+    down = rng.uniform(size=(n, case.n_comp)) < 3 * u[None, :]
+    down[:, 14] = False
+    for lane in range(0, n, 32):
+        down[lane, case.n_gen + rng.choice(case.n_branch, 3,
+                                           replace=False)] = True
+    return down
+
+
+def _k5_check(tag, sys_, down, def_bound, def_rtol=0.0):
+    """K5 against certify_states(woodbury_k=2) on one batch; returns the
+    errors and the work this batch's data needs."""
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
+    from powersystemsreliabilityassessment_tpu_torch.ops import (
+        certify_kernel as ck)
+    B, ng = down.shape[0], sys_.n_gen
+    load = sys_.load_pd[None, :].expand(B, sys_.n_load)
+    ops = ck.kernel_operands(sys_)
+    got = dcopf.Certificate(*ck.launch(sys_, down, load, 3, ops))
+    want = dcopf.certify_states(sys_, down, load, woodbury_k=2)
+    # Repair steps this batch's data runs: an eligible lane the first
+    # check fails runs steps until one passes, at most three.
+    n_out = down[:, ng:].sum(1)
+    elig = n_out <= 1
+    steps = sum(int((elig & ~dcopf.certify_states(
+        sys_, down, load, repair_iters=k, woodbury_k=2).certified).sum())
+        for k in range(3))
+    torch.cuda.synchronize()
+    differ = int((got.certified != want.certified).sum())
+    # max over lanes of |delta| - rtol |deficit|, against def_bound
+    def_err = float(((got.deficit - want.deficit).abs()
+                     - def_rtol * want.deficit.abs()).max())
+    both = got.certified & want.certified
+    pat_err = max(float((a - b).abs()[both].max())
+                  for a, b in ((got.shed, want.shed),
+                               (got.dispatch, want.dispatch)))
+    flops = _cert_work(sys_, B, int(elig.sum()), repair_steps=steps,
+                       single=int((n_out == 1).sum()),
+                       pairs=int((n_out == 2).sum()))
+    nbytes = B * (sys_.n_comp + 4 * sys_.n_load + 1 + 4
+                  + 4 * sys_.n_load + 4 * ng) + 4 * ops[0].numel() \
+        + 4 * ops[1].numel()
+    _line("k5", batch=tag, lanes=B,
+          lanes_differing=f"{differ}<={int((1 - CERT_AGREE) * B)}",
+          certified=int(got.certified.sum()),
+          deficit_err=f"{def_err:.3e}<={def_bound}(rtol={def_rtol})",
+          pattern_err=f"{pat_err:.3e}<={CERT_PATTERN_BOUND}",
+          repair_steps=steps, double_outage_lanes=int((n_out == 2).sum()))
+    if differ > (1 - CERT_AGREE) * B or def_err > def_bound \
+            or pat_err > CERT_PATTERN_BOUND:
+        raise RuntimeError(f"k5 ({tag}): kernel disagrees with "
+                           "certify_states")
+    return dict(ops=ops, load=load, flops=flops, nbytes=nbytes,
+                differ=differ, def_err=def_err, pat_err=pat_err)
+
+
+def phase_k5(sys_, sys96, results):
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
+    from powersystemsreliabilityassessment_tpu_torch.ops import (
+        certify_kernel as ck)
+    from powersystemsreliabilityassessment_tpu_torch.sampling.state import (
+        sample_states)
+    from powersystemsreliabilityassessment_tpu_torch.studies import hl2_nsq
+    B = 262144
+    down = sample_states(hl2_nsq.batch_generator(0, 11, "cuda"),
+                         sys_.unavail, sys_.always_up_nsq, B)
+    main = _k5_check("rts24_plain_mc", sys_, down, CERT_DEF_BOUND)
+    stressed = torch.as_tensor(_stressed_states(65536, 23), device="cuda")
+    checks = [main, _k5_check("rts24_stressed", sys_, stressed,
+                              CERT_DEF_BOUND)]
+    gen = torch.Generator(device="cuda").manual_seed(96)
+    u96 = torch.clamp(sys96.unavail * 10.0, max=0.5)
+    down96 = (torch.rand((8192, sys96.n_comp), generator=gen,
+                         device="cuda") < u96) & ~sys96.always_up_nsq
+    c96 = _k5_check("rts96_10x", sys96, down96, CERT_DEF_BOUND_96,
+                    CERT_DEF_BOUND_96)
+    checks.append(c96)
+    load = main["load"]
+    ms = _time_ms(lambda: ck.launch(sys_, down, load, 3, main["ops"]))
+    plain_ms = _time_ms(lambda: dcopf.certify_states(
+        sys_, down, load, woodbury_k=2), reps=5)
+    ms96 = _time_ms(lambda: ck.launch(sys96, down96, c96["load"], 3,
+                                      c96["ops"]))
+    plain96 = _time_ms(lambda: dcopf.certify_states(
+        sys96, down96, c96["load"], woodbury_k=2), reps=3)
+    bound, bound96 = (_bound(c["flops"], c["nbytes"]) for c in (main, c96))
+    # The path: the public entry point on the plain-MC batch.
+    _reset_counts()
+    ck.certify_states_fused(sys_, down, load)
+    torch.cuda.synchronize()
+    counts = _counts()
+    _line("k5", kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+          bound_ms=f"{bound['bound_ms']:.4f}({bound['bound_by']})",
+          rts96_kernel_ms=f"{ms96:.4f}", rts96_plain_ms=f"{plain96:.4f}",
+          rts96_bound_ms=f"{bound96['bound_ms']:.4f}({bound96['bound_by']})",
+          path_launches=counts["certify_states_fused"])
+    _check_launched("k5", counts, ("certify_states_fused",))
+    results["certify_states_fused"] = dict(
+        name="certify_states_fused", route="cuda",
+        source=f"{PKG}/csrc/certify_kernel.cu",
+        replaces="powersystemsreliabilityassessment_tpu/ops/certify_kernel.py:208",
+        launches=counts["certify_states_fused"],
+        max_abs_err=max(max(c["def_err"], c["pat_err"]) for c in checks),
+        lanes_differing=[c["differ"] for c in checks],
+        tolerance=CERT_PATTERN_BOUND, shape=[B, sys_.n_comp], ms=ms,
+        plain_ms=plain_ms, library_ms=None, **bound, rts96_ms=ms96,
+        rts96_plain_ms=plain96, rts96_bound_ms=bound96["bound_ms"])
+
+
+def phase_studyfused(results):
+    counts = phase_study("studyfused", fused=True, kernels=FUSED_KERNELS)
+    results.setdefault("sample_certify_quick", {})["launches"] = \
+        counts["sample_certify_quick"]
+
+
 def _measure(fn, reps=16):
     """(host wall ms, device kernel ms, kernel launches, kernel events)
     per call. Only kernel events are summed: a CPU op's self device time
@@ -849,6 +1224,8 @@ def _profile_lines(tag, layers, reps=16, top=12):
 def phase_profile(sys_):
     import torch
     from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
+    from powersystemsreliabilityassessment_tpu_torch.ops import (
+        fused_sampler_cert)
     from powersystemsreliabilityassessment_tpu_torch.sampling.state import (
         sample_states)
     from powersystemsreliabilityassessment_tpu_torch.studies import hl2_nsq
@@ -876,6 +1253,24 @@ def phase_profile(sys_):
         "tier1": lambda: dcopf.certify_states(
             sys_, down, load, shed_hint=hint_b, repair_buffer=rbuf),
         "lp_tier": lambda: dcopf.evaluate_states(sys_, down[idx], load[idx]),
+    })
+    # The fused step (fused_tier1) and its two tier-1 layers.
+    fused = hl2_nsq.make_nsq_batch_step(
+        sys_, batch, CompatFlags(), IPMConfig(), max_lp=max_lp,
+        nodal_mode="proportional", shed_hint=hint, fused_tier1=True)
+    hint_t = hint_b[0]
+    # Packed once, as the fused step does.
+    ops = fused_sampler_cert.kernel_operands(sys_, hint_t)
+    dq, okq, deq, shq = fused_sampler_cert.sample_certify_quick(
+        gen(), sys_, batch, shed_hint=hint_t, operands=ops)
+    fbuf = dcopf.default_finish_buffer(batch, hinted=True)
+    _profile_lines("profile_fused", {
+        "step_fused": lambda: fused(gen()),
+        "sample_certify_quick": lambda: fused_sampler_cert.
+        sample_certify_quick(gen(), sys_, batch, shed_hint=hint_t,
+                             operands=ops),
+        "certify_finish": lambda: dcopf.certify_finish(
+            sys_, dq, load, deq, shq, okq, fbuf),
     })
 
 
@@ -976,6 +1371,14 @@ def main() -> int:
         phase_k3(sys96, results)
     if "study96" in phases:
         phase_study96(sys96, results)
+    if "k6" in phases:
+        phase_k6(sys_, results)
+    if "k4" in phases:
+        phase_k4(sys_, results)
+    if "k5" in phases:
+        phase_k5(sys_, sys96, results)
+    if "studyfused" in phases:
+        phase_studyfused(results)
     if "profile" in phases:
         phase_profile(sys_)
         phase_profile96(sys96)

@@ -155,11 +155,13 @@ def build_system(case: CaseData, compat: CompatFlags = CompatFlags(),
     return _to_device(arrays, torch.device(device), meta)
 
 
-def from_reference(ref_system, device: torch.device | str = "cpu"
+def from_reference(ref_system, device: torch.device | str = "cuda"
                    ) -> System:
     """The port's ``System`` holding exactly the values of a reference
     (JAX) ``System``: each field is read as a numpy array, so both
-    packages compute on identical data. Used by the parity tests."""
+    packages compute on identical data. Used by the parity tests, which
+    pass ``device="cpu"``; like every entry point it defaults to the
+    card."""
     arrays = {k: np.asarray(getattr(ref_system, k)) for k in _TENSOR_FIELDS}
     meta = dict(name=ref_system.name, n_bus=int(ref_system.n_bus),
                 n_gen=int(ref_system.n_gen),

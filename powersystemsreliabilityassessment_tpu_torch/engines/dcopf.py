@@ -24,10 +24,14 @@ solved on the lanes tier 1 leaves, compacted into a ``max_lp`` buffer
 CUDA), for 72 < m <= 336 by ``lp_ipm_batched.solve_box_lp_batched`` on
 the materialized A (the blocked Cholesky, K2 + K3 on CUDA).
 
+The fused sampler-certificate path (``ops/fused_sampler_cert.py``)
+hands tier 1's work to ``certify_finish`` and its result to
+``evaluate_states_screened(pre=...)``; ``ops/certify_kernel.py`` is the
+whole of ``certify_states`` as one kernel.
+
 Not ported yet (ROADMAP.md Queue 1): the island-PF tier
-(``certify_island_pf``, ``pf_buffer``), ``certify_finish`` and the
-``pre`` certificate of the fused sampler kernel, ``island_blackout``,
-the large-m LP path (m > 336).
+(``certify_island_pf``, ``pf_buffer``), ``island_blackout``, the large-m
+LP path (m > 336).
 """
 from __future__ import annotations
 
@@ -425,6 +429,85 @@ def default_repair_buffer(batch: int, outage_boost: float = 1.0,
     return min(batch, max(2048, batch // (64 if hinted else 8)))
 
 
+def default_finish_buffer(batch: int, hinted: bool = False) -> int:
+    """Lane buffer for :func:`certify_finish`; mirrors reference
+    ``engines/dcopf.py::default_finish_buffer``: ``batch // 8`` without a
+    shed hint (the fused first pass leaves the repair-needy deficit
+    states, the guard band's lanes and the multi-branch lanes),
+    ``batch // 32`` with one. Lanes the buffer cannot hold stay
+    uncertified and fall to the LP buffer's own overflow accounting."""
+    return min(batch, max(1024, batch // (32 if hinted else 8)))
+
+
+def certify_finish(sys: System, comp_down: torch.Tensor,
+                   load_pu: torch.Tensor, deficit: torch.Tensor,
+                   shed: torch.Tensor, ok1: torch.Tensor, finish_buffer: int,
+                   repair_iters: int = 3, woodbury_k: int = 2
+                   ) -> Certificate:
+    """Complete a first-pass certificate (``ops/fused_sampler_cert.py``)
+    into the full ``certify_states`` result; mirrors reference
+    ``engines/dcopf.py::certify_finish``.
+
+    Everything the fused pass left out runs compacted onto
+    ``finish_buffer`` lanes: a plain float32 re-check at the standard
+    tolerance (recovers the guard band's lanes), the repair descent, and
+    the rank-``woodbury_k`` Woodbury multi-outage check. Lanes the buffer
+    cannot hold stay uncertified and fall to the LP. ``dispatch`` is
+    zeros except on finish-repaired lanes: the screened evaluator reads
+    it only as the dispatch of lanes that never reach the LP, and the
+    study moments never read it. Nothing here waits for the device.
+    """
+    B = comp_down.shape[0]
+    ng = sys.n_gen
+    dt = _fdt(sys)
+    br_down_full = comp_down[:, ng:].to(dt)
+    n_out_full = br_down_full.sum(1)
+    kk = int(woodbury_k)
+    # Rescuable lanes: repair applies to n_out <= 1, Woodbury to 2..kk;
+    # deeper outage sets can only be decided by the LP.
+    need = ~ok1 & (n_out_full <= max(kk, 1))
+    fbuf = min(int(finish_buffer), B)
+    idx = _topk_lanes(need, fbuf)   # unique lanes
+    valid = (torch.arange(fbuf, device=need.device) < need.sum()) \
+        & need[idx]
+
+    lp_ = load_pu[idx]
+    gen_up_ = 1.0 - comp_down[idx, :ng].to(dt)
+    brd_ = br_down_full[idx]
+    deficit_ = deficit[idx]
+    load_tot_ = lp_.sum(1)
+    served_ = load_tot_ - deficit_
+    cand_ = _shed_candidate(sys, lp_, deficit_, load_tot_, shed[idx])
+    gen_cap_ = sys.gen_pmax[None, :] * gen_up_
+    disp_ = _dispatch_candidate(sys, gen_cap_, lp_, cand_, served_)
+
+    inj = (disp_ @ sys.gen_bus_onehot.T + cand_ @ sys.load_onehot.T
+           - lp_ @ sys.load_onehot.T)
+    flows_ = inj @ sys.ptdf.T
+    post0_ = (flows_ + (brd_ * flows_) @ sys.lodf.T) * (1.0 - brd_)
+    rate_ok = sys.br_rate[None, :] + 1e-4
+    elig_ = brd_.sum(1) <= 1
+    # Plain float32 re-check at the standard tolerance: recovers lanes
+    # the kernel's guard band routed here (zero-flow islanding included).
+    ok0_ = elig_ & (post0_.abs() <= rate_ok).all(1)
+    okr, bshed_, bdisp_ = _repair_descent(
+        sys, repair_iters, rate_ok, sys.ptdf @ sys.gen_bus_onehot,
+        sys.ptdf @ sys.load_onehot, lp_, cand_, disp_, gen_cap_, brd_,
+        served_, deficit_, post0_, ok0_)
+    cert_ = (elig_ & okr) | _woodbury_multi_ok(
+        sys, flows_, brd_, brd_.sum(1), rate_ok, kk)
+    upd = valid & cert_
+
+    certified = _scatter_valid(ok1, idx, valid, ok1[idx] | upd)
+    shed = _scatter_valid(shed, idx, valid,
+                          torch.where(upd[:, None], bshed_, shed[idx]))
+    dispatch = _scatter_valid(
+        torch.zeros((B, ng), dtype=dt, device=shed.device), idx, valid,
+        torch.where(upd[:, None], bdisp_, 0.0))
+    return Certificate(certified=certified, deficit=deficit, shed=shed,
+                       dispatch=dispatch)
+
+
 def overgen_infeasible(sys: System, comp_down, load_pu,
                        compat: CompatFlags) -> torch.Tensor:
     """[B] bool: committed minimum generation exceeds demand (only with
@@ -534,10 +617,11 @@ def evaluate_states_screened(sys: System, comp_down: torch.Tensor,
                              ipm: IPMConfig = IPMConfig(),
                              nodal_mode: str = "lp",
                              repair_buffer: int | None = None,
-                             woodbury_k: int = 2, shed_hint=None):
+                             woodbury_k: int = 2, shed_hint=None,
+                             pre: Certificate | None = None):
     """Screened evaluation: the LP only on lanes that need it; mirrors
     reference ``engines/dcopf.py::evaluate_states_screened`` (without
-    ``pre`` and ``pf_buffer``).
+    ``pf_buffer``).
 
     Lanes certified at zero deficit are resolved by tier 1; the rest
     (``nodal_mode="lp"``: every uncertified or positive-deficit lane;
@@ -545,8 +629,13 @@ def evaluate_states_screened(sys: System, comp_down: torch.Tensor,
     ``max_lp`` buffer and solved by ``evaluate_states``. Lanes that do
     not fit keep the tier-1 bound and are counted in ``n_overflow``.
     ``shed_hint`` [n_load] is the ``calibrate_shed_hint`` pattern.
-    Systems with m > 336, where the reference adds the island-PF tier
-    (``pf_buffer``, ``default_pf_buffer``), raise NotImplementedError.
+    ``pre``: a ``Certificate`` computed by the caller (the fused
+    sampler-certificate path: ``ops/fused_sampler_cert.py`` then
+    :func:`certify_finish`) replaces the internal tier-1 pass;
+    ``shed_hint`` is then ignored (the kernel applied its own
+    candidate). Systems with m > 336, where the reference adds the
+    island-PF tier (``pf_buffer``, ``default_pf_buffer``), raise
+    NotImplementedError.
 
     Returns ``(EvalResult, n_overflow)``, both on the device; nothing in
     here waits for the device when ``shed_hint`` is already a tensor on
@@ -559,13 +648,15 @@ def evaluate_states_screened(sys: System, comp_down: torch.Tensor,
             "default_pf_buffer) and the large-m LP are not ported yet "
             "(ROADMAP.md Queue 1 item 6)")
     B = comp_down.shape[0]
-    hint_b = None
-    if shed_hint is not None:
-        hint = torch.as_tensor(shed_hint, dtype=load_pu.dtype,
-                               device=load_pu.device)
-        hint_b = hint[None, :].expand(load_pu.shape)
-    pre = certify_states(sys, comp_down, load_pu, shed_hint=hint_b,
-                         repair_buffer=repair_buffer, woodbury_k=woodbury_k)
+    if pre is None:
+        hint_b = None
+        if shed_hint is not None:
+            hint = torch.as_tensor(shed_hint, dtype=load_pu.dtype,
+                                   device=load_pu.device)
+            hint_b = hint[None, :].expand(load_pu.shape)
+        pre = certify_states(sys, comp_down, load_pu, shed_hint=hint_b,
+                             repair_buffer=repair_buffer,
+                             woodbury_k=woodbury_k)
     if nodal_mode == "proportional":
         need_lp = ~pre.certified
     else:

@@ -1,7 +1,8 @@
 """Build and load the package's hand-written CUDA kernels.
 
 The CUDA C++ sources in ``csrc/`` are compiled at first use by ``nvcc``
-for Hopper (``-gencode arch=compute_90a,code=sm_90a``) into one shared
+for Hopper (``-gencode arch=compute_90a,code=sm_90a``), one ``nvcc``
+process per source, all started together, and linked into one shared
 library with a plain C interface, bound with ``ctypes``. The library is
 cached in ``_build/`` inside the package directory (listed in
 ``.gitignore``) under a name that hashes the sources, so an edited
@@ -24,8 +25,9 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _lib: ctypes.CDLL | None = None
 # Filled by the first load: wall seconds spent building (0.0 when the
@@ -41,6 +43,9 @@ _SIGNATURES = {
     "psra_cho_solve": [_P, _P, _P, _I, _I, _P],
     "psra_fused_ipm": [_P] * 15 + [_I] * 6 + [_F] * 4 + [_P],
     "psra_trsm": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "psra_bernoulli": [_P, _P, _P, _I, _I, _P],
+    "psra_fused_sampler_cert": [_P] * 5 + [_I] * 7 + [_F] + [_P] * 5,
+    "psra_certify": [_P] * 4 + [_I] * 8 + [_P] * 5,
 }
 
 
@@ -75,12 +80,28 @@ def _build_and_load() -> ctypes.CDLL:
     if not so.exists():
         BUILD_DIR.mkdir(exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        report = proc.stderr
+        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+        cmds = [[_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                for src, obj in zip(sources, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for cmd in cmds]
+        # communicate() waits for each one, so none outlives this call.
+        errs = [proc.communicate()[1] for proc in procs]
+        cmds.append([_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                     *map(str, objs)])
+        rcs = [proc.returncode for proc in procs]
+        if not any(rcs):
+            link = subprocess.run(cmds[-1], capture_output=True, text=True)
+            errs.append(link.stderr)
+            rcs.append(link.returncode)
+        for cmd, err, rc in zip(cmds, errs, rcs):
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}"
+                                   f"\n{err}")
+        report = "".join(errs)
+        for obj in objs:
+            obj.unlink()
         os.replace(tmp, so)   # atomic: a concurrent process never loads a partial file
     build_info.update(seconds=time.perf_counter() - t0, library=so.name,
                       ptxas=report)

@@ -10,9 +10,11 @@ statistics and applies the beta stopping rule (beta < ``beta_limit`` or
 
 Threefry keys become one ``torch.Generator`` per batch, seeded from
 (study seed, batch index): a batch is reproducible from its index, which
-the grow-and-redo protocol relies on. Not ported yet (ROADMAP.md Queue 1):
+the grow-and-redo protocol relies on. ``MCSConfig.fused_tier1`` samples
+and first-pass-certifies each batch in the K4 kernel
+(``ops/fused_sampler_cert.py``). Not ported yet (ROADMAP.md Queue 1):
 the mesh and ``psum``, checkpointing, antithetic / importance / CE /
-mixture sampling, the control variate, enumeration, ``fused_tier1``.
+mixture sampling, the control variate, enumeration.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from powersystemsreliabilityassessment_tpu_torch.core.cases import CaseData
 from powersystemsreliabilityassessment_tpu_torch.core.system import (
     System, build_system)
 from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
+from powersystemsreliabilityassessment_tpu_torch.ops import fused_sampler_cert
 from powersystemsreliabilityassessment_tpu_torch.parallel import accumulators
 from powersystemsreliabilityassessment_tpu_torch.runtime.host_loop import (
     double_buffered_loop)
@@ -75,12 +78,20 @@ def make_nsq_batch_step(sys: System, batch_per_device: int,
                         compat: CompatFlags, ipm: IPMConfig,
                         max_lp: int | None = None, nodal_mode: str = "lp",
                         woodbury_k: int | None = None,
-                        shed_hint: np.ndarray | None = None):
+                        shed_hint: np.ndarray | None = None,
+                        fused_tier1: bool = False):
     """One-batch step ``generator -> (BatchMoments, n_overflow,
     n_infeasible)``, all device tensors; mirrors reference
     ``studies/hl2_nsq.py::make_nsq_batch_step`` (plain MC, one device).
     The step only enqueues device work: nothing in it waits for the
-    device (``torch.cuda.set_sync_debug_mode("error")`` passes over it)."""
+    device (``torch.cuda.set_sync_debug_mode("error")`` passes over it).
+
+    ``fused_tier1``: the K4 kernel draws and first-pass-certifies the
+    batch (``fused_sampler_cert.sample_certify_quick``), then
+    ``dcopf.certify_finish`` completes the certificate on a compacted
+    buffer and hands it to the screened evaluator (``pre``). Unlike the
+    reference, there is no fallback to the default path: a CPU system
+    runs the kernel's plain version."""
     if max_lp is None:
         max_lp = default_max_lp(batch_per_device, nodal_mode)
     if woodbury_k is None:
@@ -91,19 +102,39 @@ def make_nsq_batch_step(sys: System, batch_per_device: int,
     repair_buffer = dcopf.default_repair_buffer(
         batch_per_device, hinted=shed_hint is not None)
     load = sys.load_pd[None, :].expand(batch_per_device, sys.n_load)
-    if shed_hint is not None:
+    hinted = shed_hint is not None
+    if hinted:
         # Copied to the device once here: a host-to-device copy inside
         # the step would synchronize the stream every batch.
         shed_hint = torch.as_tensor(shed_hint, dtype=sys.load_pd.dtype,
                                     device=sys.device)
+    if fused_tier1:
+        # Plain MC is the only sampler here; island_blackout raises in the
+        # screened evaluator.
+        fused_sampler_cert.check_supported(sys)
+        finish_buffer = dcopf.default_finish_buffer(batch_per_device,
+                                                    hinted=hinted)
+        # The kernel's packed operands depend only on (sys, hint): packed
+        # once here, so the step adds one seed draw and one launch.
+        quick_ops = fused_sampler_cert.kernel_operands(
+            sys, fused_sampler_cert.hint_row(sys, shed_hint))
 
     def step(generator: torch.Generator):
-        down = sample_states(generator, sys.unavail, sys.always_up_nsq,
-                             batch_per_device)
+        pre = None
+        if fused_tier1:
+            down, ok1, deficit, shed = \
+                fused_sampler_cert.sample_certify_quick(
+                    generator, sys, batch_per_device, shed_hint=shed_hint,
+                    operands=quick_ops)
+            pre = dcopf.certify_finish(sys, down, load, deficit, shed, ok1,
+                                       finish_buffer, woodbury_k=woodbury_k)
+        else:
+            down = sample_states(generator, sys.unavail, sys.always_up_nsq,
+                                 batch_per_device)
         res, n_over = dcopf.evaluate_states_screened(
             sys, down, load, max_lp, compat, ipm, nodal_mode,
             repair_buffer=repair_buffer, woodbury_k=woodbury_k,
-            shed_hint=shed_hint)
+            shed_hint=shed_hint, pre=pre)
         m = accumulators.batch_moments(res.dns_mw, res.nodal_mw,
                                        res.failure, down)
         return m, n_over, res.infeasible.sum()
@@ -193,7 +224,7 @@ def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
         print("shed-hint calibration: too few repairable lanes; keeping "
               "the load-proportional candidate")
     step_kwargs = dict(nodal_mode=cfg.nodal_mode, woodbury_k=cfg.woodbury_k,
-                       shed_hint=shed_hint)
+                       shed_hint=shed_hint, fused_tier1=cfg.fused_tier1)
     step = make_nsq_batch_step(sys, bpd, compat, ipm, max_lp=max_lp,
                                **step_kwargs)
 

@@ -4,9 +4,8 @@ Port of ``powersystemsreliabilityassessment_tpu/utils/config.py``
 (``CompatFlags``, ``IPMConfig``, ``MCSConfig``). Field names, defaults and
 meanings are the reference's. The port carries only the fields its
 ported code reads; the reference's options for paths not ported yet
-(antithetic and importance sampling, cross-entropy proposals, the fused
-tier-1 kernel, the large-m rescue ladder) arrive with those paths
-(ROADMAP.md Queue 1).
+(antithetic and importance sampling, cross-entropy proposals, the
+large-m rescue ladder) arrive with those paths (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -51,6 +50,14 @@ class MCSConfig:
     # "proportional": certified deficit states keep the certificate's
     # pattern (same aggregate indices, fewer LP lanes).
     nodal_mode: str = "lp"
+    # Fused sampler + first-pass certificate kernel
+    # (ops/fused_sampler_cert.py) for the NSQ hot path. Draws a
+    # DIFFERENT (Philox4x32-10, counter-based) stream than the default
+    # sampler, so same-seed results differ from the default path while
+    # the estimator distribution is identical; deterministic for a fixed
+    # (seed, batch). Plain-MC only, single-128-block systems
+    # (RTS-24-class).
+    fused_tier1: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

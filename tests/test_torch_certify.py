@@ -35,7 +35,7 @@ MIN_AGREE = 0.999
 @pytest.fixture(scope="module")
 def setup():
     ref_sys = ref_build_system(ref_cases.rts24())
-    sys_ = from_reference(ref_sys)
+    sys_ = from_reference(ref_sys, device="cpu")
     ng, nl, nc = ref_sys.n_gen, ref_sys.n_branch, ref_sys.n_comp
     rng = np.random.default_rng(11)
     u = np.asarray(ref_sys.unavail)

@@ -1,8 +1,9 @@
-"""PyTorch port on a CUDA card: the hand-written kernels (K1, K2, K3)
+"""PyTorch port on a CUDA card: the hand-written kernels (K1-K6)
 against their plain PyTorch versions, the blocked Cholesky route on the
 kernels against the same route on the plain versions, the RTS-24 main
 path on the card against the same path on the CPU, an RTS-96 step that
-must launch K2 and K3, and the 98-state golden replay on the card
+must launch K2 and K3, the fused sampler-certificate step without a
+host sync, and the 98-state golden replay on the card
 (tests/test_torch_nsq.py runs it on the CPU through the same helper).
 
 Tests that need a card carry the ``gpu`` marker and skip without one.
@@ -26,7 +27,8 @@ from powersystemsreliabilityassessment_tpu_torch.engines import (
     dcopf, lp_ipm_batched, lp_ipm_structured)
 from powersystemsreliabilityassessment_tpu_torch.models import twostate
 from powersystemsreliabilityassessment_tpu_torch.ops import (
-    batched_chol as bc, blocked_chol as bl, ipm_fused)
+    batched_chol as bc, blocked_chol as bl, certify_kernel,
+    fused_sampler_cert as ff, hw_sampler, ipm_fused)
 from powersystemsreliabilityassessment_tpu_torch.studies import hl2_nsq
 from powersystemsreliabilityassessment_tpu_torch.utils.config import (
     CompatFlags, IPMConfig, MCSConfig)
@@ -323,3 +325,116 @@ def test_rts96_step_launches_k2_and_k3(cuda):
     after = {**bc.launches, **bl.launches}
     for name in ("cholesky", "trsm_fwd", "trsm_bwd"):
         assert after[name] > before[name], name
+
+
+@pytest.mark.gpu
+def test_k6_kernel_is_bit_equal_to_plain(cuda):
+    sys_ = build_system(cases.rts24(), device=cuda)
+    thresh = hw_sampler.bernoulli_thresholds(sys_.unavail, sys_.always_up_nsq)
+    before = hw_sampler.launches["sample_states_hw"]
+    for seed in (0, 1):
+        gen = hl2_nsq.batch_generator(seed, 0, cuda)
+        got = hw_sampler.sample_states_hw(gen, sys_.unavail,
+                                          sys_.always_up_nsq, 65536)
+        seeds = hw_sampler.seed_words(hl2_nsq.batch_generator(seed, 0, cuda),
+                                      cuda)
+        assert torch.equal(got, hw_sampler.sample_states_hw_plain(
+            seeds, thresh, 65536))
+        assert not got[:, 14].any()
+    assert hw_sampler.launches["sample_states_hw"] == before + 2
+
+
+def _boosted(sys_, n, seed, boost):
+    gen = torch.Generator(device=sys_.device).manual_seed(seed)
+    p = torch.clamp(sys_.unavail * boost, max=0.5)
+    u = torch.rand((n, sys_.n_comp), generator=gen, device=sys_.device)
+    return (u < p) & ~sys_.always_up_nsq
+
+
+@pytest.mark.gpu
+def test_k4_kernel_matches_plain_in_both_modes(cuda):
+    sys_ = build_system(cases.rts24(), device=cuda)
+    hint = torch.full((sys_.n_load,), 1.0 / sys_.n_load, device=cuda)
+    B = 32768
+    before = ff.launches["sample_certify_quick"]
+    got = ff.sample_certify_quick(hl2_nsq.batch_generator(0, 3, cuda), sys_,
+                                  B, shed_hint=hint)
+    seeds = hw_sampler.seed_words(hl2_nsq.batch_generator(0, 3, cuda), cuda)
+    thresh = hw_sampler.bernoulli_thresholds(sys_.unavail, sys_.always_up_nsq)
+    want = ff.sample_certify_quick_plain(sys_, B, seeds, thresh, hint=hint)
+    assert torch.equal(got[0], want[0])            # K6's states
+    boosted = _boosted(sys_, B, 4, 40.0)
+    got_e = ff.sample_certify_quick(None, sys_, B, down=boosted)
+    want_e = ff.sample_certify_quick_plain(sys_, B, down=boosted,
+                                           hint=ff.hint_row(sys_, None))
+    torch.cuda.synchronize()
+    assert ff.launches["sample_certify_quick"] == before + 2
+    load = sys_.load_pd[None, :].expand(B, sys_.n_load)
+    for (d, ok1, deficit, shed), (_, ok_p, def_p, shed_p) in (
+            (got, want), (got_e, want_e)):
+        # Same float32 arithmetic in another summation order.
+        assert float((ok1 == ok_p).float().mean()) >= 0.999
+        assert float((deficit - def_p).abs().max()) <= 1e-5
+        assert float((shed - shed_p).abs().max()) <= 1e-5
+        cert = dcopf.certify_states(sys_, d, load)
+        assert bool((~ok1 | cert.certified).all())   # the band is sound
+    # The band's arithmetic, at the reference's wider 2^-14 where, under
+    # the calibrated hint, it routes lanes (6-8% in both modes; the
+    # port's own band routes almost none).
+    wide = 2.0 ** -14
+    hint = torch.as_tensor(dcopf.calibrate_shed_hint(sys_), device=cuda)
+    ops = ff.kernel_operands(sys_, hint)
+    for dn, ok_k in (
+            (got[0], ff.launch(sys_, B, seeds, None, ops, eps=wide)[1]),
+            (boosted, ff.launch(sys_, B, None, boosted, ops, eps=wide)[1])):
+        ok_p = ff.sample_certify_quick_plain(sys_, B, down=dn, hint=hint,
+                                             eps=wide)[1]
+        first = dcopf.certify_states(
+            sys_, dn, load, shed_hint=hint[None, :].expand(B, sys_.n_load),
+            repair_iters=0).certified & (dn[:, sys_.n_gen:].sum(1) <= 1)
+        assert float((ok_k == ok_p).float().mean()) >= 0.999
+        assert float((first & ~ok_k).float().mean()) > 0.01   # routed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,boost,tol", [("rts24", 40.0, 1e-5),
+                                           ("rts96", 10.0, 1e-4)])
+def test_k5_kernel_matches_plain(cuda, case, boost, tol):
+    sys_ = build_system(getattr(cases, case)(), device=cuda)
+    B = 8192
+    down = _boosted(sys_, B, 6, boost)
+    load = sys_.load_pd[None, :].expand(B, sys_.n_load)
+    before = certify_kernel.launches["certify_states_fused"]
+    got = certify_kernel.certify_states_fused(sys_, down, load)
+    want = dcopf.certify_states(sys_, down, load, woodbury_k=2)
+    torch.cuda.synchronize()
+    assert certify_kernel.launches["certify_states_fused"] == before + 1
+    assert float((got.certified == want.certified).float().mean()) >= 0.999
+    # RTS-96's ~90 p.u. capacity sums: atol = rtol = 1e-4, as the
+    # reference's own test (tests/test_certify_kernel.py:112).
+    rtol = 0.0 if case == "rts24" else tol
+    excess = (got.deficit - want.deficit).abs() - rtol * want.deficit.abs()
+    assert float(excess.max()) <= tol
+    both = got.certified & want.certified
+    for a, b in ((got.shed, want.shed), (got.dispatch, want.dispatch)):
+        assert float((a - b).abs()[both].max()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_fused_step_never_waits_for_the_device(cuda):
+    sys_ = build_system(cases.rts24(), device=cuda)
+    step = hl2_nsq.make_nsq_batch_step(
+        sys_, 8192, CompatFlags(), IPMConfig(), max_lp=256,
+        nodal_mode="proportional", fused_tier1=True,
+        shed_hint=np.full(sys_.n_load, 1.0 / sys_.n_load, np.float32))
+    step(hl2_nsq.batch_generator(0, 0, cuda))      # builds the kernels
+    torch.cuda.synchronize()
+    before = ff.launches["sample_certify_quick"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m, n_over, n_infeas = step(hl2_nsq.batch_generator(0, 1, cuda))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ff.launches["sample_certify_quick"] == before + 1
+    assert float(m.n) == 8192 and int(n_over) == 0
+    assert bool(torch.isfinite(m.sum_dns))

@@ -45,7 +45,7 @@ def setup():
     """tests/test_ipm_fused.py's lanes: 3x unavailability, a single line
     outage on every third lane, peak load."""
     ref_sys = ref_build_system(ref_cases.rts24())
-    sys_ = from_reference(ref_sys)
+    sys_ = from_reference(ref_sys, device="cpu")
     ng, nl, nc = ref_sys.n_gen, ref_sys.n_branch, ref_sys.n_comp
     rng = np.random.default_rng(11)
     down = rng.uniform(size=(B, nc)) < 3 * np.asarray(ref_sys.unavail)[None]

@@ -54,7 +54,7 @@ ORACLE_TOL_MW = 0.05
 @pytest.fixture(scope="module")
 def screened():
     ref_sys = ref_build_system(ref_cases.rts24())
-    sys_ = from_reference(ref_sys)
+    sys_ = from_reference(ref_sys, device="cpu")
     rng = np.random.default_rng(23)
     B = 4096
     # 3x unavailability, and three branch outages on every 32nd lane
@@ -160,7 +160,8 @@ def test_default_max_lp_matches_reference(bpd, mode):
 
 def test_default_woodbury_k_matches_reference():
     ref_sys = ref_build_system(ref_cases.rts24())
-    assert hl2_nsq.default_woodbury_k(from_reference(ref_sys)) == \
+    sys_ = from_reference(ref_sys, device="cpu")
+    assert hl2_nsq.default_woodbury_k(sys_) == \
         ref_nsq.default_woodbury_k(ref_sys) == 2
 
 

@@ -89,7 +89,7 @@ def test_entry_points_default_to_the_card():
 @pytest.fixture(scope="module")
 def rts96():
     ref_sys = ref_build_system(ref_cases.rts96())
-    return ref_sys, from_reference(ref_sys)
+    return ref_sys, from_reference(ref_sys, device="cpu")
 
 
 def test_default_woodbury_k_rts96_matches_reference(rts96):
@@ -128,7 +128,7 @@ def test_solve_box_lp_batched_matches_reference(case, rts96):
         n = 32
     else:
         ref_sys = ref_build_system(ref_cases.rts24())
-        sys_, n = from_reference(ref_sys), N_LP
+        sys_, n = from_reference(ref_sys, device="cpu"), N_LP
     down, load = _stressed_states(ref_sys, n, seed=61)
     ref_lpd, lp = _both_lps(ref_sys, sys_, down, load)
     for r, g in zip(ref_lpd, lp):
