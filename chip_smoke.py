@@ -23,7 +23,10 @@ Phases, one line each (any failure raises, so the exit code is not 0):
               [256, 191, 191] (a fourth-iteration barrier weight and the
               polish's A A'): forward at K = 56, 23 and 1, backward at
               K = 1, and the blocked Cholesky route on the kernels vs the
-              same route on the plain versions; times at 2048 lanes
+              same route on the plain versions; at ragged edges (batch 1
+              and 2,047, P 1-64, K 1-65, NaN above the diagonal); times
+              at 2048 lanes per path shape, warm and with a cold L2,
+              beside solve_triangular's and the bound
   8. study96  run_nsq_study(rts96(), MCSConfig(max_samples=40960)) held
               against results/study_sweep.json["rts96"] (EDNS and LOLE
               within 4 combined standard errors), with the K2/K3 launch
@@ -115,6 +118,7 @@ K3_BOUND = 1e-3
 BLOCKED_X_FLOOR = 1e-3
 BLOCKED_X_COND = 4.0
 EPS_F32 = 2.0 ** -24
+L2_BYTES = 50e6         # the H100's L2 cache
 # Lanes whose probe decision is borderline (max|x - 1| within rounding of
 # PROBE_BAD_REL) can take the rescue on one route and not on the other;
 # at most this share of lanes may differ in the rescue count or exceed
@@ -587,6 +591,97 @@ def _rel_err(a, b) -> float:
     return float((lane(a - b) / lane(b).clamp_min(1.0)).max())
 
 
+def _time_cold_ms(fn, sets, rounds: int = 4) -> float:
+    """Mean time of ``fn(*s)`` over ``rounds`` passes through ``sets``,
+    copies of one input whose pass moves more bytes than the L2 holds:
+    each call finds its operands in device memory, as on the path, where
+    the refinement streams M (299 MB at [2048, 191, 191]) between K3
+    calls."""
+    import torch
+    for s in sets:
+        fn(*s)
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(True), torch.cuda.Event(True)
+    start.record()
+    for _ in range(rounds):
+        for s in sets:
+            fn(*s)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (rounds * len(sets))
+
+
+def _k3_times(nx, shapes) -> dict:
+    """Per path shape ``name: (forward, L, B)``: K3 and
+    torch.linalg.solve_triangular warm (the same operands every call) and
+    cold (rotating over enough copies that a pass moves > 1.25 x the
+    50 MB L2: 5 at P 56, K 1; 2 at K 56), the plain version warm, the
+    bound and the share of it each time reaches. Kernel and library times
+    are the median of five runs of _time_ms / _time_cold_ms: at K = 1 a
+    call costs the host more than the card (~15-20 us through the
+    wrapper against ~10 us on the card), so a single run of 20 calls
+    reads the host's stalls."""
+    import math
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.ops import (
+        blocked_chol as bl)
+    lib = torch.linalg.solve_triangular
+    out = {}
+    for name, (fwd, L, B) in shapes.items():
+        kern = bl.trsm_fwd if fwd else bl.trsm_bwd
+        plain = bl.trsm_fwd_plain if fwd else bl.trsm_bwd_plain
+        library = ((lambda L_, B_: lib(L_, B_, upper=False)) if fwd else
+                   (lambda L_, B_: lib(L_.transpose(1, 2), B_, upper=True)))
+        P, K = B.shape[1:]
+        bound = _bound(*_trsm_work(nx, P, K))
+        n_sets = max(2, math.ceil(1.25 * L2_BYTES / _trsm_work(nx, P, K)[1]))
+        sets = [(L.clone(), B.clone()) for _ in range(n_sets)]
+        med = lambda timer: statistics.median(timer() for _ in range(5))
+        t = dict(P=P, K=K, cold_sets=n_sets,
+                 ms=med(lambda: _time_ms(lambda: kern(L, B))),
+                 ms_cold=med(lambda: _time_cold_ms(kern, sets)),
+                 library_ms=med(lambda: _time_ms(lambda: library(L, B))),
+                 library_ms_cold=med(lambda: _time_cold_ms(library, sets)),
+                 plain_ms=_time_ms(lambda: plain(L, B), 3), **bound)
+        del sets
+        t.update(bound_share=t["bound_ms"] / t["ms"],
+                 bound_share_cold=t["bound_ms"] / t["ms_cold"],
+                 library_over_kernel=t["library_ms"] / t["ms"],
+                 library_over_kernel_cold=t["library_ms_cold"] / t["ms_cold"])
+        out[name] = t
+    return out
+
+
+def _k3_edges() -> dict:
+    """K3 against its plain version at ragged edges: batch 1 and 2,047
+    (not a multiple of the lanes a block takes), P in (1, 7, 23, 56, 64),
+    K in (1, 23, 56, 65), forward and backward, on factors of
+    well-conditioned SPD matrices with NaN above the diagonal (only the
+    lower triangle may be read). The worst per-lane error, the cases and
+    the launches they made."""
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.ops import (
+        blocked_chol as bl)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    before = dict(bl.launches)
+    errs = []
+    for batch in (1, 2047):
+        for P in (1, 7, 23, 56, 64):
+            G = torch.randn((batch, P, P), generator=gen, device="cuda")
+            eye = torch.eye(P, device="cuda")
+            L = (torch.linalg.cholesky(G @ G.transpose(1, 2) / P + eye)
+                 + torch.full_like(eye, float("nan")).triu(1)).contiguous()
+            for K in (1, 23, 56, 65):
+                B = torch.randn((batch, P, K), generator=gen, device="cuda")
+                for fn, plain in ((bl.trsm_fwd, bl.trsm_fwd_plain),
+                                  (bl.trsm_bwd, bl.trsm_bwd_plain)):
+                    errs.append(_rel_err(fn(L, B), plain(L, B)))
+    torch.cuda.synchronize()
+    worst = max(errs) if all(e == e for e in errs) else float("nan")
+    return dict(cases=len(errs), max_rel_err=worst,
+                launches={k: bl.launches[k] - before[k] for k in before})
+
+
 def phase_k3(sys96, results):
     import torch
     from powersystemsreliabilityassessment_tpu_torch.engines import (
@@ -662,19 +757,19 @@ def phase_k3(sys96, results):
     res_p = lane((M.double() @ xp.double()[:, :, None])[:, :, 0] - r) \
         / lane(r)
 
-    # Times at the same 2048-lane shapes.
-    Lt = L56x.transpose(1, 2)
-    lib = torch.linalg.solve_triangular
-    ms = {
-        "fwd_k56": _time_ms(lambda: bl.trsm_fwd(L56x, B56x)),
-        "fwd_k56_plain": _time_ms(lambda: bl.trsm_fwd_plain(L56x, B56x), 3),
-        "fwd_k56_library": _time_ms(lambda: lib(L56x, B56x, upper=False)),
-        "fwd_k1": _time_ms(lambda: bl.trsm_fwd(L56x, r56)),
-        "fwd_k1_plain": _time_ms(lambda: bl.trsm_fwd_plain(L56x, r56), 3),
-        "fwd_k1_library": _time_ms(lambda: lib(L56x, r56, upper=False)),
-        "bwd_k1": _time_ms(lambda: bl.trsm_bwd(L56x, r56)),
-        "bwd_k1_plain": _time_ms(lambda: bl.trsm_bwd_plain(L56x, r56), 3),
-        "bwd_k1_library": _time_ms(lambda: lib(Lt, r56, upper=True)),
+    edge = _k3_edges()
+
+    # Times at the same 2048-lane shapes: K3 and solve_triangular at every
+    # shape the path launches, warm and cold (_k3_times).
+    shape_ms = _k3_times(nx, {
+        "fwd_p56_k56": (True, L56x, B56x), "fwd_p56_k23": (True, L56x, B23x),
+        "fwd_p56_k1": (True, L56x, r56), "bwd_p56_k1": (False, L56x, r56),
+        "fwd_p23_k1": (True, L23x, r23), "bwd_p23_k1": (False, L23x, r23)})
+    ms = {f"{d}_k{k}{suffix}": shape_ms[f"{d}_p56_k{k}"][key]
+          for d, k in (("fwd", 56), ("fwd", 1), ("bwd", 1))
+          for suffix, key in (("", "ms"), ("_plain", "plain_ms"),
+                              ("_library", "library_ms"))}
+    ms.update({
         "chol_panel": _time_ms(lambda: bc.cholesky(S56x)),
         "chol_panel_plain": _time_ms(lambda: bc.cholesky_plain(S56x), 3),
         "chol_panel_library": _time_ms(lambda: torch.linalg.cholesky_ex(S56x)),
@@ -682,7 +777,7 @@ def phase_k3(sys96, results):
             lambda: bl.blocked_cho_solve(bl.blocked_cholesky(M), r), 5),
         "blocked_library": _time_ms(lambda: torch.cholesky_solve(
             r[:, :, None], torch.linalg.cholesky_ex(M)[0]), 5),
-    }
+    })
     with _plain_blocked_kernels():
         ms["blocked_plain"] = _time_ms(
             lambda: bl.blocked_cho_solve(bl.blocked_cholesky(M), r), 2)
@@ -710,9 +805,21 @@ def phase_k3(sys96, results):
           **{f"{k}_ms": f"{v:.4f}" for k, v in ms.items()},
           **{f"{k}_bound_ms": f"{v['bound_ms']:.4f}({v['bound_by']})"
              for k, v in bounds.items()})
+    for name, t in shape_ms.items():
+        _line("k3", path_shape=name, **{
+            k: f"{v:.4f}" if isinstance(v, float) else v
+            for k, v in t.items()})
+    _line("k3", edge_cases=edge["cases"],
+          edge_rel_err_max=f"{edge['max_rel_err']:.3e}<={K3_BOUND}",
+          edge_launches=json.dumps(edge["launches"]).replace(" ", ""),
+          edge_launches_expected=edge["cases"] // 2)
     if not (finite and max(k2_errs.values()) <= K2_L_BOUND
             and max(k3_errs.values()) <= K3_BOUND):
         raise RuntimeError("k3: kernel disagrees with the plain version")
+    if not (edge["max_rel_err"] <= K3_BOUND and all(
+            n == edge["cases"] // 2 for n in edge["launches"].values())):
+        raise RuntimeError("k3: kernel disagrees with the plain version at "
+                           "a ragged edge, or a call did not launch it")
     if n_over > RESCUE_DIFF_BOUND * 256 \
             or abs(resc_k - resc_p) > RESCUE_DIFF_BOUND * 256:
         raise RuntimeError("k3: the blocked route on the kernels disagrees "
@@ -729,14 +836,22 @@ def phase_k3(sys96, results):
         plain_ms=ms["fwd_k56_plain"], library_ms=ms["fwd_k56_library"],
         **bounds["fwd_k56"], k1_ms=ms["fwd_k1"],
         k1_plain_ms=ms["fwd_k1_plain"], k1_library_ms=ms["fwd_k1_library"],
-        k1_bound_ms=bounds["fwd_k1"]["bound_ms"])
+        k1_bound_ms=bounds["fwd_k1"]["bound_ms"],
+        ms_cold=shape_ms["fwd_p56_k56"]["ms_cold"],
+        library_ms_cold=shape_ms["fwd_p56_k56"]["library_ms_cold"],
+        edge_cases=edge["cases"], edge_max_rel_err=edge["max_rel_err"],
+        path_shapes={k: v for k, v in shape_ms.items()
+                     if k.startswith("fwd")})
     results["trsm_bwd"] = dict(
         name="trsm_bwd", route="cuda", source=src, replaces=f"{ref_file}:102",
         max_abs_err=max(abs_errs[k] for k in bwd_keys),
         max_rel_err=max(errs[k] for k in bwd_keys),
         tolerance=K3_BOUND, shape=[nx, P, 1], ms=ms["bwd_k1"],
         plain_ms=ms["bwd_k1_plain"], library_ms=ms["bwd_k1_library"],
-        **bounds["bwd_k1"])
+        **bounds["bwd_k1"], ms_cold=shape_ms["bwd_p56_k1"]["ms_cold"],
+        library_ms_cold=shape_ms["bwd_p56_k1"]["library_ms_cold"],
+        path_shapes={k: v for k, v in shape_ms.items()
+                     if k.startswith("bwd")})
     results.setdefault("cholesky", {}).update(
         panel_shape=[nx, P, P], panel_ms=ms["chol_panel"],
         panel_plain_ms=ms["chol_panel_plain"],
@@ -1219,6 +1334,16 @@ def _profile_lines(tag, layers, reps=16, top=12):
     for e in sorted(step_kernels, key=_dev_us, reverse=True)[:top]:
         print(f"  step kernel {_dev_us(e) / 1e3 / reps:8.3f} ms/step "
               f"{e.count / reps:6.0f}x  {e.key[:90]}")
+    # K3's share of the step: K = 1 (trsm_vec_kernel) and K > 1
+    # (trsm_cols_kernel), summed over their template instances.
+    k3 = {kind: [e for e in step_kernels if f"trsm_{kind}_kernel" in e.key]
+          for kind in ("vec", "cols")}
+    if any(k3.values()):
+        _line(tag, layer="step_k3", **{
+            f"{kind}_{key}": f"{val:.3f}" for kind, evs in k3.items()
+            for key, val in (
+                ("device_ms", sum(_dev_us(e) for e in evs) / 1e3 / reps),
+                ("launches", sum(e.count for e in evs) / reps))})
 
 
 def phase_profile(sys_):

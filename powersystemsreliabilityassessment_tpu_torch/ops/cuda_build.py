@@ -120,8 +120,11 @@ def check_launch(err: int, name: str) -> None:
 
 
 def stream_handle(t: torch.Tensor) -> int:
-    """PyTorch's current stream on ``t``'s device, as a pointer value."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current stream on ``t``'s device, as a pointer value.
+    Read raw (PyTorch's own generated kernels read it so): building a
+    ``torch.cuda.Stream`` object costs ~4 us of host time, as much as a
+    small kernel's launch."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check_operand(t: torch.Tensor, name: str, shape: tuple) -> None:

@@ -265,6 +265,7 @@ def test_k3_kernels_match_plain(cuda):
     lift = bl.LIFT * torch.diagonal(S, dim1=1, dim2=2).clamp_min(1e-30)
     L0 = bc.cholesky((S + torch.diag_embed(lift)).contiguous())
     B56 = M[:, P:2 * P, :P].transpose(1, 2).contiguous()   # block (1, 0)
+    B23 = M[:, 3 * P:, :P].transpose(1, 2).contiguous()    # block (3, 0)
     r1 = torch.randn((M.shape[0], P, 1), device=cuda,
                      generator=torch.Generator(device=cuda).manual_seed(1))
     # The last, 23-wide diagonal panel's factor (RTS-96's m = 191 splits
@@ -274,6 +275,7 @@ def test_k3_kernels_match_plain(cuda):
     r23 = r1[:, :23].contiguous()
     before = dict(bl.launches)
     for fn, plain, L, rhs in ((bl.trsm_fwd, bl.trsm_fwd_plain, L0, B56),
+                              (bl.trsm_fwd, bl.trsm_fwd_plain, L0, B23),
                               (bl.trsm_fwd, bl.trsm_fwd_plain, L0, r1),
                               (bl.trsm_bwd, bl.trsm_bwd_plain, L0, r1),
                               (bl.trsm_fwd, bl.trsm_fwd_plain, L23, r23),
@@ -283,10 +285,37 @@ def test_k3_kernels_match_plain(cuda):
         # Same substitution in float32 in another summation order;
         # chip_smoke.py's K3_BOUND states the 1e-3 per-lane bound.
         assert float(_lane_rel_err(got, want).max()) <= 1e-3
-    assert bl.launches["trsm_fwd"] == before["trsm_fwd"] + 3
+    assert bl.launches["trsm_fwd"] == before["trsm_fwd"] + 4
     assert bl.launches["trsm_bwd"] == before["trsm_bwd"] + 2
     with pytest.raises(ValueError, match="contiguous"):
         bl.trsm_fwd(L0.transpose(1, 2), r1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [1, 7, 23, 56, 64])
+@pytest.mark.parametrize("batch", [1, 2047])
+def test_k3_kernels_match_plain_at_edges(cuda, batch, p):
+    # batch 2047 is not a multiple of the lanes a block takes; P = 56
+    # takes the unrolled instances, the rest the generic ones; K = 23 and
+    # 56 pack several lanes into a block, K = 65 one. NaN above the
+    # diagonal: the kernel may read only the lower triangle.
+    gen = torch.Generator(device=cuda).manual_seed(batch + p)
+    G = torch.randn((batch, p, p), generator=gen, device=cuda)
+    eye = torch.eye(p, device=cuda)
+    L = (torch.linalg.cholesky(G @ G.transpose(1, 2) / p + eye)
+         + torch.full_like(eye, float("nan")).triu(1)).contiguous()
+    before = dict(bl.launches)
+    for k in (1, 23, 56, 65):
+        rhs = torch.randn((batch, p, k), generator=gen, device=cuda)
+        for fn, plain in ((bl.trsm_fwd, bl.trsm_fwd_plain),
+                          (bl.trsm_bwd, bl.trsm_bwd_plain)):
+            got, want = fn(L, rhs), plain(L, rhs)
+            torch.cuda.synchronize()
+            err = _lane_rel_err(got, want)
+            assert bool(torch.isfinite(err).all())
+            assert float(err.max()) <= 1e-3          # K3_BOUND
+    assert bl.launches["trsm_fwd"] == before["trsm_fwd"] + 4
+    assert bl.launches["trsm_bwd"] == before["trsm_bwd"] + 4
 
 
 @pytest.mark.gpu
