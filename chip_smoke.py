@@ -10,8 +10,9 @@ Phases, one line each (any failure raises, so the exit code is not 0):
               versions on equilibrated normal matrices of real RTS-24 LP
               lanes at the polish shape [256, 62, 62], plus a lane that
               hits the pivot floor
-  4. k1       K1 fused IPM kernel vs its plain version on 256 real LP
-              lanes (states with a deficit or a failed certificate)
+  4. k1       K1 fused IPM kernel vs its plain version on 256 and on
+              2,048 real LP lanes (states with a deficit or a failed
+              certificate): errors, times, launch shape, bound
   5. bench    the bench-shaped step: batch 262144, proportional nodal
               mode, max_lp 256, the calibrated shed hint, 8 segments of
               16 steps with fresh generator seeds
@@ -414,63 +415,103 @@ def phase_k2(sys_, results):
         **_bound(*_solve_work(*r.shape)))
 
 
-def phase_k1(sys_, results):
+# K1 is checked and timed at the bench's LP buffer (max_lp 256) and at
+# the RTS-24 "lp" study's (2,048 lanes, default_max_lp of batch 8192).
+K1_LANES = (256, 2048)
+
+
+def _k1_shape(sys_, st, n_lanes, cfg):
+    """K1 against its plain version on ``n_lanes`` real RTS-24 LP lanes:
+    errors, times, launch shape and the work this run's lanes need."""
+    import ctypes
     import torch
     from powersystemsreliabilityassessment_tpu_torch.engines.lp_ipm_structured import (
         polish_structured)
-    from powersystemsreliabilityassessment_tpu_torch.ops import ipm_fused
+    from powersystemsreliabilityassessment_tpu_torch.ops import (
+        cuda_build, ipm_fused)
     from powersystemsreliabilityassessment_tpu_torch.utils.config import (
         IPMConfig)
-    cfg = IPMConfig()
-    args = _lp_lanes(sys_, 256, seed=7)
-    st = ipm_fused.build_structure(sys_)
+    args = _lp_lanes(sys_, n_lanes, seed=7)
     ker = ipm_fused.fused_ipm_iterations(st, *args, cfg)
     pla = ipm_fused.fused_ipm_iterations_plain(st, *args, cfg)
     torch.cuda.synchronize()
-    c = args[2]
     obj_k = polish_structured(st, ker, *args, cfg).objective
     obj_p = polish_structured(st, pla, *args, cfg).objective
     finite = all(bool(torch.isfinite(t).all()) for t in ker)
     obj_err = float((obj_k - obj_p).abs().max())
     score_err = float((ker[4] - pla[4]).abs().max())
     x_err = float((ker[5] - pla[5]).abs().max())
-    ms = _time_ms(lambda: ipm_fused.fused_ipm_iterations(st, *args, cfg))
+    ms = statistics.median(
+        _time_ms(lambda: ipm_fused.fused_ipm_iterations(st, *args, cfg))
+        for _ in range(5))
     plain_ms = _time_ms(
         lambda: ipm_fused.fused_ipm_iterations_plain(st, *args, cfg), reps=2)
     # The work this run's lanes need: a lane frozen at mu < mu_tol never
-    # changes again, and the kernel stops its block. Count the lane-
+    # changes again, and the kernel stops its lane. Count the lane-
     # iterations that moved x by replaying the loop 1..16 iterations; each
     # needs at least the m x m factor and two solves (the normal-matrix
     # assembly and the elementwise work are not counted).
-    prev, active = args[2].new_full(args[2].shape, float("nan")), 0
+    c = args[2]
+    prev, active = c.new_full(c.shape, float("nan")), 0
     for k in range(1, cfg.iterations + 1):
         xk = ipm_fused.fused_ipm_iterations(
             st, *args, IPMConfig(iterations=k))[0]
         active += int((xk != prev).any(1).sum())
         prev = xk
     B, n, m = c.shape[0], st.n, st.m
-    k1_bound = _bound(active * (m ** 3 / 3 + 4 * m * m),
-                      4 * B * ((4 * n + st.nl + m) + (4 * n + m + 1)))
-    _line("k1", lanes=c.shape[0], finite=finite,
+    bound = _bound(active * (m ** 3 / 3 + 4 * m * m),
+                   4 * B * ((4 * n + st.nl + m) + (4 * n + m + 1)))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lpb, wpl, smem = ipm_fused.launch_shape(st, B, sms)
+    blocks = ctypes.c_int(0)
+    cuda_build.check_launch(cuda_build.library().psra_fused_ipm_occupancy(
+        m, n, lpb, wpl, smem, ctypes.byref(blocks)), "occupancy")
+    row = dict(lanes=B, finite=finite, objective_err_pu=obj_err,
+               best_score_err=score_err, best_x_err=x_err, ms=ms,
+               plain_ms=plain_ms, active_lane_iterations=active,
+               lanes_per_block=lpb, warps_per_lane=wpl, smem_bytes=smem,
+               resident_lanes_per_sm=blocks.value * lpb,
+               shed_lanes=int((obj_p > 1e-3).sum()), **bound,
+               bound_share=bound["bound_ms"] / ms)
+    _line("k1", lanes=B, finite=finite,
           objective_err_pu=f"{obj_err:.3e}<={K1_OBJ_BOUND}",
           best_score_err=f"{score_err:.3e}<={K1_SCORE_BOUND}",
           best_x_err=f"{x_err:.3e}", kernel_ms=f"{ms:.4f}",
-          plain_ms=f"{plain_ms:.4f}",
-          shed_lanes=int((obj_p > 1e-3).sum()), active_lane_iterations=active,
-          bound_ms=f"{k1_bound['bound_ms']:.4f}({k1_bound['bound_by']})")
+          plain_ms=f"{plain_ms:.4f}", shed_lanes=row["shed_lanes"],
+          active_lane_iterations=active, lanes_per_block=lpb,
+          warps_per_lane=wpl, smem_bytes=smem, resident_lanes_per_sm=row["resident_lanes_per_sm"],
+          bound_ms=f"{bound['bound_ms']:.4f}({bound['bound_by']})",
+          bound_share=f"{row['bound_share']:.4f}")
     if not (finite and obj_err <= K1_OBJ_BOUND
             and score_err <= K1_SCORE_BOUND):
-        raise RuntimeError("k1: kernel disagrees with the plain version")
+        raise RuntimeError(f"k1: kernel disagrees with the plain version at "
+                           f"{B} lanes")
+    return row
+
+
+def phase_k1(sys_, results):
+    from powersystemsreliabilityassessment_tpu_torch.ops import ipm_fused
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        IPMConfig)
+    cfg = IPMConfig()
+    st = ipm_fused.build_structure(sys_)
+    shapes = {str(n): _k1_shape(sys_, st, n, cfg) for n in K1_LANES}
     # The checked quantities: polished objective (p.u.) and best_score.
-    # best_x is reported in the k1 line but not bounded: on degenerate
+    # best_x is reported in the k1 lines but not bounded: on degenerate
     # optimal faces two float32 paths reach different optimal points.
+    # The top-level numbers are the bench's shape (256 lanes).
+    first = shapes[str(K1_LANES[0])]
     results["fused_ipm_iterations"] = dict(
         name="fused_ipm_iterations", route="cuda",
         source=f"{PKG}/csrc/ipm_fused.cu",
         replaces="powersystemsreliabilityassessment_tpu/ops/ipm_fused.py:459",
-        max_abs_err=max(obj_err, score_err), tolerance=K1_OBJ_BOUND,
-        shape=[B, m, n], ms=ms, plain_ms=plain_ms, library_ms=None,
-        active_lane_iterations=active, **k1_bound)
+        max_abs_err=max(max(r["objective_err_pu"], r["best_score_err"])
+                        for r in shapes.values()),
+        tolerance=K1_OBJ_BOUND, shape=[first["lanes"], st.m, st.n],
+        ms=first["ms"], plain_ms=first["plain_ms"], library_ms=None,
+        active_lane_iterations=first["active_lane_iterations"],
+        bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+        shapes=shapes)
 
 
 def _bench_run(step, batch):
@@ -1324,16 +1365,24 @@ def _dev_us(e):
 
 
 def _profile_lines(tag, layers, reps=16, top=12):
-    step_kernels = None
+    step_kernels, step_dev = None, None
     for name, fn in layers.items():
         wall, dev, n, kernels = _measure(fn, reps)
         step_kernels = step_kernels or kernels
+        step_dev = step_dev or dev
         _line(tag, layer=name, wall_ms=f"{wall:.3f}",
               device_ms=f"{dev:.3f}", device_busy_share=f"{dev / wall:.3f}",
               kernel_launches=f"{n:.0f}")
     for e in sorted(step_kernels, key=_dev_us, reverse=True)[:top]:
         print(f"  step kernel {_dev_us(e) / 1e3 / reps:8.3f} ms/step "
               f"{e.count / reps:6.0f}x  {e.key[:90]}")
+    # K1's share of the step's device time (its template instances).
+    k1 = [e for e in step_kernels if "fused_ipm_kernel" in e.key]
+    if k1:
+        k1_ms = sum(_dev_us(e) for e in k1) / 1e3 / reps
+        _line(tag, layer="step_k1", device_ms=f"{k1_ms:.3f}",
+              launches=f"{sum(e.count for e in k1) / reps:.3f}",
+              share_of_step_device=f"{k1_ms / step_dev:.3f}")
     # K3's share of the step: K = 1 (trsm_vec_kernel) and K > 1
     # (trsm_cols_kernel), summed over their template instances.
     k3 = {kind: [e for e in step_kernels if f"trsm_{kind}_kernel" in e.key]

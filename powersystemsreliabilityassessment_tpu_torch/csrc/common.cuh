@@ -1,7 +1,8 @@
-// Shared device helpers for the port's hand-written Hopper kernels
-// (batched_chol.cu, ipm_fused.cu): the pivot-floored right-looking
-// Cholesky both kernels factor with, NaN-propagating min/max in the
-// semantics of jnp.maximum / jnp.clip, and warp / block reductions.
+// Shared device helpers for the port's hand-written Hopper kernels: the
+// pivot-floored right-looking Cholesky batched_chol.cu factors with (its
+// arithmetic is the one ipm_fused.cu's factor keeps), NaN-propagating
+// min/max in the semantics of jnp.maximum / jnp.clip, and warp
+// reductions.
 //
 // Replaces: the factorization step shared by the TPU Pallas kernels
 //   powersystemsreliabilityassessment_tpu/ops/batched_chol.py
@@ -58,38 +59,11 @@ __device__ __forceinline__ float combine(float a, float b) {
 }
 
 template <int OP>
-__device__ __forceinline__ float identity() {
-  if (OP == kSum) return 0.0f;
-  if (OP == kMin) return INFINITY;
-  return -INFINITY;
-}
-
-template <int OP>
 __device__ __forceinline__ float warp_reduce(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     v = combine<OP>(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
-}
-
-// Block-wide reduction; every thread gets the result. `red` is a shared
-// scratch of at least 33 floats. blockDim.x must be a multiple of 32.
-template <int OP>
-__device__ float block_reduce(float v, float* red) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  v = warp_reduce<OP>(v);
-  __syncthreads();  // earlier readers of red[] are done
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float w = lane < nwarps ? red[lane] : identity<OP>();
-    w = warp_reduce<OP>(w);
-    if (lane == 0) red[32] = w;
-  }
-  __syncthreads();
-  return red[32];
 }
 
 // In-place right-looking Cholesky of the m x m row-major matrix `a`

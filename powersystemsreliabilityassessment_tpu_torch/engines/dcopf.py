@@ -580,7 +580,7 @@ def _check_compat(compat: CompatFlags) -> None:
     if compat.island_blackout:
         raise NotImplementedError(
             "compat.island_blackout is not ported yet (ROADMAP.md Queue 1 "
-            "item 14)")
+            "item 8)")
 
 
 def evaluate_states(sys: System, comp_down: torch.Tensor,

@@ -41,7 +41,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "psra_cholesky": [_P, _P, _I, _I, _P],
     "psra_cho_solve": [_P, _P, _P, _I, _I, _P],
-    "psra_fused_ipm": [_P] * 15 + [_I] * 6 + [_F] * 4 + [_P],
+    "psra_fused_ipm": [_P] * 19 + [_I] * 9 + [_F] * 4 + [_P],
+    "psra_fused_ipm_occupancy": [_I] * 5 + [_P],
     "psra_trsm": [_P, _P, _P, _I, _I, _I, _I, _P],
     "psra_bernoulli": [_P, _P, _P, _I, _I, _P],
     "psra_fused_sampler_cert": [_P] * 5 + [_I] * 7 + [_F] + [_P] * 5,
@@ -127,12 +128,14 @@ def stream_handle(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
-def check_operand(t: torch.Tensor, name: str, shape: tuple) -> None:
-    """Validate a kernel operand: CUDA, float32, contiguous, ``shape``."""
+def check_operand(t: torch.Tensor, name: str, shape: tuple,
+                  dtype: torch.dtype = torch.float32) -> None:
+    """Validate a kernel operand: CUDA, ``dtype`` (float32 unless
+    named), contiguous, ``shape``."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: expected float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {str(dtype)[6:]}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")

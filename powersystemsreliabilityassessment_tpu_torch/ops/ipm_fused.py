@@ -17,15 +17,18 @@ Mref directly:
     M_f,f     = (Mref diag(1/d_theta) Mref') o (bru bru') + diag(1/(b^2 d_f))
 
 ``fused_ipm_iterations`` is the wrapper: on CUDA tensors it launches the
-hand-written kernel of ``csrc/ipm_fused.cu`` (one thread block per LP
-lane, the whole Mehrotra loop in one launch); on CPU tensors it runs
-:func:`fused_ipm_iterations_plain`, the same algorithm in plain PyTorch.
+hand-written kernel of ``csrc/ipm_fused.cu`` (one warp per LP lane,
+several lanes a block, the whole Mehrotra loop in one launch, A and the
+normal matrix taken from the structure's incidence lists); on CPU
+tensors it runs :func:`fused_ipm_iterations_plain`, the same algorithm
+in plain PyTorch.
 The reference's pair-product matrices (``p_bal``, ``q_theta``) and its
 profiling-only ``ABLATE`` hook are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import torch
 
@@ -37,6 +40,19 @@ from powersystemsreliabilityassessment_tpu_torch.utils.config import (
 
 launches = {"fused_ipm_iterations": 0}
 
+# Launch shape of the kernel: at most this many LP lanes share a block,
+# within the 227 KB of shared memory a block can use.
+MAX_LANES_PER_BLOCK = 4
+SMEM_PER_BLOCK = 232448
+MAX_N = 256   # columns the kernel's instances take (m <= MAX_M rows)
+# A lane runs on two warps (the instance for m <= 64, n <= 128) while
+# the batch leaves every SM's four schedulers at most one warp; else on
+# one. On an NVIDIA H100 80GB HBM3 at 700 W (scripts/torch_k1_bench.py,
+# RTS-24 lanes): 256 lanes 0.84 ms on two warps against 1.08 on one;
+# 2,048 lanes 2.45 against 1.56.
+SCHEDULERS_PER_SM = 4
+TWO_WARP_MAX = (64, 128)   # (m, n)
+
 
 @dataclasses.dataclass(frozen=True)
 class LPStructure:
@@ -45,6 +61,16 @@ class LPStructure:
     a0_bal: torch.Tensor    # [nb, n] balance block [Cg | Cd | -Minc' | 0]
     minc_ref: torch.Tensor  # [nl, nb] incidence * reference-bus mask
     inv_b: torch.Tensor     # [nl] branch reactance 1/b_l
+    # The same blocks as incidence lists (int32), which the kernel forms
+    # A-products and the normal matrix from: each generator's and load's
+    # bus, each branch's ends, and A0's nonzero columns of each bus row
+    # (CSR, ascending).
+    gen_bus: torch.Tensor   # [ng]
+    load_bus: torch.Tensor  # [nd]
+    br_from: torch.Tensor   # [nl]
+    br_to: torch.Tensor     # [nl]
+    bus_ptr: torch.Tensor   # [nb + 1]
+    bus_col: torch.Tensor   # [ng + nd + 2 nl]
     ng: int
     nd: int
     nl: int
@@ -59,22 +85,80 @@ class LPStructure:
         return self.nb + self.nl
 
 
+# id(System) -> (weak reference to it, its LPStructure).
+_structures: dict = {}
+
+
 def build_structure(sys) -> LPStructure:
     """Shared LP structure of a ``System``; mirrors reference
     ``ops/ipm_fused.py::build_structure``: balance block
     [Cg | Cd | -Minc' | 0], flow block [0 | 0 | diag(1/b) | -br_up*Mref]
-    with the reference bus's theta column zeroed (gauge fix)."""
+    with the reference bus's theta column zeroed (gauge fix), and the
+    incidence lists of the same blocks. Built once per ``System`` (a
+    frozen dataclass) and then reused: the LP tier asks for it every
+    step, and building it takes dozens of small kernels."""
+    key = id(sys)
+    hit = _structures.get(key)
+    if hit is not None and hit[0]() is sys:
+        return hit[1]
+    st = _build_structure(sys)
+    _structures[key] = (weakref.ref(sys, lambda _: _structures.pop(key, None)),
+                        st)
+    return st
+
+
+def _build_structure(sys) -> LPStructure:
     nb, ng, nl, nd = sys.n_bus, sys.n_gen, sys.n_branch, sys.n_load
     inc = sys.incidence
     a0 = torch.cat([sys.gen_bus_onehot, sys.load_onehot, -inc.T,
                     torch.zeros((nb, nb), dtype=inc.dtype,
                                 device=inc.device)], dim=1)
-    ref_mask = (torch.arange(nb, device=inc.device) != 0).to(inc.dtype)
+    dev = inc.device
+    ref_mask = (torch.arange(nb, device=dev) != 0).to(inc.dtype)
+    gen_bus = sys.gen_bus_onehot.argmax(0)
+    load_bus = sys.load_onehot.argmax(0)
+    br_from = (inc == 1).to(torch.uint8).argmax(1)
+    br_to = (inc == -1).to(torch.uint8).argmax(1)
+    # A0's nonzeros, one per generator and load column, two per branch
+    # column, sorted by (bus, column): fixed-size ops only, so building
+    # the structure inside a step never waits for the device.
+    rows = torch.cat([gen_bus, load_bus, br_from, br_to])
+    f = ng + nd + torch.arange(nl, device=dev)
+    cols = torch.cat([torch.arange(ng + nd, device=dev), f, f])
+    order = torch.argsort(rows * (ng + nd + nl) + cols)
+    index = lambda t: t.to(torch.int32).contiguous()
     return LPStructure(
         a0_bal=a0.contiguous(),
         minc_ref=(inc * ref_mask[None, :]).contiguous(),
         inv_b=(1.0 / sys.b_susceptance).contiguous(),
+        gen_bus=index(gen_bus), load_bus=index(load_bus),
+        br_from=index(br_from), br_to=index(br_to),
+        bus_ptr=index(torch.searchsorted(
+            rows[order], torch.arange(nb + 1, device=dev))),
+        bus_col=index(cols[order]),
         ng=ng, nd=nd, nl=nl, nb=nb)
+
+
+def launch_shape(st: LPStructure, batch: int, n_sms: int) -> tuple:
+    """``(lanes per block, warps per lane, dynamic shared bytes)`` of a
+    K1 launch, in the layout of ``csrc/ipm_fused.cu``
+    (``ipm_struct_words`` once per block, ``ipm_lane_words`` per lane):
+    as many lanes a block as still leave every one of the ``n_sms`` SMs
+    a block, at most ``MAX_LANES_PER_BLOCK``, within
+    ``SMEM_PER_BLOCK``; two warps a lane while that leaves each
+    scheduler at most one warp. Raises for a shape no kernel instance
+    takes (m > 72 or n > 256)."""
+    n, m, nl = st.n, st.m, st.nl
+    if m > MAX_M or n > MAX_N:
+        raise ValueError(f"fused IPM kernel takes m <= {MAX_M} and "
+                         f"n <= {MAX_N}, got m = {m}, n = {n}")
+    lane = 4 * (m * (m + 1) // 2 + 6 * n + 2 * m + 2 * nl + 6)
+    shared = 4 * (2 * st.ng + 2 * st.nd + 5 * nl + st.nb + 1)
+    fit = (SMEM_PER_BLOCK - shared) // lane
+    lpb = max(1, min(MAX_LANES_PER_BLOCK, batch // max(n_sms, 1), fit))
+    wpl = 2 if (2 * batch <= SCHEDULERS_PER_SM * n_sms
+                and m <= TWO_WARP_MAX[0] and n <= TWO_WARP_MAX[1]) else 1
+    return lpb, wpl, shared + lpb * lane
 
 
 def mv(st: LPStructure, colscale, bru, v):
@@ -238,17 +322,21 @@ def fused_ipm_iterations(st: LPStructure, colscale, br_up, c, b, l, u,
         return fused_ipm_iterations_plain(st, colscale, br_up, c, b, l, u,
                                           cfg)
     B, n, m, nl = c.shape[0], st.n, st.m, st.nl
-    if m > MAX_M:
-        raise ValueError(f"fused IPM kernel takes m <= {MAX_M}, got {m}")
+    lpb, wpl, smem = launch_shape(
+        st, B, torch.cuda.get_device_properties(c.device).multi_processor_count)
     ops = {"colscale": (colscale, (B, n)), "br_up": (br_up, (B, nl)),
            "c": (c, (B, n)), "b": (b, (B, m)), "l": (l, (B, n)),
-           "u": (u, (B, n)), "a0_bal": (st.a0_bal, (st.nb, n)),
-           "minc_ref": (st.minc_ref, (nl, st.nb)),
-           "inv_b": (st.inv_b, (nl,))}
-    for name, (t, shape) in ops.items():
-        cuda_build.check_operand(t, name, shape)
-        if t.device != c.device:
-            raise ValueError(f"{name} is on {t.device}, c on {c.device}")
+           "u": (u, (B, n)), "inv_b": (st.inv_b, (nl,))}
+    lists = {"gen_bus": (st.gen_bus, (st.ng,)),
+             "load_bus": (st.load_bus, (st.nd,)),
+             "br_from": (st.br_from, (nl,)), "br_to": (st.br_to, (nl,)),
+             "bus_ptr": (st.bus_ptr, (st.nb + 1,)),
+             "bus_col": (st.bus_col, (st.ng + st.nd + 2 * nl,))}
+    for dtype, group in ((torch.float32, ops), (torch.int32, lists)):
+        for name, (t, shape) in group.items():
+            cuda_build.check_operand(t, name, shape, dtype)
+            if t.device != c.device:
+                raise ValueError(f"{name} is on {t.device}, c on {c.device}")
     x = torch.empty_like(c)
     y = torch.empty_like(b)
     zl = torch.empty_like(c)
@@ -257,11 +345,11 @@ def fused_ipm_iterations(st: LPStructure, colscale, br_up, c, b, l, u,
     best_score = torch.empty((B,), dtype=c.dtype, device=c.device)
     err = cuda_build.library().psra_fused_ipm(
         colscale.data_ptr(), br_up.data_ptr(), c.data_ptr(), b.data_ptr(),
-        l.data_ptr(), u.data_ptr(), st.a0_bal.data_ptr(),
-        st.minc_ref.data_ptr(), st.inv_b.data_ptr(),
+        l.data_ptr(), u.data_ptr(), st.inv_b.data_ptr(),
+        *(t.data_ptr() for t, _ in lists.values()),
         x.data_ptr(), y.data_ptr(), zl.data_ptr(), zu.data_ptr(),
         best_x.data_ptr(), best_score.data_ptr(),
-        B, st.ng, st.nd, st.nl, st.nb, int(cfg.iterations),
+        B, st.ng, st.nd, st.nl, st.nb, int(cfg.iterations), lpb, wpl, smem,
         float(cfg.tau), float(cfg.regularization), float(cfg.mu_tol),
         float(cfg.center_tol), cuda_build.stream_handle(c))
     cuda_build.check_launch(err, "fused_ipm_iterations")

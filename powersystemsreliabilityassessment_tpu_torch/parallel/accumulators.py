@@ -4,7 +4,7 @@ Port of ``powersystemsreliabilityassessment_tpu/parallel/accumulators.py``
 (``BatchMoments``, ``batch_moments``, ``RunningStats``). Each batch's
 partial sums are taken on the device; the host folds them into float64
 running statistics and evaluates the beta stopping rule. The mesh
-``psum`` is not ported (one device; ROADMAP.md Queue 1 item 18).
+``psum`` is not ported (one device; ROADMAP.md Queue 1 item 12).
 """
 from __future__ import annotations
 

@@ -2,7 +2,7 @@
 
 Port of ``powersystemsreliabilityassessment_tpu/sampling/state.py``
 (plain Monte Carlo only; antithetic, importance and mixture sampling come
-with ROADMAP.md Queue 1 item 14). Threefry keys become explicit
+with ROADMAP.md Queue 1 item 8). Threefry keys become explicit
 ``torch.Generator`` objects: Philox on CUDA, Mersenne Twister on the
 CPU. The streams differ from JAX's by design, so the sampler is checked
 on its distribution, not on its bits.

@@ -12,6 +12,7 @@ JAX is not installed, without the suite's conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
 import json
 import math
 import pathlib
@@ -157,6 +158,148 @@ def test_k1_kernel_matches_plain(cuda):
     assert float((ker[4] - pla[4]).abs().max()) < 1e-3
     sol = lp_ipm_structured.solve_box_lp_structured(st, *args, IPMConfig())
     assert float(sol.primal_residual.max()) < 2e-3
+
+
+def edge_case(kind):
+    """A case whose LP sits at an edge of K1's row range: "m72" is RTS-24
+    with ten more branches (parallel to the first ten), nb + nl = 24 + 48
+    = 72; "m14" a 6-bus ring with two chords, six units and three loads,
+    nb + nl = 6 + 8 = 14 (one row slot, most threads of the warp idle).
+    Shared with the CPU tests (tests/test_torch_ipm_lists.py)."""
+    case = cases.rts24()
+    if kind == "m72":
+        more = {f: np.concatenate([getattr(case, f), getattr(case, f)[:10]])
+                for f in ("br_from", "br_to", "br_x", "br_rate", "br_lambda",
+                          "br_dur")}
+        return dataclasses.replace(case, name="rts24_m72", **more)
+    f64 = lambda *v: np.asarray(v, dtype=np.float64)
+    i32 = lambda *v: np.asarray(v, dtype=np.int32)
+    return cases.CaseData(
+        name="ring6", base_mva=100.0,
+        bus_pd=f64(0, 120, 0, 150, 0, 90), bus_qd=f64(0, 20, 0, 30, 0, 20),
+        gen_bus=i32(0, 0, 2, 2, 4, 4), gen_pmax=f64(100, 60, 80, 50, 70, 40),
+        gen_pmin=f64(0, 0, 0, 0, 0, 0),
+        gen_mttf=f64(1100, 960, 1150, 1100, 960, 450),
+        gen_mttr=f64(50, 40, 50, 50, 40, 50),
+        gen_maint_weeks=f64(2, 2, 3, 3, 2, 2),
+        br_from=i32(0, 1, 2, 3, 4, 5, 0, 1), br_to=i32(1, 2, 3, 4, 5, 0, 3, 4),
+        br_x=f64(0.08, 0.1, 0.12, 0.09, 0.11, 0.1, 0.2, 0.18),
+        br_rate=f64(120, 100, 110, 120, 100, 90, 80, 80),
+        br_lambda=f64(0.4, 0.5, 0.4, 0.3, 0.5, 0.4, 0.6, 0.6),
+        br_dur=f64(10, 12, 10, 11, 10, 12, 16, 16))
+
+
+def edge_lp_inputs(kind, device, n=256, seed=17):
+    """(structure, LP inputs) of ``n`` lanes of :func:`edge_case`:
+    3x unavailability states, a branch outage on every fourth lane."""
+    case = edge_case(kind)
+    sys_ = build_system(case, device=device)
+    rng = np.random.default_rng(seed)
+    down = rng.uniform(size=(n, case.n_comp)) < \
+        3 * twostate.unavailability(case)[None, :]
+    down[:, sys_.always_up_nsq.cpu().numpy()] = False
+    down[::4, case.n_gen + rng.integers(0, case.n_branch, (n + 3) // 4)] = True
+    return ipm_fused.build_structure(sys_), _lp_inputs(sys_, down)
+
+
+def _k1_check(st, args, cfg=IPMConfig()):
+    """K1 against its plain version on the same lanes: every output
+    finite, best_score within K1_SCORE_BOUND (1e-3), as chip_smoke.py's
+    k1 phase holds it; the polished objective within 1e-3 p.u. (0.1 MW,
+    K1_OBJ_BOUND) on all but one lane in a thousand and within 1e-2 p.u.
+    on every lane. Both are float32 IPMs in another summation order; on
+    a degenerate stressed lane the two iterates polished to objectives
+    1.8e-3 p.u. apart on an H100 (one of 2,048 stressed lanes)."""
+    before = ipm_fused.launches["fused_ipm_iterations"]
+    ker = ipm_fused.fused_ipm_iterations(st, *args, cfg)
+    pla = ipm_fused.fused_ipm_iterations_plain(st, *args, cfg)
+    torch.cuda.synchronize()
+    assert ipm_fused.launches["fused_ipm_iterations"] == before + 1
+    assert all(bool(torch.isfinite(t).all()) for t in ker)
+    assert float((ker[4] - pla[4]).abs().max()) <= 1e-3
+    obj = [lp_ipm_structured.polish_structured(st, s, *args, cfg).objective
+           for s in (ker, pla)]
+    diff = (obj[0] - obj[1]).abs()
+    assert int((diff > 1e-3).sum()) <= diff.numel() // 1000
+    assert float(diff.max()) <= 1e-2
+    return ker
+
+
+def _lane_rows(out, idx):
+    return [t[idx] for t in out]
+
+
+@pytest.mark.gpu
+def test_k1_lanes_are_independent(cuda):
+    # A lane's outputs are the same bits alone, in a batch of 256 and in
+    # a permuted batch: no arithmetic crosses lanes, whatever the block
+    # (1 and 256 lanes take the same instance, two warps a lane).
+    sys_ = build_system(cases.rts24(), device=cuda)
+    st = ipm_fused.build_structure(sys_)
+    args = _lp_inputs(sys_, _stressed_states(256, 12))
+    full = ipm_fused.fused_ipm_iterations(st, *args)
+    perm = torch.randperm(256, generator=torch.Generator().manual_seed(3)
+                          ).to(cuda)
+    permuted = ipm_fused.fused_ipm_iterations(
+        st, *(a[perm].contiguous() for a in args))
+    inv = torch.argsort(perm)
+    for a, b in zip(full, permuted):
+        assert torch.equal(a, b[inv])
+    for lane in (0, 5, 131, 255):
+        alone = ipm_fused.fused_ipm_iterations(
+            st, *(a[lane:lane + 1].contiguous() for a in args))
+        for a, b in zip(_lane_rows(full, slice(lane, lane + 1)), alone):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_k1_mixed_lanes_in_one_block(cuda):
+    # 2,048 lanes go four to a block: lanes 0-3 share one. Lane 1 is the
+    # stressed lane with the plain version's largest best_score, lane 2
+    # has a NaN lower bound (no finite iterate: it freezes at once with
+    # best_score inf), lanes 0 and 3 have no outage and freeze early. The
+    # others still equal, bit for bit, their runs among copies of
+    # themselves (2,048 lanes again: the same instance, one warp a lane).
+    sys_ = build_system(cases.rts24(), device=cuda)
+    st = ipm_fused.build_structure(sys_)
+    props = torch.cuda.get_device_properties(cuda)
+    assert ipm_fused.launch_shape(st, 2048, props.multi_processor_count
+                                  )[0] >= 4
+    down = _stressed_states(2048, 13)
+    args = list(_lp_inputs(sys_, down))
+    pla = ipm_fused.fused_ipm_iterations_plain(
+        st, *(a[:256] for a in args))
+    hard = [a[int(torch.argmax(pla[4]))].clone() for a in args]
+    calm = _lp_inputs(sys_, np.zeros((1, down.shape[1]), bool))
+    for a, h, q in zip(args, hard, calm):
+        a[0] = a[3] = q[0]
+        a[1] = h
+    args[4][2, 0] = float("nan")            # l of lane 2
+    out = ipm_fused.fused_ipm_iterations(st, *args)
+    assert not bool(torch.isfinite(out[4][2]))  # no finite score for it
+    for lane in (0, 1, 3):
+        alone = ipm_fused.fused_ipm_iterations(
+            st, *(a[lane].expand_as(a).contiguous() for a in args))
+        for a, b in zip(_lane_rows(out, slice(lane, lane + 1)),
+                        _lane_rows(alone, slice(0, 1))):
+            assert torch.equal(a, b)
+    assert bool(torch.isfinite(out[4][3:]).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 3, 255, 257, 2048])
+def test_k1_ragged_batches_match_plain(cuda, batch):
+    sys_ = build_system(cases.rts24(), device=cuda)
+    _k1_check(ipm_fused.build_structure(sys_),
+              _lp_inputs(sys_, _stressed_states(batch, 14)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["m72", "m14"])
+def test_k1_at_the_edges_of_m_matches_plain(cuda, kind):
+    st, args = edge_lp_inputs(kind, cuda)
+    assert st.m == int(kind[1:])
+    _k1_check(st, args)
 
 
 @pytest.mark.gpu
