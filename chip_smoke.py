@@ -38,7 +38,9 @@ Phases, one line each (any failure raises, so the exit code is not 0):
               the rng_impl="hw" sampling path must launch K6 and give
               the plain version's bits for its own key
  10. k4       K4 fused sampler + first-pass certificate at 262144 lanes
-              with the calibrated hint: states bit-equal to K6's and to
+              (the fused bench step) and at 8192 (the fused study's
+              batch), each with its launch shape and times, with the
+              calibrated hint: states bit-equal to K6's and to
               the plain version's, deficit and shed within 1e-5, first-
               pass mask within 0.1% of the plain version's and inside
               certify_states' certified set; certify_finish with a
@@ -1036,7 +1038,8 @@ def _rescue_check(sys96):
 def _cert_work(sys_, n_lanes, n_elig, flow_lanes=0, repair_steps=0,
                single=0, pairs=0):
     """Float32 operations a certificate kernel needs for this run's data
-    (csrc/cert_common.cuh): per lane the deficit, the candidate and the
+    (csrc/cert_common.cuh; K4's draws are counted apart,
+    :func:`_philox_ops`): per lane the deficit, the candidate and the
     dispatch; per lane with a flow check (n_out <= 1) the injections and
     one [nb] x [nb, nl] PTDF product (``flow_lanes`` counts a second, the
     K4 guard band's); per executed repair step the gradient's PTDF
@@ -1049,6 +1052,21 @@ def _cert_work(sys_, n_lanes, n_elig, flow_lanes=0, repair_steps=0,
     step = 2 * nb * nl + 12 * (ng + nd) + 8 * nl + check
     return (n_lanes * base + n_elig * check + flow_lanes * 2 * nb * nl
             + repair_steps * step + single * 6 * nl + pairs * (30 + 6 * nl))
+
+
+# 32-bit integer operations of one Philox4x32-10 call and its four draws
+# (csrc/philox.cuh): per round 2 umulhi, 2 multiplies and 4 xors (two
+# three-way xors), the two key adds of rounds 1-9, then a shift and a
+# compare per draw. A row of n_comp components makes ceil(n_comp / 4)
+# calls. The bound counts them at the float32 rate: the data sheet gives
+# no INT32 rate outside the tensor cores, and an integer operation is no
+# faster than a float32 one.
+PHILOX_CALL_OPS = 10 * (2 + 2 + 4) + 9 * 2 + 4 * 2
+
+
+def _philox_ops(n_rows, n_comp):
+    """Integer operations of ``n_rows`` rows of K6's / K4's draws."""
+    return n_rows * ((n_comp + 3) // 4) * PHILOX_CALL_OPS
 
 
 def phase_k6(sys_, results):
@@ -1092,7 +1110,8 @@ def phase_k6(sys_, results):
     # The wrapper's own key drawing and thresholds against the plain bits.
     path_diff = int((down != hw.sample_states_hw_plain(hw.seed_words(
         hl2_nsq.batch_generator(0, 5, "cuda"), "cuda"), thresh, B)).sum())
-    bound = _bound(0.0, B * nc + 4 * nc + 8)   # bool out, thresholds, key
+    # bool out, thresholds, key; the draws' integer operations
+    bound = _bound(_philox_ops(B, nc), B * nc + 4 * nc + 8)
     _line("k6", shape=(B, nc), differing_entries=diffs,
           max_abs_z=f"{max_z:.2f}<={K6_MAX_Z}", pinned_failures=pinned,
           draws=1 << 22, kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
@@ -1114,14 +1133,37 @@ def phase_k6(sys_, results):
         plain_ms=plain_ms, library_ms=lib_ms, max_abs_z=max_z, **bound)
 
 
+# K4's shapes: the fused bench step's batch and the fused study's
+# (MCSConfig.batch_size).
+K4_LANES = (262144, 8192)
+
+
 def phase_k4(sys_, results):
+    """K4 at both of its path's shapes; the first is the kernel's entry
+    in the JSON line, the second's times ride along under ``*_8192``."""
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
+    hint = torch.as_tensor(dcopf.calibrate_shed_hint(sys_), device="cuda")
+    entry = {}
+    for B in K4_LANES:
+        got = _k4_check(sys_, B, hint)
+        if not entry:
+            entry = got
+        else:
+            entry.update({f"{k}_{B}": got[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                "first_pass_agree", "lanes_per_block", "threads_per_lane")})
+    results["sample_certify_quick"] = dict(
+        results.get("sample_certify_quick", {}), **entry)
+
+
+def _k4_check(sys_, B, hint):
     import torch
     from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
     from powersystemsreliabilityassessment_tpu_torch.ops import (
-        fused_sampler_cert as ff, hw_sampler as hw)
+        certify_kernel as ck, fused_sampler_cert as ff, hw_sampler as hw)
     from powersystemsreliabilityassessment_tpu_torch.studies import hl2_nsq
-    B, nc, ng = 262144, sys_.n_comp, sys_.n_gen
-    hint = torch.as_tensor(dcopf.calibrate_shed_hint(sys_), device="cuda")
+    nc, ng = sys_.n_comp, sys_.n_gen
     gen = lambda: hl2_nsq.batch_generator(0, 7, "cuda")
     down, ok1, deficit, shed = ff.sample_certify_quick(gen(), sys_, B,
                                                        shed_hint=hint)
@@ -1166,10 +1208,13 @@ def phase_k4(sys_, results):
         sys_, down, load, shed_hint=hint_b, repair_iters=0), reps=5)
     n_elig = int((n_out <= 1).sum())
     flops = _cert_work(sys_, B, n_elig, flow_lanes=n_elig,
-                       single=int((n_out == 1).sum()))
+                       single=int((n_out == 1).sum())) + _philox_ops(B, nc)
     nbytes = B * nc + B * (1 + 4 + 4 * sys_.n_load) + 4 * ops[0].numel() \
         + 4 * ops[1].numel() + 4 * nc + 8
     bound = _bound(flops, nbytes)
+    lanes, stage, smem = ff.launch_shape(
+        ng, sys_.n_load, sys_.n_branch, sys_.n_bus, B,
+        torch.cuda.get_device_properties(0).multi_processor_count)
     _line("k4", lanes=B, states_equal_k6_and_plain=states_equal,
           explicit_mode_mask_equal=explicit_equal,
           deficit_err=f"{def_err:.3e}<={CERT_DEF_BOUND}",
@@ -1185,19 +1230,24 @@ def phase_k4(sys_, results):
           wide_band_agree=f"{wide_agree:.6f}>={QUICK_AGREE}",
           wide_band_routed_share=f"{wide_routed / B:.6f}>{K4_WIDE_MIN_ROUTED}",
           wide_band_outside_certify_states=f"{wide_unsound}==0",
-          eps=f"{ff.guard_eps(sys_):.4e}", kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+          eps=f"{ff.guard_eps(sys_):.4e}",
+          lanes_per_block=lanes,
+          threads_per_lane=1 << (stage >> ff.SPLIT_SHIFT),
+          lodf_staged=bool(stage & ck.STAGE_LODF), smem_bytes=smem,
+          kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
           certify_states_first_pass_ms=f"{first_ms:.4f}",
-          bound_ms=f"{bound['bound_ms']:.4f}({bound['bound_by']})")
+          bound_ms=f"{bound['bound_ms']:.4f}({bound['bound_by']})",
+          bound_share=f"{bound['bound_ms'] / ms:.4f}")
     if not (states_equal and explicit_equal and def_err <= CERT_DEF_BOUND
             and shed_err <= QUICK_PATTERN_BOUND and agree >= QUICK_AGREE
             and unsound == 0 and fin_diff <= (1 - CERT_AGREE) * B
             and wide_agree >= QUICK_AGREE and wide_unsound == 0
             and wide_routed > K4_WIDE_MIN_ROUTED * B):
-        raise RuntimeError("k4: kernel disagrees with its plain version, "
-                           "with K6, or with certify_states, or the wide "
-                           "band routes too few lanes to test it")
-    results["sample_certify_quick"] = dict(
-        results.get("sample_certify_quick", {}),
+        raise RuntimeError(f"k4 ({B} lanes): kernel disagrees with its "
+                           "plain version, with K6, or with "
+                           "certify_states, or the wide band routes too "
+                           "few lanes to test it")
+    return dict(
         name="sample_certify_quick", route="cuda",
         source=f"{PKG}/csrc/fused_sampler_cert.cu",
         replaces="powersystemsreliabilityassessment_tpu/ops/fused_sampler_cert.py:259",
@@ -1206,7 +1256,8 @@ def phase_k4(sys_, results):
         wide_band_agree=wide_agree, wide_band_routed_share=wide_routed / B,
         finish_lanes_differing=fin_diff, shape=[B, nc], ms=ms,
         plain_ms=plain_ms, library_ms=None,
-        certify_states_first_pass_ms=first_ms, **bound)
+        certify_states_first_pass_ms=first_ms, lanes_per_block=lanes,
+        threads_per_lane=1 << (stage >> ff.SPLIT_SHIFT), **bound)
 
 
 def _stressed_states(n, seed):
@@ -1376,13 +1427,16 @@ def _profile_lines(tag, layers, reps=16, top=12):
     for e in sorted(step_kernels, key=_dev_us, reverse=True)[:top]:
         print(f"  step kernel {_dev_us(e) / 1e3 / reps:8.3f} ms/step "
               f"{e.count / reps:6.0f}x  {e.key[:90]}")
-    # K1's share of the step's device time (its template instances).
-    k1 = [e for e in step_kernels if "fused_ipm_kernel" in e.key]
-    if k1:
-        k1_ms = sum(_dev_us(e) for e in k1) / 1e3 / reps
-        _line(tag, layer="step_k1", device_ms=f"{k1_ms:.3f}",
-              launches=f"{sum(e.count for e in k1) / reps:.3f}",
-              share_of_step_device=f"{k1_ms / step_dev:.3f}")
+    # K1's and K4's shares of the step's device time (K1: its template
+    # instances).
+    for layer, kernel in (("step_k1", "fused_ipm_kernel"),
+                          ("step_k4", "quick_kernel")):
+        evs = [e for e in step_kernels if kernel in e.key]
+        if evs:
+            k_ms = sum(_dev_us(e) for e in evs) / 1e3 / reps
+            _line(tag, layer=layer, device_ms=f"{k_ms:.3f}",
+                  launches=f"{sum(e.count for e in evs) / reps:.3f}",
+                  share_of_step_device=f"{k_ms / step_dev:.3f}")
     # K3's share of the step: K = 1 (trsm_vec_kernel) and K > 1
     # (trsm_cols_kernel), summed over their template instances.
     k3 = {kind: [e for e in step_kernels if f"trsm_{kind}_kernel" in e.key]

@@ -1,7 +1,9 @@
-// Shared device code of the two tier-1 certificate kernels
-// (certify_kernel.cu, K5; fused_sampler_cert.cu, K4): one warp per
-// state lane, the lane's vectors (<= 128 long) spread over the warp's
+// Shared device code of the two tier-1 certificate kernels: the
+// network's buffers (Net, net_unpack, the STAGE_* bits), which both
+// read, and the layout of certify_kernel.cu (K5): one warp per state
+// lane, the lane's vectors (<= 128 long) spread over the warp's
 // registers, the network's matrices in shared memory where they fit.
+// fused_sampler_cert.cu (K4) runs one thread per lane on its own code.
 //
 // Replaces: the per-tile jnp arithmetic of the TPU Pallas kernels
 //   powersystemsreliabilityassessment_tpu/ops/certify_kernel.py

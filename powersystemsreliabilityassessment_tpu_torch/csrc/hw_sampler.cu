@@ -9,9 +9,11 @@
 //   read from device memory, so the wrapper never reads them on the
 //   host, and the output is the unpadded bool [B, n_comp].
 //
-// What bounds it on an H100: the bytes it writes, B * n_comp (18.6 MB at
-// B = 262144, n_comp = 71: ~5.6 us at 3.35 TB/s). Its integer work, ten
-// Philox rounds per four draws, is the second limit.
+// What bounds it on an H100: its integer work, ten Philox rounds per
+// four draws, ~106 32-bit operations a call (chip_smoke.py
+// PHILOX_CALL_OPS): ~7.5 us at B = 262144, n_comp = 71, counted at the
+// float32 rate of 67 TFLOP/s. The bytes it writes, B * n_comp (18.6 MB:
+// ~5.6 us at 3.35 TB/s), are the second limit.
 //
 // What the design does about it: one thread per (row, call): it runs
 // one Philox call and writes the row's four neighbouring bytes, so

@@ -57,9 +57,12 @@ Scope, as the reference: systems whose every dimension is <= 128
 ``sample_certify_quick`` is the wrapper: on CUDA it launches the kernel
 (or raises); on the CPU it runs ``sample_certify_quick_plain``, the
 kernel's arithmetic in plain PyTorch. ``launches`` counts kernel
-launches.
+launches. The kernel runs one thread per state lane; ``launch_shape``
+sizes its blocks and chooses what it keeps in shared memory.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -72,6 +75,24 @@ U_F32 = 2.0 ** -24   # float32 unit roundoff
 BAND_INFLATION = 2.0
 
 launches = {"sample_certify_quick": 0}
+
+# The launch shape (csrc/fused_sampler_cert.cu): state lanes a block, a
+# multiple of a warp and at most MAX_LANES; threads a lane (the split),
+# a power of two up to MAX_SPLIT, stored in the stage bits from
+# SPLIT_SHIFT on, with lanes x split <= MAX_THREADS; the shared memory a
+# block may take (the H100's 227 KB); branches a flow pass carries. A
+# batch splits its lanes until it gives each SM at least
+# THREADS_PER_SM threads, two warps a scheduler: the fastest split of
+# 8,192 lanes on an H100 (scripts/torch_k4_bench.py --split; PERF.md
+# §6).
+WARP = 32
+MAX_LANES = 128
+MAX_SPLIT = 8
+MAX_THREADS = 256
+SPLIT_SHIFT = 8
+THREADS_PER_SM = 256
+SMEM_PER_BLOCK = 232448
+CHUNK = 8
 
 
 def guard_eps(sys) -> float:
@@ -149,22 +170,80 @@ def sample_certify_quick_plain(sys, batch: int, seeds=None, thresh=None,
     return down, ok1, deficit, cand
 
 
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def launch_shape(ng: int, nd: int, nl: int, nb: int, batch: int,
+                 n_sms: int, lanes: int | None = None,
+                 split: int | None = None) -> tuple[int, int, int]:
+    """``(lanes per block, stage bits, dynamic shared bytes)`` of a K4
+    launch for a system of ``ng`` units, ``nd`` loads, ``nl`` branches
+    and ``nb`` buses, in the layout of csrc/fused_sampler_cert.cu: the
+    broadcast vectors (``quick_small_words``), PTDF with rows padded to
+    CHUNK, LODF where it fits (else the kernel reads it through the
+    cache), then ``quick_lane_bytes`` a lane (its bus sums and the
+    exchange region of its state bytes and shed floats). The kernel
+    reads back the lanes a block from the shared bytes.
+
+    Threads a lane (``split``): the largest power of two, up to
+    MAX_SPLIT, that the batch needs to give each of the ``n_sms`` SMs
+    THREADS_PER_SM threads (262,144 lanes: 1; 8,192: 4). Lanes a block:
+    as many warps as still give each SM a block, at most MAX_LANES and
+    MAX_THREADS / split, at least one warp (262,144: 128; 8,192: 32, 256
+    blocks on 132 SMs). ``lanes`` and ``split`` override the choices.
+    With every dimension <= 128 the vectors, PTDF and 128 lanes take at
+    most ~197 KB, so only LODF is ever left out."""
+    if split is None:
+        split = 1
+        while 2 * split <= MAX_SPLIT and \
+                2 * split * batch <= THREADS_PER_SM * n_sms:
+            split *= 2
+    elif split not in (1, 2, 4, 8):
+        raise ValueError(f"threads a lane must be 1, 2, 4 or 8, got {split}")
+    if lanes is None:
+        lanes = max(WARP, min(MAX_LANES, MAX_THREADS // split,
+                              batch // max(n_sms, 1) // WARP * WARP))
+    elif lanes % WARP or not WARP <= lanes <= MAX_LANES \
+            or lanes * split > MAX_THREADS:
+        raise ValueError(f"lanes per block must be a multiple of {WARP} "
+                         f"up to {MAX_LANES} and {MAX_THREADS} threads, "
+                         f"got {lanes} x {split}")
+    nc = ng + nl
+    small = 4 * _round4(nc + 3 * ng + 3 * nd + 3 * nb + nl + 2)
+    ptdf = 4 * nb * ((nl + CHUNK - 1) // CHUNK * CHUNK)
+    lane = 4 * nb + _round4(max(nc, 4 * nd))
+    used = small + ptdf + lanes * lane
+    if used > SMEM_PER_BLOCK:
+        raise ValueError("sample_certify_quick: dimensions above "
+                         f"{ck.MAX_DIM} do not fit the kernel")
+    stage = ck.STAGE_PTDF | (split.bit_length() - 1) << SPLIT_SHIFT
+    lodf = 4 * _round4(nl * nl)
+    if used + lodf <= SMEM_PER_BLOCK:
+        stage |= ck.STAGE_LODF
+        used += lodf
+    return lanes, stage, used
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def kernel_operands(sys, hint: torch.Tensor):
-    """(float buffer, int buffer, thresholds, stage bits, shared bytes) of
-    the K4 kernel for ``sys`` and the shed direction ``hint``: the network
-    buffers of ``certify_kernel.network_buffers`` followed by the load
-    row, the hint, the bus loads and (load total, capacity total), and
-    K6's thresholds. They are constant for a (system, hint) pair: the
-    study step packs them once, not in every batch."""
+    """(float buffer, int buffer, thresholds) of the K4 kernel for
+    ``sys`` and the shed direction ``hint``: the network buffers of
+    ``certify_kernel.network_buffers`` followed by the load row, the
+    hint, the bus loads and (load total, capacity total), and K6's
+    thresholds. They are constant for a (system, hint) pair: the study
+    step packs them once, not in every batch (the launch shape, which
+    depends on the batch, is chosen at each launch)."""
     load = sys.load_pd.to(torch.float32)
     fbuf, ibuf = ck.network_buffers(sys, extras=(
         load, hint, load @ sys.load_onehot.T,
         torch.stack([load.sum(), sys.gen_pmax.to(torch.float32).sum()])))
     thresh = hw_sampler.bernoulli_thresholds(sys.unavail, sys.always_up_nsq)
-    per_warp = ck.scratch_floats(sys) + (sys.n_comp + 3) // 4
-    stage, smem = ck.stage_plan(sys, per_warp,
-                                ck.STAGE_PTDF | ck.STAGE_LODF)
-    return fbuf, ibuf, thresh, stage, smem
+    return fbuf, ibuf, thresh
 
 
 def launch(sys, batch: int, seeds, down, operands,
@@ -175,7 +254,8 @@ def launch(sys, batch: int, seeds, down, operands,
     dev = sys.device
     ng, nd, nl, nb = sys.n_gen, sys.n_load, sys.n_branch, sys.n_bus
     nc = sys.n_comp
-    fbuf, ibuf, thresh, stage, smem = operands
+    fbuf, ibuf, thresh = operands
+    _, stage, smem = launch_shape(ng, nd, nl, nb, batch, _sm_count(dev))
     if down is not None:
         if down.dtype != torch.bool or tuple(down.shape) != (batch, nc) \
                 or down.device != dev:

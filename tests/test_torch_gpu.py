@@ -568,6 +568,162 @@ def test_k4_kernel_matches_plain_in_both_modes(cuda):
         assert float((first & ~ok_k).float().mean()) > 0.01   # routed
 
 
+def k4_limit_case(n_bus=120, n_units=8):
+    """A ring of ``n_bus`` buses with a 10 MW load at each and
+    ``n_units`` 200 MW units spread around it: 128 components, and every
+    dimension of K4 near its limit of 128. At 128 lanes a block its LODF
+    does not fit beside PTDF and the lanes and is read through the cache;
+    at 32 it is staged (``ops/fused_sampler_cert.py::launch_shape``).
+    Shared with the CPU tests (tests/test_torch_k4_plan.py)."""
+    f64 = lambda v: np.asarray(v, dtype=np.float64)
+    i32 = lambda v: np.asarray(v, dtype=np.int32)
+    bus = np.arange(n_bus)
+    full = lambda n, v: f64(np.full(n, v))
+    return cases.CaseData(
+        name="ring120", base_mva=100.0, bus_pd=full(n_bus, 10.0),
+        bus_qd=full(n_bus, 2.0), gen_bus=i32(bus[::n_bus // n_units]),
+        gen_pmax=full(n_units, 200.0), gen_pmin=full(n_units, 0.0),
+        gen_mttf=full(n_units, 1000.0), gen_mttr=full(n_units, 50.0),
+        gen_maint_weeks=full(n_units, 2.0), br_from=i32(bus),
+        br_to=i32((bus + 1) % n_bus), br_x=f64(0.05 + 0.05 * (bus % 3)),
+        br_rate=full(n_bus, 80.0), br_lambda=full(n_bus, 0.5),
+        br_dur=full(n_bus, 10.0))
+
+
+def _k4_vs_plain(sys_, batch, seeds=None, down=None, hint=None):
+    """K4 (one launch on packed operands) and its plain version on the
+    same inputs, held to the k4 phase's bounds of chip_smoke.py: states
+    bit for bit, deficit and shed within 1e-5 p.u. (float32 sums in
+    another order), first-pass masks on >= 99.9% of lanes, none outside
+    certify_states' certified set. Returns (kernel, plain) outputs."""
+    hint = ff.hint_row(sys_, None) if hint is None else hint
+    ops = ff.kernel_operands(sys_, hint)
+    before = ff.launches["sample_certify_quick"]
+    got = ff.launch(sys_, batch, seeds, down, ops)
+    want = ff.sample_certify_quick_plain(sys_, batch, seeds, ops[2], down,
+                                         hint)
+    load = sys_.load_pd[None, :].expand(batch, sys_.n_load)
+    cert = dcopf.certify_states(sys_, got[0], load, shed_hint=hint[None, :]
+                                .expand(batch, sys_.n_load))
+    torch.cuda.synchronize()
+    assert ff.launches["sample_certify_quick"] == before + 1
+    assert torch.equal(got[0], want[0])
+    assert float((got[1] == want[1]).float().mean()) >= 0.999
+    assert float((got[2] - want[2]).abs().max()) <= 1e-5
+    assert float((got[3] - want[3]).abs().max()) <= 1e-5
+    assert bool((~got[1] | cert.certified).all())
+    return got, want
+
+
+def _sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 127, 129, 8192, 262145])
+def test_k4_ragged_batches_match_plain(cuda, batch):
+    # Partial warps and blocks, one-warp blocks (8,192) and 128-lane
+    # blocks with a ragged last tile (262,145).
+    sys_ = build_system(cases.rts24(), device=cuda)
+    seeds = hw_sampler.seed_words(hl2_nsq.batch_generator(1, batch, cuda),
+                                  cuda)
+    got, _ = _k4_vs_plain(sys_, batch, seeds=seeds)
+    assert got[1].any()
+
+
+@pytest.mark.gpu
+def test_k4_lanes_are_independent(cuda):
+    # A lane's outputs depend on its row alone: not on the batch, the
+    # launch shape it implies, or its neighbours.
+    sys_ = build_system(cases.rts24(), device=cuda)
+    ops = ff.kernel_operands(sys_, ff.hint_row(sys_, None))
+    B = 1000
+    down = _boosted(sys_, B, 8, 40.0)
+    full = ff.launch(sys_, B, None, down, ops)
+    for i in (0, 1, 517, 999):
+        alone = ff.launch(sys_, 1, None, down[i:i + 1].contiguous(), ops)
+        for a, b in zip(alone, full):
+            assert torch.equal(a[0], b[i])
+    perm = torch.randperm(B, generator=torch.Generator().manual_seed(3))
+    perm = perm.to(cuda)
+    shuffled = ff.launch(sys_, B, None, down[perm].contiguous(), ops)
+    for a, b in zip(shuffled, full):
+        assert torch.equal(a, b[perm])
+    # Random mode: row r draws the same states, so gives the same
+    # outputs, in a batch of 300 (one-warp blocks) as in 262,144 (128).
+    seeds = hw_sampler.seed_words(hl2_nsq.batch_generator(0, 2, cuda), cuda)
+    small = ff.launch(sys_, 300, seeds, None, ops)
+    big = ff.launch(sys_, 262144, seeds, None, ops)
+    for a, b in zip(small, big):
+        assert torch.equal(a, b[:300])
+
+
+@pytest.mark.gpu
+def test_k4_mixed_lanes_in_one_block(cuda):
+    # One 32-lane block: intact lanes, single outages (the islanding
+    # branch among them: LODF sentinel 1e6), two and three outages, every
+    # unit down, and stressed unit outages.
+    sys_ = build_system(cases.rts24(), device=cuda)
+    ng, nl, B = sys_.n_gen, sys_.n_branch, 32
+    assert ff.launch_shape(ng, sys_.n_load, nl, sys_.n_bus, B,
+                           _sms())[0] == B
+    island = int(torch.nonzero((sys_.lodf == 1e6).any(0)).flatten()[0])
+    down = torch.zeros((B, sys_.n_comp), dtype=torch.bool, device=cuda)
+    for lane, ks in enumerate([(0,), (island,), (5,), (17,), (nl - 1,),
+                               (island, 3), (2, 9), (4, 20, 31)]):
+        down[6 + lane, [ng + k for k in ks]] = True
+    down[14, :ng] = True
+    down[15:] = _boosted(sys_, B - 15, 9, 40.0)
+    down[:, sys_.always_up_nsq] = False
+    got, want = _k4_vs_plain(sys_, B, down=down)
+    assert torch.equal(got[1], want[1])
+    n_out = down[:, ng:].sum(1)
+    assert not got[1][n_out >= 2].any()
+    assert not bool(got[1][7])                     # the islanding outage
+    load = sys_.load_pd.float()
+    assert float((got[2][14] - load.sum()).abs()) <= 1e-5
+    assert float((got[3][14] - load).abs().max()) <= 1e-5
+    assert got[1][:6].all()                        # intact, no deficit
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [8192, 32768])
+def test_k4_at_the_dimension_limit_matches_plain(cuda, batch):
+    sys_ = build_system(k4_limit_case(), device=cuda)
+    assert ff.supported(sys_) and sys_.n_comp == 128
+    lanes, stage, _ = ff.launch_shape(sys_.n_gen, sys_.n_load,
+                                      sys_.n_branch, sys_.n_bus, batch,
+                                      _sms())
+    # LODF staged with 32 lanes a block, read through the cache with 128.
+    assert bool(stage & certify_kernel.STAGE_LODF) == (lanes == 32)
+    seeds = hw_sampler.seed_words(hl2_nsq.batch_generator(2, 0, cuda), cuda)
+    got, _ = _k4_vs_plain(sys_, batch, seeds=seeds)
+    assert got[1].any() and not got[1].all()
+
+
+@pytest.mark.gpu
+def test_k4_refuses_a_shared_size_off_the_plan(cuda):
+    # The launcher reads the lanes a block from the shared bytes: a size
+    # off the plan, or PTDF left out, is an error, never a guess.
+    from powersystemsreliabilityassessment_tpu_torch.ops import cuda_build
+    sys_ = build_system(cases.rts24(), device=cuda)
+    fbuf, ibuf, thresh = ff.kernel_operands(sys_, ff.hint_row(sys_, None))
+    dims = (sys_.n_gen, sys_.n_load, sys_.n_branch, sys_.n_bus)
+    lanes, stage, smem = ff.launch_shape(*dims, 4096, _sms())
+    seeds = hw_sampler.seed_words(hl2_nsq.batch_generator(0, 0, cuda), cuda)
+    out = (torch.empty((64, sys_.n_comp), dtype=torch.bool, device=cuda),
+           torch.empty(64, dtype=torch.bool, device=cuda),
+           torch.empty(64, device=cuda),
+           torch.empty((64, sys_.n_load), device=cuda))
+    for st, sm in ((stage, smem + 4), (stage & ~certify_kernel.STAGE_PTDF,
+                                        smem)):
+        err = cuda_build.library().psra_fused_sampler_cert(
+            seeds.data_ptr(), thresh.data_ptr(), None, fbuf.data_ptr(),
+            ibuf.data_ptr(), 64, *dims, st, sm, ff.guard_eps(sys_),
+            *(t.data_ptr() for t in out), cuda_build.stream_handle(fbuf))
+        assert err != 0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case,boost,tol", [("rts24", 40.0, 1e-5),
                                            ("rts96", 10.0, 1e-4)])
