@@ -7,9 +7,13 @@ Phases, one line each (any failure raises, so the exit code is not 0):
   1. device   the card's name and power limit (nvidia-smi); no card, no run
   2. build    nvcc builds the kernels of csrc/ for sm_90a
   3. k2       K2 batched Cholesky / solve kernels vs their plain PyTorch
-              versions on equilibrated normal matrices of real RTS-24 LP
-              lanes at the polish shape [256, 62, 62], plus a lane that
-              hits the pivot floor
+              versions at the four path shapes: the RTS-24 polish's
+              equilibrated normal matrices of real LP lanes [256, 62, 62]
+              (plus a lane that hits the pivot floor) and their solve
+              [256, 62], and RTS-96's diagonal panels [2048, 56, 56] and
+              [2048, 23, 23]; per shape the kernel's device time (CUDA
+              graph), wrapper, plain and library times, bound and bound
+              share, K2a's launch shape and the inputs' asymmetry
   4. k1       K1 fused IPM kernel vs its plain version on 256 and on
               2,048 real LP lanes (states with a deficit or a failed
               certificate): errors, times, launch shape, bound
@@ -63,8 +67,9 @@ Then one JSON line of per-kernel results and, last, the device line
 ``--phases`` runs a subset (e.g. ``--phases build,k2,k1``); the default
 runs all of them. ``--phases profile`` runs only the opt-in breakdown of
 the RTS-24 bench-shaped step and of the RTS-96 study step: per-layer
-times, the device-busy share and the kernels that take the most device
-time (torch.profiler).
+times, the device-busy share, the kernels that take the most device
+time (torch.profiler) and K1's, K2's (``layer=step_k2``), K3's and K4's
+device time and launches per step.
 """
 from __future__ import annotations
 
@@ -349,14 +354,38 @@ def phase_build():
           nvcc_seconds=f"{info['seconds']:.2f}", library=info["library"])
 
 
-def phase_k2(sys_, results):
+def _graph_ms(call, sets, calls: int = 20, replays: int = 5) -> float:
+    """Device ms per call of ``call(*s)``: ``calls`` calls cycling
+    through ``sets`` captured once in a CUDA graph, replayed ``replays``
+    times, so the time holds no Python or launch cost."""
     import torch
-    from powersystemsreliabilityassessment_tpu_torch.ops import (
-        batched_chol as bc, ipm_fused)
+    for s in sets:
+        call(*s)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            call(*sets[i % len(sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(True), torch.cuda.Event(True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (replays * calls)
+
+
+def _polish_matrices(sys_):
+    """[256, 62, 62]: the two matrices polish_box_lp factors (A A' and
+    A W^-1 A' + I, equilibrated, plus the 1e-7 ridge) on 256 real RTS-24
+    LP lanes (K2a's polish shape)."""
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.ops import ipm_fused
     colscale, br_up, c, b, l, u = _lp_lanes(sys_, 256, seed=5)
     st = ipm_fused.build_structure(sys_)
     m = st.m
-    # The two matrices polish_box_lp factors: A A' and A W^-1 A' + I.
     w = torch.where(torch.rand(c.shape, generator=torch.Generator(
         device="cuda").manual_seed(1), device="cuda") < 0.5, 1e2, 1e-4)
     mats = []
@@ -367,54 +396,168 @@ def phase_k2(sys_, results):
             torch.diagonal(M, dim1=1, dim2=2), 1e-30))
         mats.append(M * s[:, :, None] * s[:, None, :]
                     + 1e-7 * torch.eye(m, device="cuda"))
-    M = torch.cat(mats)[:256].contiguous()
-    # Lane 0 has lost positive definiteness: its second pivot is
-    # 1 - 1.0005^2 < 0, which the pivot floor turns into L_11 = -1
-    # (an unfloored rsqrt would give NaN).
-    M[0] = torch.eye(m, device="cuda")
-    M[0, 0, 1] = M[0, 1, 0] = 1.0005
-    r = torch.randn((256, m), generator=torch.Generator(
+    return torch.cat(mats)[:256].contiguous()
+
+
+def _rts96_normal(sys96):
+    """[256, 191, 191]: equilibrated normal matrices of 256 real RTS-96 LP
+    lanes as the blocked route factors them. Of the factored matrices,
+    in order (four IPM iterations' equilibrated A D^-1 A', then the
+    polish's A A' and A W^-1 A' + I): lanes 0-127 at the fourth
+    iteration's barrier weights, lanes 128-255 the polish's A A'."""
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.engines import (
+        lp_ipm_batched as lpb)
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        IPMConfig)
+    c, A, b, l, u = _dense_lp(sys96, 256, seed=9)
+    mats: list = []
+    with _capturing_blocked_factor(mats):
+        lpb.solve_box_lp_batched(c, A, b, l, u, IPMConfig(iterations=4))
+    return torch.cat([mats[3][:128], mats[4][128:]]).contiguous()
+
+
+def _tile(t, n: int):
+    """``t`` repeated along the batch to ``n`` lanes."""
+    return t.repeat(n // t.shape[0], *([1] * (t.dim() - 1))).contiguous()
+
+
+def _rts96_panels(M, n: int = 2048):
+    """The first (56-wide) and last (23-wide) diagonal panels K2a factors
+    in one blocked factorization of ``M`` (the lifted Schur complements),
+    tiled to ``n`` lanes: the RTS-96 path's K2a shapes at the study's
+    max_lp."""
+    from powersystemsreliabilityassessment_tpu_torch.ops import (
+        blocked_chol as bl)
+    panels: list = []
+    with _capturing_panels(panels):
+        bl._factor_once(M)
+    return _tile(panels[0], n), _tile(panels[-1], n)
+
+
+def _asymmetry(M) -> float:
+    """max over lanes of max|M - M'| / max|M|: how far the path's inputs
+    are from the symmetry K2a's reading of a_jk for a_kj assumes."""
+    lane = lambda t: t.abs().flatten(1).amax(1)
+    return float((lane(M - M.transpose(1, 2)) / lane(M).clamp_min(1e-30))
+                 .max())
+
+
+def _k2_inputs(sys_, sys96):
+    """K2's four path shapes, ``name: (kernel, operands)``, on real
+    matrices: the RTS-24 polish's [256, 62, 62] and its solve [256, 62]
+    (the plain factor of those matrices, fresh right-hand sides), and
+    RTS-96's diagonal panels [2048, 56, 56] and [2048, 23, 23]."""
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.ops import (
+        batched_chol as bc)
+    M62 = _polish_matrices(sys_)
+    S56, S23 = _rts96_panels(_rts96_normal(sys96))
+    r = torch.randn(M62.shape[:2], generator=torch.Generator(
         device="cuda").manual_seed(2), device="cuda")
-    Lk, Lp = bc.cholesky(M), bc.cholesky_plain(M)
-    xk, xp = bc.cho_solve(Lp, r), bc.cho_solve_plain(Lp, r)
+    return {"chol_polish": ("cholesky", (M62,)),
+            "solve_polish": ("cho_solve", (bc.cholesky_plain(M62), r)),
+            "chol_p56": ("cholesky", (S56,)),
+            "chol_p23": ("cholesky", (S23,))}
+
+
+def _k2_fns(kind):
+    """(kernel wrapper, plain version, one library call) of K2a or K2b."""
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.ops import (
+        batched_chol as bc)
+    if kind == "cholesky":
+        return (bc.cholesky, bc.cholesky_plain,
+                lambda M: torch.linalg.cholesky_ex(M)[0])
+    return (bc.cho_solve, bc.cho_solve_plain,
+            lambda L, r: torch.cholesky_solve(r[:, :, None], L)[:, :, 0])
+
+
+def _k2_work(kind, args):
+    if kind == "cholesky":
+        return _chol_work(*args[0].shape[:2])
+    return _solve_work(*args[1].shape)
+
+
+def phase_k2(sys_, sys96, results):
+    """K2a and K2b against their plain versions at the four path shapes
+    (a pivot-floor lane in the polish's factor), with times: the kernel
+    alone (CUDA graph), through the wrapper, the plain version, one
+    library call (cholesky_ex / cholesky_solve), bound and bound share,
+    K2a's launch shape, and the inputs' asymmetry."""
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.ops import (
+        batched_chol as bc)
+    shapes = _k2_inputs(sys_, sys96)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # Lane 0 of the polish check has lost positive definiteness: its
+    # second pivot is 1 - 1.0005^2 < 0, which the pivot floor turns into
+    # L_11 = -1 (an unfloored rsqrt would give NaN).
+    M0 = shapes["chol_polish"][1][0].clone()
+    m = M0.shape[-1]
+    M0[0] = torch.eye(m, device="cuda")
+    M0[0, 0, 1] = M0[0, 1, 0] = 1.0005
+    L0 = bc.cholesky(M0)
     torch.cuda.synchronize()
-    floor_hit = bool(torch.isfinite(Lk[0]).all() and Lk[0, 1, 1] < 0)
-    l_err = float(((Lk - Lp).abs().amax((1, 2))
-                   / torch.clamp_min(Lp.abs().amax((1, 2)), 1.0)).max())
-    x_err = float(((xk - xp).abs().amax(1)
-                   / torch.clamp_min(xp.abs().amax(1), 1.0)).max())
-    ms = {"chol": _time_ms(lambda: bc.cholesky(M)),
-          "chol_plain": _time_ms(lambda: bc.cholesky_plain(M), reps=3),
-          "chol_library": _time_ms(lambda: torch.linalg.cholesky_ex(M)),
-          "solve": _time_ms(lambda: bc.cho_solve(Lp, r)),
-          "solve_plain": _time_ms(lambda: bc.cho_solve_plain(Lp, r), reps=3),
-          "solve_library": _time_ms(
-              lambda: torch.cholesky_solve(r[:, :, None], Lp))}
-    _line("k2", shape=tuple(M.shape), pivot_floor_lane=floor_hit,
-          chol_rel_err=f"{l_err:.3e}<={K2_L_BOUND}",
-          solve_rel_err=f"{x_err:.3e}<={K2_X_BOUND}",
-          **{f"{k}_ms": f"{v:.4f}" for k, v in ms.items()})
+    floor_hit = bool(torch.isfinite(L0[0]).all() and L0[0, 1, 1] < 0)
+    rows = {}
+    for name, (kind, args) in shapes.items():
+        kern, plain, library = _k2_fns(kind)
+        checked = (M0,) if name == "chol_polish" else args
+        got, want = kern(*checked), plain(*checked)
+        torch.cuda.synchronize()
+        bound = _bound(*_k2_work(kind, args))
+        row = dict(kind=kind, shape=list(args[-1].shape),
+                   rel_err=_rel_err(got, want),
+                   abs_err=float((got - want).abs().max()),
+                   finite=bool(torch.isfinite(got).all()),
+                   asymmetry=_asymmetry(args[0]) if kind == "cholesky"
+                   else None,
+                   device_ms=_graph_ms(kern, [args]),
+                   ms=_time_ms(lambda: kern(*args)),
+                   plain_ms=_time_ms(lambda: plain(*args), reps=3),
+                   library_ms=_time_ms(lambda: library(*args)), **bound)
+        row["bound_share"] = bound["bound_ms"] / row["device_ms"]
+        if kind == "cholesky":
+            row["launch_shape"] = dict(zip(
+                ("warps_per_lane", "lanes_per_block", "smem_bytes"),
+                bc.launch_shape(args[0].shape[0], args[0].shape[-1], sms)))
+        rows[name] = row
+        tol = K2_L_BOUND if kind == "cholesky" else K2_X_BOUND
+        _line("k2", path_shape=name, **{
+            k: (f"{v:.3e}<={tol}" if k == "rel_err" else
+                f"{v:.4f}" if isinstance(v, float) and k.endswith("ms")
+                else f"{v:.3e}" if isinstance(v, float)
+                else json.dumps(v).replace(" ", "") if isinstance(v, dict)
+                else v) for k, v in row.items()})
+    _line("k2", pivot_floor_lane=floor_hit,
+          pivot_floor_l11=f"{float(L0[0, 1, 1]):.5f}")
     if not floor_hit:
         raise RuntimeError("k2: the pivot-floor lane did not floor")
-    if not (l_err <= K2_L_BOUND and x_err <= K2_X_BOUND):
-        raise RuntimeError("k2: kernel disagrees with the plain version")
+    bad = [k for k, r in rows.items() if not r["finite"] or r["rel_err"] > (
+        K2_L_BOUND if r["kind"] == "cholesky" else K2_X_BOUND)]
+    if bad:
+        raise RuntimeError(f"k2: kernel disagrees with the plain version at "
+                           f"{bad}")
     # The bounds are relative to each lane's scale (solutions of these
     # ill-conditioned systems reach ~1e3), so both errors are reported.
+    # The top-level numbers are the polish shapes (K2a's main RTS-24
+    # shape), every path shape under path_shapes.
     src = f"{PKG}/csrc/batched_chol.cu"
-    results["cholesky"] = dict(
-        name="cholesky", route="cuda", source=src,
-        replaces="powersystemsreliabilityassessment_tpu/ops/batched_chol.py:143",
-        max_abs_err=float((Lk - Lp).abs().max()), max_rel_err=l_err,
-        tolerance=K2_L_BOUND, shape=list(M.shape), ms=ms["chol"],
-        plain_ms=ms["chol_plain"], library_ms=ms["chol_library"],
-        **_bound(*_chol_work(*M.shape[:2])))
-    results["cho_solve"] = dict(
-        name="cho_solve", route="cuda", source=src,
-        replaces="powersystemsreliabilityassessment_tpu/ops/batched_chol.py:161",
-        max_abs_err=float((xk - xp).abs().max()), max_rel_err=x_err,
-        tolerance=K2_X_BOUND, shape=list(r.shape), ms=ms["solve"],
-        plain_ms=ms["solve_plain"], library_ms=ms["solve_library"],
-        **_bound(*_solve_work(*r.shape)))
+    ref = "powersystemsreliabilityassessment_tpu/ops/batched_chol.py"
+    for kind, line, main in (("cholesky", 143, "chol_polish"),
+                             ("cho_solve", 161, "solve_polish")):
+        mine = {k: r for k, r in rows.items() if r["kind"] == kind}
+        top = rows[main]
+        results.setdefault(kind, {}).update(
+            name=kind, route="cuda", source=src, replaces=f"{ref}:{line}",
+            max_abs_err=max(r["abs_err"] for r in mine.values()),
+            max_rel_err=max(r["rel_err"] for r in mine.values()),
+            tolerance=K2_L_BOUND if kind == "cholesky" else K2_X_BOUND,
+            shape=top["shape"], ms=top["ms"], device_ms=top["device_ms"],
+            plain_ms=top["plain_ms"], library_ms=top["library_ms"],
+            bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+            path_shapes=mine)
 
 
 # K1 is checked and timed at the bench's LP buffer (max_lp 256) and at
@@ -727,37 +870,20 @@ def _k3_edges() -> dict:
 
 def phase_k3(sys96, results):
     import torch
-    from powersystemsreliabilityassessment_tpu_torch.engines import (
-        lp_ipm_batched as lpb)
     from powersystemsreliabilityassessment_tpu_torch.ops import (
         batched_chol as bc, blocked_chol as bl)
-    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
-        IPMConfig)
-    c, A, b, l, u = _dense_lp(sys96, 256, seed=9)
-    mats: list = []
-    with _capturing_blocked_factor(mats):
-        lpb.solve_box_lp_batched(c, A, b, l, u, IPMConfig(iterations=4))
-    # The factored matrices, in order: four IPM iterations' equilibrated
-    # A D^-1 A', then the polish's A A' and A W^-1 A' + I. Lanes 0-127
-    # at the fourth iteration's barrier weights, lanes 128-255 the
-    # polish's A A'.
-    M = torch.cat([mats[3][:128], mats[4][128:]]).contiguous()
+    M = _rts96_normal(sys96)
     m, P = M.shape[-1], bl.PANEL
-    # The diagonal panels K2 factors (56, 56, 56 and 23 wide): the lifted
-    # Schur complements one blocked factorization of these lanes builds.
-    panels: list = []
-    with _capturing_panels(panels):
-        bl._factor_once(M)
-    P23 = panels[-1].shape[-1]
-
     # Kernels against plain versions at the main path's shapes: 2048
     # lanes (the study's max_lp), tiled from the 256 real lanes, with
-    # fresh right-hand sides.
+    # fresh right-hand sides. The diagonal panels K2 factors (56, 56, 56
+    # and 23 wide) are the lifted Schur complements one blocked
+    # factorization of these lanes builds.
     nx = 2048
-    tile = lambda t: t.repeat(nx // t.shape[0],
-                              *([1] * (t.dim() - 1))).contiguous()
+    tile = lambda t: _tile(t, nx)
     gen = torch.Generator(device="cuda").manual_seed(3)
-    S56x, S23x = tile(panels[0]), tile(panels[-1])
+    S56x, S23x = _rts96_panels(M, nx)
+    P23 = S23x.shape[-1]
     L56x, L23x = bc.cholesky(S56x), bc.cholesky(S23x)
     # Real off-diagonal blocks of the first panel column: block (1, 0) is
     # 56 x 56, block (3, 0) 23 x 56; K3 takes their transposes.
@@ -1437,6 +1563,20 @@ def _profile_lines(tag, layers, reps=16, top=12):
             _line(tag, layer=layer, device_ms=f"{k_ms:.3f}",
                   launches=f"{sum(e.count for e in evs) / reps:.3f}",
                   share_of_step_device=f"{k_ms / step_dev:.3f}")
+    # K2's share of the step: K2a (the first port's cholesky_kernel or
+    # the lane kernel's instances) and K2b, per step.
+    k2 = {kind: [e for e in step_kernels if any(n in e.key for n in names)]
+          for kind, names in (("chol", ("cholesky_kernel",
+                                        "cholesky_lanes_kernel")),
+                              ("solve", ("cho_solve_kernel",)))}
+    if any(k2.values()):
+        k2_ms = {kind: sum(_dev_us(e) for e in evs) / 1e3 / reps
+                 for kind, evs in k2.items()}
+        _line(tag, layer="step_k2", **{
+            f"{kind}_{key}": f"{val:.4f}" for kind, evs in k2.items()
+            for key, val in (("device_ms", k2_ms[kind]),
+                             ("launches", sum(e.count for e in evs) / reps))},
+            share_of_step_device=f"{sum(k2_ms.values()) / step_dev:.4f}")
     # K3's share of the step: K = 1 (trsm_vec_kernel) and K > 1
     # (trsm_cols_kernel), summed over their template instances.
     k3 = {kind: [e for e in step_kernels if f"trsm_{kind}_kernel" in e.key]
@@ -1588,7 +1728,7 @@ def main() -> int:
     sys_ = build_system(cases.rts24(), device="cuda")
     sys96 = build_system(cases.rts96(), device="cuda")
     if "k2" in phases:
-        phase_k2(sys_, results)
+        phase_k2(sys_, sys96, results)
     if "k1" in phases:
         phase_k1(sys_, results)
     if "bench" in phases:

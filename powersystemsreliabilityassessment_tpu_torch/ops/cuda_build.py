@@ -39,7 +39,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "psra_cholesky": [_P, _P, _I, _I, _P],
+    "psra_cholesky": [_P, _P] + [_I] * 5 + [_P],
     "psra_cho_solve": [_P, _P, _P, _I, _I, _P],
     "psra_fused_ipm": [_P] * 19 + [_I] * 9 + [_F] * 4 + [_P],
     "psra_fused_ipm_occupancy": [_I] * 5 + [_P],

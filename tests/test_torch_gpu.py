@@ -144,6 +144,167 @@ def test_k2_kernels_match_plain(cuda):
     assert float(L_k[0, 1, 1]) == pytest.approx(-1.0, abs=1e-3)
 
 
+def _spd(batch, m, seed, device):
+    """Equilibrated SPD matrices (unit diagonal plus the 1e-7 ridge) with
+    condition numbers up to ~1e4, float32 on ``device``."""
+    rng = np.random.default_rng(seed)
+    G = rng.normal(size=(batch, m, m + 4)) * rng.uniform(
+        0.05, 1.0, size=(batch, 1, m + 4))
+    M = G @ G.transpose(0, 2, 1)
+    s = 1.0 / np.sqrt(np.einsum("bii->bi", M))
+    M = M * s[:, :, None] * s[:, None, :] + 1e-7 * np.eye(m)
+    return torch.as_tensor(M, dtype=torch.float32, device=device)
+
+
+def _k2_check(M, r=None):
+    """K2a (and K2b on the plain factor, with ``r``) against the plain
+    versions: one launch a call, per-lane errors within chip_smoke.py's
+    K2_L_BOUND (1e-4) and K2_X_BOUND (1e-3), zeros above the diagonal."""
+    before = dict(bc.launches)
+    L_k, L_p = bc.cholesky(M), bc.cholesky_plain(M)
+    torch.cuda.synchronize()
+    assert bc.launches["cholesky"] == before["cholesky"] + 1
+    assert float(_lane_rel_err(L_k, L_p).max()) <= 1e-4
+    assert bool((torch.triu(L_k, 1) == 0).all())
+    if r is not None:
+        x_k, x_p = bc.cho_solve(L_p, r), bc.cho_solve_plain(L_p, r)
+        torch.cuda.synchronize()
+        assert bc.launches["cho_solve"] == before["cho_solve"] + 1
+        assert float(_lane_rel_err(x_k, x_p).max()) <= 1e-3
+    return L_k
+
+
+def _polish_matrices(sys_, down):
+    """The equilibrated A A' polish_box_lp factors, on RTS-24 LP lanes."""
+    st = ipm_fused.build_structure(sys_)
+    cs, br_up, *_ = _lp_inputs(sys_, down)
+    M = ipm_fused.normal_matrix(st, cs * cs, br_up)
+    s = torch.rsqrt(torch.diagonal(M, dim1=1, dim2=2).clamp_min(1e-30))
+    return (M * s[:, :, None] * s[:, None, :]
+            + 1e-7 * torch.eye(st.m, device=M.device)).contiguous()
+
+
+@pytest.mark.gpu
+def test_k2_kernels_match_plain_at_the_path_shapes(cuda):
+    # The RTS-24 polish's [256, 62, 62] and its solve [256, 62], and
+    # RTS-96's diagonal panels [2048, 56, 56] and [2048, 23, 23].
+    sys_ = build_system(cases.rts24(), device=cuda)
+    M62 = _polish_matrices(sys_, _stressed_states(256, 31))
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    _k2_check(M62, torch.randn((256, 62), generator=gen, device=cuda))
+    M191, panels = rts96_normal_matrices(cuda), []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(bc, "cholesky",
+                   lambda S: panels.append(S.clone()) or bc.cholesky_plain(S))
+        bl._factor_once(M191)
+    assert [p.shape[-1] for p in panels] == [56, 56, 56, 23]
+    for P in (panels[0], panels[-1]):
+        _k2_check(P.repeat(8, 1, 1).contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 3, 255, 257, 2049])
+def test_k2_ragged_batches_match_plain(cuda, batch):
+    M = _spd(batch, 62, batch, cuda)
+    r = torch.randn((batch, 62), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(5))
+    _k2_check(M, r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 2, 23, 56, 62, 64, 72])
+def test_k2_at_every_row_slot_count_matches_plain(cuda, m):
+    # One, two and three row slots a thread, and the edges between them.
+    for batch in (256, 2048):
+        M = _spd(batch, m, m, cuda)
+        r = torch.randn((batch, m), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(m))
+        _k2_check(M, r)
+
+
+@pytest.mark.gpu
+def test_k2_floored_and_nan_lanes_do_not_leak(cuda):
+    # One 8-lane block (2,048 lanes: one warp a lane): a lane that hits
+    # the pivot floor and a lane with a NaN beside good lanes.
+    M = _spd(2048, 56, 8, cuda)
+    assert bc.launch_shape(2048, 56, _sms())[:2] == (1, 8)
+    M[1] = torch.eye(56, device=cuda)
+    M[1, 0, 1] = M[1, 1, 0] = 1.0005
+    M[2, 30, 20] = M[2, 20, 30] = float("nan")
+    r = torch.randn((2048, 56), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(6))
+    L = bc.cholesky(M)
+    L_p = bc.cholesky_plain(M)
+    x = bc.cho_solve(L_p, r)
+    torch.cuda.synchronize()
+    assert float(L[1, 1, 1]) == pytest.approx(-1.0, abs=1e-3)
+    assert bool(torch.isfinite(L[1]).all())
+    assert bool(torch.isnan(L[2]).any())
+    assert torch.equal(torch.isnan(L[2]), torch.isnan(L_p[2]))
+    good = [0] + list(range(3, 2048))
+    assert bool(torch.isfinite(L[good]).all())
+    assert bool(torch.isfinite(x[good]).all())
+    assert float(_lane_rel_err(L[good], L_p[good]).max()) <= 1e-4
+    assert float(_lane_rel_err(x[good], bc.cho_solve_plain(
+        L_p[good], r[good])).max()) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_k2_lanes_are_independent_of_batch_and_launch_shape(cuda):
+    # A lane's factor depends on its matrix alone: the same bits alone, in
+    # a batch, permuted, and on one, two or four warps.
+    M = _spd(300, 62, 9, cuda)
+    full = bc.cholesky(M)
+    for i in (0, 1, 150, 299):
+        assert torch.equal(bc.cholesky(M[i:i + 1].contiguous())[0], full[i])
+    perm = torch.randperm(300, generator=torch.Generator().manual_seed(3))
+    perm = perm.to(cuda)
+    assert torch.equal(bc.cholesky(M[perm].contiguous()), full[perm])
+    from powersystemsreliabilityassessment_tpu_torch.ops import cuda_build
+    for wpl in bc.WARPS_PER_LANE:
+        L = torch.empty_like(M)
+        assert cuda_build.library().psra_cholesky(
+            M.data_ptr(), L.data_ptr(), 300, 62,
+            *bc.launch_shape(300, 62, _sms(), wpl),
+            cuda_build.stream_handle(M)) == 0
+        assert torch.equal(L, full)
+    r = torch.randn((300, 62), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(7))
+    x = bc.cho_solve(full, r)
+    assert torch.equal(bc.cho_solve(full[7:8].contiguous(),
+                                    r[7:8].contiguous())[0], x[7])
+    assert torch.equal(bc.cho_solve(full[perm].contiguous(),
+                                    r[perm].contiguous()), x[perm])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [56, 62])
+def test_k2a_takes_operands_off_16_byte_alignment(cuda, m):
+    # The kernel moves M and L in 16-, 8- or 4-byte pieces by m and the
+    # pointers' alignment: views one and two floats into their storage
+    # take the narrower pieces and give the same bits.
+    M = _spd(64, m, 12, cuda)
+    want = bc.cholesky(M)
+    for off in (1, 2):
+        Mv = torch.empty(64 * m * m + off, device=cuda)[off:].view(64, m, m)
+        Mv.copy_(M)
+        assert torch.equal(bc.cholesky(Mv), want)
+
+
+@pytest.mark.gpu
+def test_k2a_refuses_a_shared_size_off_the_layout(cuda):
+    from powersystemsreliabilityassessment_tpu_torch.ops import cuda_build
+    M = _spd(64, 62, 10, cuda)
+    L = torch.empty_like(M)
+    wpl, lpb, smem = bc.launch_shape(64, 62, _sms())
+    for shape in ((wpl, lpb, smem + 4), (3, 1, 4 * bc.lane_words(62, 3)),
+                  (1, 9, 9 * 4 * bc.lane_words(62, 1))):
+        err = cuda_build.library().psra_cholesky(
+            M.data_ptr(), L.data_ptr(), 64, 62, *shape,
+            cuda_build.stream_handle(M))
+        assert err != 0
+
+
 @pytest.mark.gpu
 def test_k1_kernel_matches_plain(cuda):
     sys_ = build_system(cases.rts24(), device=cuda)
