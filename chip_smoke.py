@@ -40,7 +40,8 @@ Phases, one line each (any failure raises, so the exit code is not 0):
               at [262144, 71] for two seed pairs; per-component failure
               rates of 2^22 draws within 5 sigma, pinned never failing;
               the rng_impl="hw" sampling path must launch K6 and give
-              the plain version's bits for its own key
+              the plain version's bits for its own key; its time through
+              the wrapper and on the device (CUDA graph), bound and share
  10. k4       K4 fused sampler + first-pass certificate at 262144 lanes
               (the fused bench step) and at 8192 (the fused study's
               batch), each with its launch shape and times, with the
@@ -55,7 +56,10 @@ Phases, one line each (any failure raises, so the exit code is not 0):
  11. k5       K5 whole-certificate kernel vs certify_states(woodbury_k=2)
               on a 262144-lane RTS-24 batch, the stressed batch of
               tests/test_torch_gpu.py and 8192 RTS-96 lanes at 10x
-              unavailability; the certify_states_fused path must launch K5
+              unavailability, each with its launch shape and the lanes
+              the kernel queues for repair; times through the wrapper and
+              on the device (CUDA graph), bounds and bound shares; the
+              certify_states_fused path must launch K5
  12. studyfused  run_nsq_study(rts24(), MCSConfig(max_samples=106496,
               fused_tier1=True)) held against results/nsq_results.json as
               in 6; K4 launches once per batch, K1 and K2 as before
@@ -1164,7 +1168,7 @@ def _rescue_check(sys96):
 def _cert_work(sys_, n_lanes, n_elig, flow_lanes=0, repair_steps=0,
                single=0, pairs=0):
     """Float32 operations a certificate kernel needs for this run's data
-    (csrc/cert_common.cuh; K4's draws are counted apart,
+    (csrc/lane_common.cuh; K4's draws are counted apart,
     :func:`_philox_ops`): per lane the deficit, the candidate and the
     dispatch; per lane with a flow check (n_out <= 1) the injections and
     one [nb] x [nb, nl] PTDF product (``flow_lanes`` counts a second, the
@@ -1223,6 +1227,7 @@ def phase_k6(sys_, results):
     gen = torch.Generator(device="cuda").manual_seed(4)
     u, up = sys_.unavail, sys_.always_up_nsq
     ms = _time_ms(lambda: hw.launch(seeds, thresh, B))
+    dev_ms = _graph_ms(lambda: hw.launch(seeds, thresh, B), [()])
     plain_ms = _time_ms(lambda: hw.sample_states_hw_plain(seeds, thresh, B),
                         reps=3)
     lib_ms = _time_ms(lambda: (torch.rand((B, nc), generator=gen,
@@ -1240,9 +1245,11 @@ def phase_k6(sys_, results):
     bound = _bound(_philox_ops(B, nc), B * nc + 4 * nc + 8)
     _line("k6", shape=(B, nc), differing_entries=diffs,
           max_abs_z=f"{max_z:.2f}<={K6_MAX_Z}", pinned_failures=pinned,
-          draws=1 << 22, kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+          draws=1 << 22, kernel_ms=f"{ms:.4f}", device_ms=f"{dev_ms:.4f}",
+          plain_ms=f"{plain_ms:.4f}",
           library_ms=f"{lib_ms:.4f}",
           bound_ms=f"{bound['bound_ms']:.4f}({bound['bound_by']})",
+          bound_share=f"{bound['bound_ms'] / dev_ms:.4f}",
           path_launches=counts["sample_states_hw"],
           path_differing_entries=path_diff,
           path_fail_rate=f"{float(down.float().mean()):.5f}")
@@ -1256,7 +1263,7 @@ def phase_k6(sys_, results):
         replaces="powersystemsreliabilityassessment_tpu/ops/hw_sampler.py:89",
         launches=counts["sample_states_hw"], max_abs_err=0.0,
         differing_entries=sum(diffs) + path_diff, tolerance=0, shape=[B, nc], ms=ms,
-        plain_ms=plain_ms, library_ms=lib_ms, max_abs_z=max_z, **bound)
+        device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_z=max_z, **bound)
 
 
 # K4's shapes: the fused bench step's batch and the fused study's
@@ -1405,7 +1412,8 @@ def _stressed_states(n, seed):
 
 def _k5_check(tag, sys_, down, def_bound, def_rtol=0.0):
     """K5 against certify_states(woodbury_k=2) on one batch; returns the
-    errors and the work this batch's data needs."""
+    errors, the launch shape, the lanes the kernel queues for repair and
+    the work this batch's data needs."""
     import torch
     from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
     from powersystemsreliabilityassessment_tpu_torch.ops import (
@@ -1416,12 +1424,16 @@ def _k5_check(tag, sys_, down, def_bound, def_rtol=0.0):
     got = dcopf.Certificate(*ck.launch(sys_, down, load, 3, ops))
     want = dcopf.certify_states(sys_, down, load, woodbury_k=2)
     # Repair steps this batch's data runs: an eligible lane the first
-    # check fails runs steps until one passes, at most three.
+    # check fails (the kernel queues it) runs steps until one passes, at
+    # most three.
     n_out = down[:, ng:].sum(1)
     elig = n_out <= 1
-    steps = sum(int((elig & ~dcopf.certify_states(
-        sys_, down, load, repair_iters=k, woodbury_k=2).certified).sum())
-        for k in range(3))
+    failing = [elig & ~dcopf.certify_states(
+        sys_, down, load, repair_iters=k, woodbury_k=2).certified
+        for k in range(3)]
+    steps = sum(int(f.sum()) for f in failing)
+    queued = int(failing[0].sum())
+    repaired = int((failing[0] & want.certified).sum())
     torch.cuda.synchronize()
     differ = int((got.certified != want.certified).sum())
     # max over lanes of |delta| - rtol |deficit|, against def_bound
@@ -1437,18 +1449,29 @@ def _k5_check(tag, sys_, down, def_bound, def_rtol=0.0):
     nbytes = B * (sys_.n_comp + 4 * sys_.n_load + 1 + 4
                   + 4 * sys_.n_load + 4 * ng) + 4 * ops[0].numel() \
         + 4 * ops[1].numel()
+    lanes, stage, smem = ck.launch_shape(
+        ng, sys_.n_load, sys_.n_branch, sys_.n_bus, B,
+        ck.sm_count(down.device))
+    shape = dict(lanes_per_block=lanes,
+                 threads_per_lane=1 << (stage >> ck.SPLIT_SHIFT & 3),
+                 lodf_staged=bool(stage & ck.STAGE_LODF),
+                 transfer_staged=bool(stage & ck.STAGE_TRANSFER),
+                 smem_bytes=smem)
     _line("k5", batch=tag, lanes=B,
           lanes_differing=f"{differ}<={int((1 - CERT_AGREE) * B)}",
           certified=int(got.certified.sum()),
           deficit_err=f"{def_err:.3e}<={def_bound}(rtol={def_rtol})",
           pattern_err=f"{pat_err:.3e}<={CERT_PATTERN_BOUND}",
-          repair_steps=steps, double_outage_lanes=int((n_out == 2).sum()))
+          queued_for_repair=queued, repaired=repaired,
+          queued_share=f"{queued / B:.5f}", repair_steps=steps,
+          double_outage_lanes=int((n_out == 2).sum()), **shape)
     if differ > (1 - CERT_AGREE) * B or def_err > def_bound \
             or pat_err > CERT_PATTERN_BOUND:
         raise RuntimeError(f"k5 ({tag}): kernel disagrees with "
                            "certify_states")
     return dict(ops=ops, load=load, flops=flops, nbytes=nbytes,
-                differ=differ, def_err=def_err, pat_err=pat_err)
+                differ=differ, def_err=def_err, pat_err=pat_err,
+                queued=queued, **shape)
 
 
 def phase_k5(sys_, sys96, results):
@@ -1474,11 +1497,12 @@ def phase_k5(sys_, sys96, results):
                     CERT_DEF_BOUND_96)
     checks.append(c96)
     load = main["load"]
-    ms = _time_ms(lambda: ck.launch(sys_, down, load, 3, main["ops"]))
+    call = lambda: ck.launch(sys_, down, load, 3, main["ops"])
+    call96 = lambda: ck.launch(sys96, down96, c96["load"], 3, c96["ops"])
+    ms, ms96 = _time_ms(call), _time_ms(call96)
+    dev_ms, dev96 = _graph_ms(call, [()]), _graph_ms(call96, [()])
     plain_ms = _time_ms(lambda: dcopf.certify_states(
         sys_, down, load, woodbury_k=2), reps=5)
-    ms96 = _time_ms(lambda: ck.launch(sys96, down96, c96["load"], 3,
-                                      c96["ops"]))
     plain96 = _time_ms(lambda: dcopf.certify_states(
         sys96, down96, c96["load"], woodbury_k=2), reps=3)
     bound, bound96 = (_bound(c["flops"], c["nbytes"]) for c in (main, c96))
@@ -1487,10 +1511,14 @@ def phase_k5(sys_, sys96, results):
     ck.certify_states_fused(sys_, down, load)
     torch.cuda.synchronize()
     counts = _counts()
-    _line("k5", kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+    _line("k5", kernel_ms=f"{ms:.4f}", device_ms=f"{dev_ms:.4f}",
+          plain_ms=f"{plain_ms:.4f}",
           bound_ms=f"{bound['bound_ms']:.4f}({bound['bound_by']})",
-          rts96_kernel_ms=f"{ms96:.4f}", rts96_plain_ms=f"{plain96:.4f}",
+          bound_share=f"{bound['bound_ms'] / dev_ms:.4f}",
+          rts96_kernel_ms=f"{ms96:.4f}", rts96_device_ms=f"{dev96:.4f}",
+          rts96_plain_ms=f"{plain96:.4f}",
           rts96_bound_ms=f"{bound96['bound_ms']:.4f}({bound96['bound_by']})",
+          rts96_bound_share=f"{bound96['bound_ms'] / dev96:.4f}",
           path_launches=counts["certify_states_fused"])
     _check_launched("k5", counts, ("certify_states_fused",))
     results["certify_states_fused"] = dict(
@@ -1500,9 +1528,13 @@ def phase_k5(sys_, sys96, results):
         launches=counts["certify_states_fused"],
         max_abs_err=max(max(c["def_err"], c["pat_err"]) for c in checks),
         lanes_differing=[c["differ"] for c in checks],
+        queued_for_repair=[c["queued"] for c in checks],
         tolerance=CERT_PATTERN_BOUND, shape=[B, sys_.n_comp], ms=ms,
-        plain_ms=plain_ms, library_ms=None, **bound, rts96_ms=ms96,
-        rts96_plain_ms=plain96, rts96_bound_ms=bound96["bound_ms"])
+        device_ms=dev_ms, plain_ms=plain_ms, library_ms=None, **bound,
+        lanes_per_block=main["lanes_per_block"],
+        threads_per_lane=main["threads_per_lane"], rts96_ms=ms96,
+        rts96_device_ms=dev96, rts96_plain_ms=plain96,
+        rts96_bound_ms=bound96["bound_ms"])
 
 
 def phase_studyfused(results):

@@ -32,7 +32,7 @@
 //   dispatch are functions of a few per-lane scalars and are recomputed
 //   where they are needed, so a lane keeps one vector, its bus sums, in
 //   shared memory laid out [bus][lane] (no bank conflicts).
-// - Flows: streamed over chunks of QUICK_CHUNK branches whose flows and
+// - Flows: streamed over chunks of FLOW_CHUNK branches whose flows and
 //   bounds live in registers, each PTDF row read as broadcast 16-byte
 //   loads; each branch takes the rank-1 LODF update and the banded test
 //   and is dropped. The outaged branch's own flow is computed first, by
@@ -46,22 +46,22 @@
 //   its few sequential sums, so every split gives the same bits. The
 //   wrapper chooses the block and the split
 //   (ops/fused_sampler_cert.py::launch_shape).
+// The mask, sums and flow pieces are shared with K5 (lane_common.cuh).
 
 #include <stdint.h>
 
 #include "cert_common.cuh"
+#include "lane_common.cuh"
 #include "philox.cuh"
 
 namespace psra {
 
 constexpr int QUICK_MAX_LANES = 128;     // state lanes a block
 constexpr int QUICK_MAX_THREADS = 256;   // lanes x threads a lane
-constexpr int QUICK_CHUNK = 8;           // branches a flow pass carries
 // Bits 8-9 of `stage`: log2 of the threads a lane (1, 2, 4 or 8).
 constexpr int QUICK_SPLIT_SHIFT = 8;
 
 // The shared-memory plan, mirrored by ops/fused_sampler_cert.py.
-__host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
 
 // Words of the broadcast vectors: thresholds [nc], pmax [ng] in unit
 // order and [ng] in list order, each unit's position in the unit lists
@@ -73,16 +73,12 @@ __host__ __device__ __forceinline__ int quick_small_words(int ng, int nd,
   return round4((ng + nl) + 3 * ng + 3 * nd + 3 * nb + nl + 2);
 }
 
-__host__ __device__ __forceinline__ int quick_ptdf_stride(int nl) {
-  return (nl + QUICK_CHUNK - 1) / QUICK_CHUNK * QUICK_CHUNK;
-}
-
 // Words before the lanes' region: the vectors, PTDF (always: <= 64 KB
 // for dimensions <= 128), then LODF where `stage` flags it.
 __host__ __device__ __forceinline__ int quick_staged_words(int ng, int nd,
                                                            int nl, int nb,
                                                            int stage) {
-  return quick_small_words(ng, nd, nl, nb) + nb * quick_ptdf_stride(nl) +
+  return quick_small_words(ng, nd, nl, nb) + nb * flow_ptdf_stride(nl) +
          ((stage & STAGE_LODF) ? round4(nl * nl) : 0);
 }
 
@@ -100,35 +96,14 @@ struct QuickNet {
   int ng, nd, nl, nb;
   const int* thresh;                  // [nc]; null in explicit mode
   const float* pmax;                  // [ng], unit order
-  const float* pmax_at;               // [ng], unit-list order
   const int* list_pos;                // [ng]: unit u is at list_pos[u]
   const float *load, *hint, *load_bus, *rate_ok;
-  const int *bg_ptr, *bl_ptr, *bl_idx;
+  BusLists lists;                     // per-bus units and loads
   const float* ptdf;                  // [nb][ptdf_stride]: PTDF[l, b]
-  int ptdf_stride;                    // nl rounded up to QUICK_CHUNK
+  int ptdf_stride;                    // nl rounded up to FLOW_CHUNK
   const float* lodf;                  // [nl][nl]
   float load_tot, pmax_tot;
 };
-
-// Start an asynchronous 4-byte copy from device to shared memory.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
-}
-
-// Start copying n words from src (if not null) to the shared words at
-// cur, by the whole block; advance cur.
-template <typename T>
-__device__ __forceinline__ const T* stage_into(float*& cur, const T* src,
-                                               int n) {
-  T* dst = reinterpret_cast<T*>(cur);
-  if (src)
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      cp_async4(dst + i, src + i);
-  cur += n;
-  return dst;
-}
 
 // Copy the vectors, PTDF and (if flagged) LODF into shared memory by
 // the whole block, every copy in flight at once, and lay the units'
@@ -150,26 +125,22 @@ __device__ __forceinline__ float* quick_stage(QuickNet& q, const float* fbuf,
   q.pmax = stage_into(cur, net.pmax, ng);
   float* pmax_at = cur;
   int* list_pos = reinterpret_cast<int*>(cur + ng);
-  q.pmax_at = pmax_at;
+  q.lists.pmax_at = pmax_at;
   q.list_pos = list_pos;
   cur += 2 * ng;
   q.load = stage_into(cur, x, nd);
   q.hint = stage_into(cur, x + nd, nd);
   q.load_bus = stage_into(cur, x + 2 * nd, nb);
   q.rate_ok = stage_into(cur, net.rate_ok, nl);
-  q.bg_ptr = stage_into(cur, net.bg_ptr, nb + 1);
-  q.bl_ptr = stage_into(cur, net.bl_ptr, nb + 1);
-  q.bl_idx = stage_into(cur, net.bl_idx, nd);
+  q.lists.nb = nb;
+  q.lists.bg_ptr = stage_into(cur, net.bg_ptr, nb + 1);
+  q.lists.bl_ptr = stage_into(cur, net.bl_ptr, nb + 1);
+  q.lists.bl_idx = stage_into(cur, net.bl_idx, nd);
   cur = smem + quick_small_words(ng, nd, nl, nb);
-  const int s = quick_ptdf_stride(nl);
-  for (int b = 0; b < nb; ++b)
-    for (int l = threadIdx.x; l < s; l += blockDim.x) {
-      if (l < nl) cp_async4(cur + b * s + l, net.ptdfT + b * nl + l);
-      else cur[b * s + l] = 0.0f;   // padding: the chunk's spare columns
-    }
+  stage_ptdf(cur, net.ptdfT, nl, nb);
   q.ptdf = cur;
-  q.ptdf_stride = s;
-  cur += nb * s;
+  q.ptdf_stride = flow_ptdf_stride(nl);
+  cur += nb * q.ptdf_stride;
   if (stage & STAGE_LODF) {
     float* lodf = cur;
     stage_into(cur, net.lodf, nl * nl);
@@ -183,50 +154,8 @@ __device__ __forceinline__ float* quick_stage(QuickNet& q, const float* fbuf,
     pmax_at[p] = net.pmax[u];
     list_pos[u] = p;
   }
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  __syncthreads();
+  cp_async_wait_block();
   return cur;
-}
-
-// n bytes from src to dst by the whole block: 16-byte moves where both
-// ends are 16-byte aligned (a tile's rows always are, for tensors
-// PyTorch allocated), single bytes for the rest.
-__device__ __forceinline__ void block_copy(unsigned char* dst,
-                                           const unsigned char* src, int n) {
-  int done = 0;
-  if ((((uintptr_t)dst | (uintptr_t)src) & 15) == 0) {
-    const int nv = n >> 4;
-    for (int i = threadIdx.x; i < nv; i += blockDim.x)
-      reinterpret_cast<uint4*>(dst)[i] =
-          reinterpret_cast<const uint4*>(src)[i];
-    done = nv << 4;
-  }
-  for (int i = done + threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
-}
-
-// Bit i of a 128-bit mask (i uniform over the warp).
-__device__ __forceinline__ bool bit_of(const uint32_t m[4], int i) {
-  const uint32_t w = i < 64 ? (i < 32 ? m[0] : m[1])
-                            : (i < 96 ? m[2] : m[3]);
-  return (w >> (i & 31)) & 1u;
-}
-
-// m |= v << (32 w') for the word w' = i >> 5 of a 128-bit mask.
-__device__ __forceinline__ void or_word(uint32_t m[4], int i, uint32_t v) {
-  const int w = i >> 5;
-  m[0] |= w == 0 ? v : 0u;
-  m[1] |= w == 1 ? v : 0u;
-  m[2] |= w == 2 ? v : 0u;
-  m[3] |= w == 3 ? v : 0u;
-}
-
-// Bits [lo, hi) of word w of a 128-bit mask.
-__device__ __forceinline__ uint32_t range_bits(int w, int lo, int hi) {
-  const int a = max(lo - 32 * w, 0), b = min(hi - 32 * w, 32);
-  if (b <= a) return 0u;
-  const uint32_t upto = b == 32 ? 0xffffffffu : (1u << b) - 1u;
-  return upto & ~((1u << a) - 1u);
 }
 
 // Part r (of split) of the lane's states, drawn: the Philox calls r,
@@ -251,25 +180,6 @@ __device__ __forceinline__ void sample_mask(uint32_t m[4],
   }
 }
 
-// Part r (of split) of the lane's mask from its explicit state bytes:
-// the words w = r, r + split, ... (none when `live` is false: a row
-// past the batch).
-__device__ __forceinline__ void explicit_mask(uint32_t m[4],
-                                              const unsigned char* bytes,
-                                              int nc, bool live, int r,
-                                              int split) {
-#pragma unroll
-  for (int w = 0; w < 4; ++w) {
-    uint32_t word = 0u;
-    const int end = live && (w & (split - 1)) == r ? min(32 * w + 32, nc)
-                                                   : 0;
-#pragma unroll 4
-    for (int i = 32 * w; i < end; ++i)
-      word |= (uint32_t)(bytes[i] != 0) << (i - 32 * w);
-    m[w] = word;
-  }
-}
-
 // The hint-shaped candidate at the deficit, load j: clip to the load,
 // then move the clipped residual into the remaining headroom by the
 // lane's factor fc (the up-branch of dcopf._rebalance_shed).
@@ -280,130 +190,34 @@ __device__ __forceinline__ float cand_of(const QuickNet& q, int j,
   return nmin(fmaf(ld - c0, fc, c0), ld);
 }
 
-// The capacity of the unit at list position p when up (down: the
-// lane's outage bits in list order).
-__device__ __forceinline__ float gcap_at(const QuickNet& q,
-                                         const uint32_t down[4], int p) {
-  return bit_of(down, p) ? 0.0f : q.pmax_at[p];
-}
+// K4's lane for dispatch_pass: the batch-constant load, the hint-shaped
+// candidate, no per-unit output; the column keeps Cg disp + Cd shed.
+struct QuickLane {
+  static constexpr bool kInj = false, kParts = false;
+  const QuickNet& q;
+  float deficit, fc;
+  __device__ __forceinline__ float load(int l) const { return q.load[l]; }
+  __device__ __forceinline__ float cand(int l) const {
+    return cand_of(q, l, deficit, fc);
+  }
+  __device__ __forceinline__ void unit(int, float) const {}
+};
 
-// num / d as IEEE division, answering a zero over a finite nonzero d
-// directly (+-0 with the quotient's sign): the compiled division takes a
-// slow subroutine for a zero numerator, and buses without a load, and
-// every lane's candidate when nothing is shed, divide zero.
-__device__ __forceinline__ float div_rn(float num, float d) {
-  if (num == 0.0f && fabsf(d) < INFINITY && d != 0.0f)
-    return d > 0.0f ? num : -num;
-  return num / d;
-}
-
-// The lane's bus sums s = Cg disp + Cd shed into its column of the
-// lanes' [nb][lanes] sums (col[b * lanes]), where disp is the locally
-// self-balancing dispatch of dcopf._dispatch_candidate: each bus's units
-// cover its post-shed load (the fraction, clipped to 1), then the total
-// is rebalanced to the served load (dcopf._rebalance_shed): scaled down,
-// or raised in proportion to the headroom. Thread r of the lane's split
-// takes the buses r, r + split, ... (the fractions wait in the column);
-// the rebalance's two sums over every unit run in every thread, in list
-// order, so the split changes no bit.
-__device__ __forceinline__ void dispatch_sums(const QuickNet& q,
-                                              const uint32_t down[4],
-                                              float* col, int lanes,
-                                              float deficit, float fc,
-                                              int r, int split) {
-  const int nb = q.nb;
-  for (int b = r; b < nb; b += split) {
-    const int u0 = q.bg_ptr[b], u1 = q.bg_ptr[b + 1];
-    if (u0 == u1) continue;   // no units: the fraction is never read
-    float served = 0.0f, cap = 0.0f;
-    for (int p = q.bl_ptr[b]; p < q.bl_ptr[b + 1]; ++p) {
-      const int l = q.bl_idx[p];
-      served += q.load[l] - cand_of(q, l, deficit, fc);
-    }
-    for (int p = u0; p < u1; ++p) cap += gcap_at(q, down, p);
-    col[b * lanes] = nmin(div_rn(served, nmax(cap, 1e-9f)), 1.0f);
+// The banded post-outage check of one branch: p_l = (f_l + fk LODF[l,
+// k]) (1 - [l == k]) against rate_l + 1e-4 - (eps (S_l + |f_l|) + bk
+// |LODF[l, k]|). k < 0: no outaged branch.
+struct QuickTail {
+  const QuickNet& q;
+  int k;
+  float fk, bk, eps;
+  __device__ __forceinline__ bool operator()(int l, float fl,
+                                             float sa) const {
+    const float lk = k >= 0 ? q.lodf[l * q.nl + k] : 0.0f;
+    const float post = fmaf(fk, lk, fl) * (l == k ? 0.0f : 1.0f);
+    const float bnd = fmaf(bk, fabsf(lk), eps * (sa + fabsf(fl)));
+    return !(fabsf(post) > q.rate_ok[l] - bnd);
   }
-  __syncwarp();
-  float total = 0.0f, headroom = 0.0f;
-  for (int b = 0; b < nb; ++b) {
-    const int u0 = q.bg_ptr[b], u1 = q.bg_ptr[b + 1];
-    if (u0 == u1) continue;
-    const float frac = col[b * lanes];
-    for (int p = u0; p < u1; ++p) {
-      const float gc = gcap_at(q, down, p), d0 = gc * frac;
-      total += d0;
-      headroom += nmax(gc - d0, 0.0f);
-    }
-  }
-  const float served = q.load_tot - deficit;
-  const float resid = total - served;
-  const float down_scale =
-      total > 1e-9f ? div_rn(nmax(served, 0.0f), nmax(total, 1e-9f)) : 0.0f;
-  const float up = div_rn(-resid, nmax(headroom, 1e-9f));
-  __syncwarp();   // every thread of the lane has read the fractions
-  for (int b = r; b < nb; b += split) {
-    const int u0 = q.bg_ptr[b], u1 = q.bg_ptr[b + 1];
-    float sg = 0.0f, sd = 0.0f;
-    if (u0 < u1) {
-      const float frac = col[b * lanes];
-      for (int p = u0; p < u1; ++p) {
-        const float gc = gcap_at(q, down, p), d0 = gc * frac;
-        sg += resid >= 0.0f ? d0 * down_scale
-                            : nmin(fmaf(nmax(gc - d0, 0.0f), up, d0), gc);
-      }
-    }
-    for (int p = q.bl_ptr[b]; p < q.bl_ptr[b + 1]; ++p)
-      sd += cand_of(q, q.bl_idx[p], deficit, fc);
-    col[b * lanes] = sg + sd;
-  }
-  __syncwarp();
-}
-
-// The banded post-outage check over the branch chunks r, r + split, ...
-// of QUICK_CHUNK branches: flows f_l = sum_b inj_b PTDF[l, b] and S_l =
-// sum_b a_b |PTDF[l, b]| (inj = s - load_bus, a = s + load_bus, s the
-// lane's bus sums), each by one FMA chain over b in order; then p_l =
-// (f_l + fk LODF[l, k]) (1 - [l == k]) against rate_l + 1e-4 - (eps (S_l
-// + |f_l|) + bk |LODF[l, k]|). k < 0: no outaged branch.
-__device__ __forceinline__ bool flows_clear(const QuickNet& q,
-                                            const float* col, int lanes,
-                                            int k, float fk, float bk,
-                                            float eps, int r, int split) {
-  const int nl = q.nl, nb = q.nb, ps = q.ptdf_stride;
-  bool clear = true;
-  for (int c0 = r * QUICK_CHUNK; c0 < nl; c0 += split * QUICK_CHUNK) {
-    float fl[QUICK_CHUNK], sa[QUICK_CHUNK];
-#pragma unroll
-    for (int i = 0; i < QUICK_CHUNK; ++i) fl[i] = sa[i] = 0.0f;
-    for (int b = 0; b < nb; ++b) {
-      const float s = col[b * lanes], lb = q.load_bus[b];
-      const float inj = s - lb, a = s + lb;
-      float p[QUICK_CHUNK];   // one broadcast 16-byte load per four
-      const float* row = q.ptdf + b * ps + c0;
-#pragma unroll
-      for (int i = 0; i < QUICK_CHUNK; i += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(row + i);
-        p[i] = v.x; p[i + 1] = v.y; p[i + 2] = v.z; p[i + 3] = v.w;
-      }
-#pragma unroll
-      for (int i = 0; i < QUICK_CHUNK; ++i) {
-        fl[i] = fmaf(inj, p[i], fl[i]);
-        sa[i] = fmaf(a, fabsf(p[i]), sa[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < QUICK_CHUNK; ++i) {
-      const int l = c0 + i;
-      if (l < nl) {
-        const float lk = k >= 0 ? q.lodf[l * nl + k] : 0.0f;
-        const float post = fmaf(fk, lk, fl[i]) * (l == k ? 0.0f : 1.0f);
-        const float bnd = fmaf(bk, fabsf(lk), eps * (sa[i] + fabsf(fl[i])));
-        clear = clear && !(fabsf(post) > q.rate_ok[l] - bnd);
-      }
-    }
-  }
-  return clear;
-}
+};
 
 __global__ void __launch_bounds__(QUICK_MAX_THREADS)
 quick_kernel(const int* __restrict__ seeds, const int* __restrict__ thresh,
@@ -441,31 +255,15 @@ quick_kernel(const int* __restrict__ seeds, const int* __restrict__ thresh,
                   split);
       __syncthreads();
     }
-    for (int o = 1; o < split; o <<= 1)
-#pragma unroll
-      for (int w = 0; w < 4; ++w) m[w] |= __shfl_xor_sync(~0u, m[w], o);
+    join_mask(m, split, ~0u);
     block_copy(down_out + (size_t)b0 * nc, io, rows * nc);
-    int n_out = 0, k = -1;
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      const uint32_t br = m[w] & range_bits(w, ng, nc);
-      n_out += __popc(br);
-      if (k < 0 && br) k = 32 * w + __ffs(br) - 1 - ng;
-    }
+    int n_out, k, k1;
+    branch_outages(m, ng, nc, n_out, k, k1);
 
     // Exact copper deficit (sum of the lost capacities in unit order),
     // the units' outage bits in list order, and the candidate's factor.
-    float lost = 0.0f;
-    uint32_t down[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      uint32_t g = m[w] & range_bits(w, 0, ng);
-      for (; g; g &= g - 1u) {
-        const int u = 32 * w + __ffs(g) - 1, p = q.list_pos[u];
-        lost += q.pmax[u];
-        or_word(down, p, 1u << (p & 31));
-      }
-    }
+    uint32_t down[4];
+    const float lost = unit_outages(m, ng, q.pmax, q.list_pos, down);
     const float deficit = nmax(q.load_tot - (q.pmax_tot - lost), 0.0f);
     float tot0 = 0.0f, head = 0.0f;
     for (int j = 0; j < nd; ++j) {
@@ -483,30 +281,27 @@ quick_kernel(const int* __restrict__ seeds, const int* __restrict__ thresh,
     block_copy(reinterpret_cast<unsigned char*>(shed_out + (size_t)b0 * nd),
                io, rows * nd * 4);
 
-    dispatch_sums(q, down, col, lanes, deficit, fc, r, split);
+    dispatch_pass(q.lists, down, col, lanes, q.load_tot - deficit,
+                  QuickLane{q, deficit, fc}, r, split, ~0u);
 
-    // The outaged branch's flow and bound, by the chain flows_clear
+    // The outaged branch's flow and bound, by the chain stream_flows
     // runs for it (so bit for bit the same), then the banded check.
     const bool single = n_out == 1;
     float fk = 0.0f, bk = 0.0f;
     if (__any_sync(0xffffffffu, single)) {
-      const int kc = single ? k : 0;
-      float f = 0.0f, sa = 0.0f;
-      for (int b = 0; b < nb; ++b) {
-        const float s = col[b * lanes], lb = q.load_bus[b];
-        const float p = q.ptdf[b * q.ptdf_stride + kc];
-        f = fmaf(s - lb, p, f);
-        sa = fmaf(s + lb, fabsf(p), sa);
-      }
+      float f, sa;
+      flow_at<true>(q.ptdf, q.ptdf_stride, nb, col, lanes, q.load_bus,
+                    single ? k : 0, f, sa);
       if (single) {
         fk = f;
         bk = eps * (sa + fabsf(f));
       }
     }
-    int clear = flows_clear(q, col, lanes, single ? k : -1, fk, bk, eps, r,
-                            split);
-    for (int o = 1; o < split; o <<= 1)
-      clear &= __shfl_xor_sync(~0u, clear, o);
+    const bool clear = split_all(
+        stream_flows<true>(q.ptdf, q.ptdf_stride, nl, nb, col, lanes,
+                           q.load_bus, r, split,
+                           QuickTail{q, single ? k : -1, fk, bk, eps}),
+        split, ~0u);
     if (r == 0 && row < batch) {
       ok1[row] = clear && n_out <= 1;
       deficit_out[row] = deficit;

@@ -46,7 +46,7 @@ _SIGNATURES = {
     "psra_trsm": [_P, _P, _P, _I, _I, _I, _I, _P],
     "psra_bernoulli": [_P, _P, _P, _I, _I, _P],
     "psra_fused_sampler_cert": [_P] * 5 + [_I] * 7 + [_F] + [_P] * 5,
-    "psra_certify": [_P] * 4 + [_I] * 8 + [_P] * 5,
+    "psra_certify": [_P] * 4 + [_I] * 8 + [_P] * 6,
 }
 
 

@@ -62,8 +62,6 @@ sizes its blocks and chooses what it keeps in shared memory.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
@@ -76,23 +74,18 @@ BAND_INFLATION = 2.0
 
 launches = {"sample_certify_quick": 0}
 
-# The launch shape (csrc/fused_sampler_cert.cu): state lanes a block, a
-# multiple of a warp and at most MAX_LANES; threads a lane (the split),
-# a power of two up to MAX_SPLIT, stored in the stage bits from
-# SPLIT_SHIFT on, with lanes x split <= MAX_THREADS; the shared memory a
-# block may take (the H100's 227 KB); branches a flow pass carries. A
-# batch splits its lanes until it gives each SM at least
-# THREADS_PER_SM threads, two warps a scheduler: the fastest split of
-# 8,192 lanes on an H100 (scripts/torch_k4_bench.py --split; PERF.md
-# §6).
-WARP = 32
-MAX_LANES = 128
-MAX_SPLIT = 8
-MAX_THREADS = 256
+# The launch shape (csrc/fused_sampler_cert.cu): lanes a block and
+# threads a lane as K5's (``certify_kernel.lanes_and_split``), the split
+# stored in the stage bits from SPLIT_SHIFT; the shared memory a block
+# may take (the H100's 227 KB); branches a flow pass carries.
+WARP = ck.WARP
+MAX_LANES = ck.MAX_LANES
+MAX_SPLIT = ck.MAX_SPLIT
+MAX_THREADS = ck.MAX_THREADS
 SPLIT_SHIFT = 8
-THREADS_PER_SM = 256
-SMEM_PER_BLOCK = 232448
-CHUNK = 8
+THREADS_PER_SM = ck.THREADS_PER_SM
+SMEM_PER_BLOCK = ck.SMEM_PER_BLOCK
+CHUNK = ck.CHUNK
 
 
 def guard_eps(sys) -> float:
@@ -194,21 +187,7 @@ def launch_shape(ng: int, nd: int, nl: int, nb: int, batch: int,
     blocks on 132 SMs). ``lanes`` and ``split`` override the choices.
     With every dimension <= 128 the vectors, PTDF and 128 lanes take at
     most ~197 KB, so only LODF is ever left out."""
-    if split is None:
-        split = 1
-        while 2 * split <= MAX_SPLIT and \
-                2 * split * batch <= THREADS_PER_SM * n_sms:
-            split *= 2
-    elif split not in (1, 2, 4, 8):
-        raise ValueError(f"threads a lane must be 1, 2, 4 or 8, got {split}")
-    if lanes is None:
-        lanes = max(WARP, min(MAX_LANES, MAX_THREADS // split,
-                              batch // max(n_sms, 1) // WARP * WARP))
-    elif lanes % WARP or not WARP <= lanes <= MAX_LANES \
-            or lanes * split > MAX_THREADS:
-        raise ValueError(f"lanes per block must be a multiple of {WARP} "
-                         f"up to {MAX_LANES} and {MAX_THREADS} threads, "
-                         f"got {lanes} x {split}")
+    lanes, split = ck.lanes_and_split(batch, n_sms, lanes, split)
     nc = ng + nl
     small = 4 * _round4(nc + 3 * ng + 3 * nd + 3 * nb + nl + 2)
     ptdf = 4 * nb * ((nl + CHUNK - 1) // CHUNK * CHUNK)
@@ -223,11 +202,6 @@ def launch_shape(ng: int, nd: int, nl: int, nb: int, batch: int,
         stage |= ck.STAGE_LODF
         used += lodf
     return lanes, stage, used
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def kernel_operands(sys, hint: torch.Tensor):
@@ -255,7 +229,7 @@ def launch(sys, batch: int, seeds, down, operands,
     ng, nd, nl, nb = sys.n_gen, sys.n_load, sys.n_branch, sys.n_bus
     nc = sys.n_comp
     fbuf, ibuf, thresh = operands
-    _, stage, smem = launch_shape(ng, nd, nl, nb, batch, _sm_count(dev))
+    _, stage, smem = launch_shape(ng, nd, nl, nb, batch, ck.sm_count(dev))
     if down is not None:
         if down.dtype != torch.bool or tuple(down.shape) != (batch, nc) \
                 or down.device != dev:

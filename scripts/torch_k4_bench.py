@@ -16,7 +16,7 @@ alone with nvcc beside its own headers (F.cu's directory) into the
 package's gitignored ``_build/``, such as the parent commit's from a
 ``git archive`` unpacked into the gitignored ``scratch_chip/``. The
 earlier warp-a-lane version is detected from its source and given its
-shared-memory plan (``certify_kernel.stage_plan``). Without it, the package's own source is built the same
+shared-memory plan (``torch_k5_bench.warp_lane_plan``). Without it, the package's own source is built the same
 way. One version per process, since versions share kernel names.
 ``--lanes-per-block N`` and ``--split T`` (threads a lane: 1, 2, 4 or 8)
 time the thread-a-lane layout with N lanes a block and T threads a lane
@@ -45,6 +45,7 @@ sys.path.insert(0, str(ROOT))
 
 from chip_smoke import (  # noqa: E402
     K4_LANES, _bound, _cert_work, _philox_ops)
+from torch_k5_bench import warp_lane_plan, warp_lane_scratch  # noqa: E402
 from powersystemsreliabilityassessment_tpu_torch.core import cases  # noqa: E402
 from powersystemsreliabilityassessment_tpu_torch.core.system import (  # noqa: E402
     build_system)
@@ -125,8 +126,8 @@ def main() -> int:
     out = {}
     for B in K4_LANES:
         if warp_a_lane:
-            stage, smem = ck.stage_plan(
-                sys_, ck.scratch_floats(sys_) + (nc + 3) // 4,
+            stage, smem = warp_lane_plan(
+                sys_, warp_lane_scratch(sys_) + (nc + 3) // 4,
                 ck.STAGE_PTDF | ck.STAGE_LODF)
             shape = dict(warps_per_lane=1, stage=stage, smem_bytes=smem)
         else:

@@ -909,6 +909,216 @@ def test_k5_kernel_matches_plain(cuda, case, boost, tol):
         assert float((a - b).abs()[both].max()) <= 1e-4
 
 
+def _k5_vs_plain(sys_, down, load, repair_iters=3, tol=1e-5, rtol=0.0):
+    """K5 (one launch) against certify_states(woodbury_k=2) on the same
+    states and loads, held to the k5 phase's bounds of chip_smoke.py:
+    masks on >= 99.9% of lanes (float32 sums in another order: flow
+    checks bind at zero margin on deficit optima), deficits within
+    ``tol`` + ``rtol`` |deficit|, shed and dispatch within 1e-4 p.u. on
+    lanes both certify. Returns (kernel outputs, plain Certificate)."""
+    ops = certify_kernel.kernel_operands(sys_)
+    before = certify_kernel.launches["certify_states_fused"]
+    got = certify_kernel.launch(sys_, down, load, repair_iters, ops)
+    want = dcopf.certify_states(sys_, down, load, repair_iters=repair_iters,
+                                woodbury_k=2)
+    torch.cuda.synchronize()
+    assert certify_kernel.launches["certify_states_fused"] == before + 1
+    assert float((got[0] == want.certified).float().mean()) >= 0.999
+    excess = (got[1] - want.deficit).abs() - rtol * want.deficit.abs()
+    assert float(excess.nan_to_num(0.0).max()) <= tol
+    both = got[0] & want.certified
+    for a, b in ((got[2], want.shed), (got[3], want.dispatch)):
+        assert float((a - b).abs()[both].max()) <= 1e-4
+    return got, want
+
+
+def _varied_load(sys_, n, seed):
+    """Per-lane loads: the peak row scaled by 0.7-1.3 per entry."""
+    g = torch.Generator(device=sys_.device).manual_seed(seed)
+    scale = 0.7 + 0.6 * torch.rand((n, sys_.n_load), generator=g,
+                                   device=sys_.device)
+    return sys_.load_pd[None, :] * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 31, 33, 127, 129, 8192, 262145])
+def test_k5_ragged_batches_match_plain(cuda, batch):
+    # Partial warps and tiles, split lanes (small batches) and 128-lane
+    # tiles with a ragged last one (262,145), per-lane loads.
+    sys_ = build_system(cases.rts24(), device=cuda)
+    down = _boosted(sys_, batch, 11, 20.0)
+    got, _ = _k5_vs_plain(sys_, down, _varied_load(sys_, batch, 12))
+    if batch > 100:
+        assert got[0].any() and not got[0].all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("repair_iters", [0, 1, 2, 3])
+def test_k5_repair_iters_match_plain(cuda, repair_iters):
+    # Loads at 1.1x peak: many lanes fail the first check and repair.
+    sys_ = build_system(cases.rts24(), device=cuda)
+    B = 32768
+    down = sample_states_default(sys_, B, 3)
+    load = sys_.load_pd[None, :].expand(B, sys_.n_load) * 1.1
+    got, want = _k5_vs_plain(sys_, down, load, repair_iters, tol=2e-5)
+    first = dcopf.certify_states(sys_, down, load, repair_iters=0,
+                                 woodbury_k=2).certified
+    repaired = int((want.certified & ~first).sum())
+    assert (repaired == 0) == (repair_iters == 0)
+
+
+def sample_states_default(sys_, n, seed):
+    from powersystemsreliabilityassessment_tpu_torch.sampling.state import (
+        sample_states)
+    return sample_states(hl2_nsq.batch_generator(seed, 0, sys_.device),
+                         sys_.unavail, sys_.always_up_nsq, n)
+
+
+@pytest.mark.gpu
+def test_k5_lanes_are_independent(cuda):
+    # A lane's outputs depend on its state and load alone: not on the
+    # batch, its neighbours, the order or the launch shape the batch
+    # implies (40,000 lanes: one thread a lane, 128 a block; 16,384: two;
+    # 8,000: four; 3,000 and one lane: eight), nor on how many lanes the
+    # repair took together.
+    sys_ = build_system(cases.rts24(), device=cuda)
+    ops = certify_kernel.kernel_operands(sys_)
+    B = 40000
+    down = _boosted(sys_, B, 8, 40.0)
+    load = _varied_load(sys_, B, 9)
+    full = certify_kernel.launch(sys_, down, load, 3, ops)
+    same = lambda a, b: torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+    splits = set()
+    for n in (16384, 8000, 3000):
+        part = certify_kernel.launch(sys_, down[:n].contiguous(),
+                                     load[:n].contiguous(), 3, ops)
+        for a, b in zip(part, full):
+            assert same(a, b[:n]), n
+    for n in (B, 16384, 8000, 3000):
+        splits.add(certify_kernel.launch_shape(
+            sys_.n_gen, sys_.n_load, sys_.n_branch, sys_.n_bus, n,
+            _sms())[1] >> certify_kernel.SPLIT_SHIFT & 3)
+    assert splits == {0, 1, 2, 3}                  # 1, 2, 4 and 8 threads
+    for i in (0, 1, 517, 39999):
+        alone = certify_kernel.launch(sys_, down[i:i + 1].contiguous(),
+                                      load[i:i + 1].contiguous(), 3, ops)
+        for a, b in zip(alone, full):
+            assert same(a[0], b[i])
+    perm = torch.randperm(B, generator=torch.Generator().manual_seed(3))
+    perm = perm.to(cuda)
+    shuffled = certify_kernel.launch(sys_, down[perm].contiguous(),
+                                     load[perm].contiguous(), 3, ops)
+    for a, b in zip(shuffled, full):
+        assert same(a, b[perm])
+
+
+@pytest.mark.gpu
+def test_k5_mixed_lanes_in_one_block(cuda):
+    # One 32-lane block: intact lanes, single outages (the islanding
+    # branch among them: LODF sentinel 1e6), two and three outages, every
+    # unit down, stressed unit outages, and a NaN load row that stays in
+    # its own lane.
+    sys_ = build_system(cases.rts24(), device=cuda)
+    ng, nl, B = sys_.n_gen, sys_.n_branch, 32
+    island = int(torch.nonzero((sys_.lodf == 1e6).any(0)).flatten()[0])
+    down = torch.zeros((B, sys_.n_comp), dtype=torch.bool, device=cuda)
+    for lane, ks in enumerate([(0,), (island,), (5,), (17,), (nl - 1,),
+                               (island, 3), (2, 9), (4, 20, 31)]):
+        down[6 + lane, [ng + k for k in ks]] = True
+    down[14, :ng] = True
+    down[15:] = _boosted(sys_, B - 15, 9, 40.0)
+    down[:, sys_.always_up_nsq] = False
+    load = sys_.load_pd[None, :].repeat(B, 1)
+    load[20] = float("nan")
+    assert certify_kernel.launch_shape(ng, sys_.n_load, nl, sys_.n_bus, B,
+                                       _sms())[0] == B
+    got, want = _k5_vs_plain(sys_, down, load)
+    assert torch.equal(got[0], want.certified)
+    n_out = down[:, ng:].sum(1)
+    assert not got[0][n_out >= 3].any()
+    assert not bool(got[0][20]) and bool(torch.isnan(got[1][20]))
+    ok = torch.ones(B, dtype=torch.bool, device=cuda)
+    ok[20] = False
+    for t in got[1:]:                              # the NaN stays in lane 20
+        assert bool(torch.isfinite(t[ok]).all())
+    assert float((got[1][14] - sys_.load_pd.float().sum()).abs()) <= 1e-5
+    assert got[0][:6].all()                        # intact, no deficit
+
+
+@pytest.mark.gpu
+def test_k5_at_the_dimension_limit_matches_plain(cuda):
+    # The 120-bus ring: every dimension near 128, an even load count
+    # (the load rows take a padded stride), LODF and the transfer matrix
+    # through L2 at 128 lanes a block.
+    sys_ = build_system(k4_limit_case(), device=cuda)
+    B = 32768
+    lanes, stage, _ = certify_kernel.launch_shape(
+        sys_.n_gen, sys_.n_load, sys_.n_branch, sys_.n_bus, B, _sms())
+    assert not stage & certify_kernel.STAGE_LODF and sys_.n_load % 2 == 0
+    down = _boosted(sys_, B, 2, 4.0)
+    load = sys_.load_pd[None, :].expand(B, sys_.n_load)
+    # The deficit sums 120 loads of 0.1 p.u. in another order than the
+    # plain version: RTS-96's absolute bound (1e-4) for sums this long.
+    got, _ = _k5_vs_plain(sys_, down, load, tol=1e-4)
+    assert got[0].any() and not got[0].all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [8192, 65536])
+def test_k5_rts96_reads_lodf_through_l2(cuda, batch):
+    sys_ = build_system(cases.rts96(), device=cuda)
+    _, stage, _ = certify_kernel.launch_shape(
+        sys_.n_gen, sys_.n_load, sys_.n_branch, sys_.n_bus, batch, _sms())
+    assert not stage & (certify_kernel.STAGE_LODF
+                        | certify_kernel.STAGE_TRANSFER)
+    down = _boosted(sys_, batch, 6, 10.0)
+    load = sys_.load_pd[None, :].expand(batch, sys_.n_load)
+    got, _ = _k5_vs_plain(sys_, down, load, tol=1e-4, rtol=1e-4)
+    assert got[0].any()
+
+
+@pytest.mark.gpu
+def test_k5_refuses_a_shared_size_off_the_plan(cuda):
+    from powersystemsreliabilityassessment_tpu_torch.ops import cuda_build
+    sys_ = build_system(cases.rts24(), device=cuda)
+    fbuf, ibuf = certify_kernel.kernel_operands(sys_)
+    dims = (sys_.n_gen, sys_.n_load, sys_.n_branch, sys_.n_bus)
+    _, stage, smem = certify_kernel.launch_shape(*dims, 4096, _sms())
+    B = 64
+    down = torch.zeros((B, sys_.n_comp), dtype=torch.bool, device=cuda)
+    load = sys_.load_pd[None, :].repeat(B, 1).contiguous()
+    out = (torch.empty(B, dtype=torch.bool, device=cuda),
+           torch.empty(B, device=cuda),
+           torch.empty((B, sys_.n_load), device=cuda),
+           torch.empty((B, sys_.n_gen), device=cuda))
+    work = torch.empty(B + 1, dtype=torch.int32, device=cuda)
+    other = 1 << certify_kernel.LANES_SHIFT         # 64 lanes a block
+    for st, sm in ((stage, smem + 4),
+                   (stage & ~certify_kernel.STAGE_PTDF, smem),
+                   ((stage & ~(3 << certify_kernel.LANES_SHIFT)) | other,
+                    smem)):
+        err = cuda_build.library().psra_certify(
+            down.data_ptr(), load.data_ptr(), fbuf.data_ptr(),
+            ibuf.data_ptr(), B, *dims, 3, st, sm, work.data_ptr(),
+            *(t.data_ptr() for t in out), cuda_build.stream_handle(fbuf))
+        assert err != 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_comp", [1, 5, 71, 128])
+@pytest.mark.parametrize("batch", [1, 3, 255, 257, 262145])
+def test_k6_ragged_shapes_are_bit_equal_to_plain(cuda, batch, n_comp):
+    rng = np.random.default_rng(n_comp)
+    thresh = torch.as_tensor(rng.integers(0, 1 << 23, n_comp),
+                             dtype=torch.int32, device=cuda)
+    thresh[0] = 0                                  # a pinned component
+    seeds = torch.tensor([12345, -67890], dtype=torch.int32, device=cuda)
+    got = hw_sampler.launch(seeds, thresh, batch)
+    want = hw_sampler.sample_states_hw_plain(seeds, thresh, batch)
+    assert torch.equal(got, want)
+    assert not got[:, 0].any()
+
+
 @pytest.mark.gpu
 def test_fused_step_never_waits_for_the_device(cuda):
     sys_ = build_system(cases.rts24(), device=cuda)

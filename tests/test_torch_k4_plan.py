@@ -124,9 +124,11 @@ def test_plan_matches_the_systems_it_runs():
 
 def test_plan_constants_match_the_kernel_source():
     src = (CSRC / "fused_sampler_cert.cu").read_text()
-    const = lambda name: int(re.search(
-        rf"constexpr int {name} = (\d+);", src).group(1))
+    const = lambda name, text=src: int(re.search(
+        rf"constexpr int {name} = (\d+);", text).group(1))
     assert const("QUICK_MAX_LANES") == ff.MAX_LANES
     assert const("QUICK_MAX_THREADS") == ff.MAX_THREADS
-    assert const("QUICK_CHUNK") == ff.CHUNK
+    # The flow chunk lives in the header K4 shares with K5.
+    assert const("FLOW_CHUNK", (CSRC / "lane_common.cuh").read_text()) \
+        == ff.CHUNK
     assert const("QUICK_SPLIT_SHIFT") == ff.SPLIT_SHIFT
