@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's HL2 NSQ paths on one CUDA card.
+"""Smoke run of the PyTorch port's HL2 NSQ and SEQ paths on one CUDA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -63,6 +63,18 @@ Phases, one line each (any failure raises, so the exit code is not 0):
  12. studyfused  run_nsq_study(rts24(), MCSConfig(max_samples=106496,
               fused_tier1=True)) held against results/nsq_results.json as
               in 6; K4 launches once per batch, K1 and K2 as before
+ 13. seq      run_seq_study(rts24(), MCSConfig(seed=1)) to its CoV stop (16
+              years x 8,736 hours a step, max_lp 256 a year) held against
+              results/seq_results.json (EENS, LOLE and LOLF within 4
+              combined standard errors; the JSON keeps no per-year DLC or
+              NLC, so their reference standard error is the port's), K1,
+              K2a and K2b launched on every step; K1 at 4,096 real SEQ LP
+              lanes and K2a / K2b at [4096, 62, 62] (the polish's own
+              matrices of those lanes) / [4096, 62] against
+              their plain versions, with launch shapes, CUDA-graph,
+              wrapper, plain and library times and bounds; the SEQ step's
+              wall and device ms, hour-states a second and device busy
+              share under the sync check at 16 and at 64 years a step
 The bench phase also times the fused step (fused_tier1) at its shape,
 under the same sync check, and prints it on a line of its own.
 Then one JSON line of per-kernel results and, last, the device line
@@ -73,7 +85,8 @@ runs all of them. ``--phases profile`` runs only the opt-in breakdown of
 the RTS-24 bench-shaped step and of the RTS-96 study step: per-layer
 times, the device-busy share, the kernels that take the most device
 time (torch.profiler) and K1's, K2's (``layer=step_k2``), K3's and K4's
-device time and launches per step.
+device time and launches per step; ``--phases profileseq`` the same for
+the SEQ step (16 years a step).
 """
 from __future__ import annotations
 
@@ -89,11 +102,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PKG = "powersystemsreliabilityassessment_tpu_torch"
 ALL_PHASES = ("build", "k2", "k1", "bench", "study", "k3", "study96", "k6",
-              "k4", "k5", "studyfused")
+              "k4", "k5", "studyfused", "seq")
 # Not run by default: a per-layer and per-kernel breakdown of the
 # bench-shaped step and of the RTS-96 step (for PERF.md), not part of
 # the smoke contract.
-EXTRA_PHASES = ("profile",)
+EXTRA_PHASES = ("profile", "profileseq")
 # The kernels each main path must launch.
 RTS24_KERNELS = ("fused_ipm_iterations", "cholesky", "cho_solve")
 RTS96_KERNELS = ("cholesky", "trsm_fwd", "trsm_bwd")
@@ -116,6 +129,13 @@ K2_X_BOUND = 1e-3       # max |x_kernel - x_plain| / max(1, |x|) per lane
 # IPM paths (1e-3 p.u. = 0.1 MW, the reference's DNS noise floor).
 K1_OBJ_BOUND = 1e-3
 K1_SCORE_BOUND = 1e-3   # best_score = mu + max|rp|, absolute
+# The screened evaluator keeps an LP lane's answer only where its quality
+# (primal residual + 2 n duality gap) is within this (engines/dcopf.py
+# _finalize); elsewhere it takes the certificate's bound. Of 4,096 SEQ LP
+# lanes ~5% fail it on both paths, and on ~0.6% the two float32 IPMs'
+# objectives then differ by up to 0.12 p.u. (NVIDIA H100, PERF.md §6):
+# the float64 optimum judges those lanes.
+LP_QUALITY_GUARD = 5e-3
 # K3: max |X_kernel - X_plain| / max(1, |X|) per lane. The same
 # substitution in another summation order: each element's rounding is
 # ~P eps cond(L_panel), and a lifted panel of an equilibrated matrix has
@@ -403,6 +423,30 @@ def _polish_matrices(sys_):
     return torch.cat(mats)[:256].contiguous()
 
 
+def _polish_factor_inputs(st, lanes):
+    """[B, 62, 62]: the matrices K2a factors in the polish of K1's
+    iterates on the structured ``lanes`` (captured on the path):
+    equilibrated A A' on the first half of the lanes, A W^-1 A' + I on
+    the second."""
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.engines import (
+        lp_ipm_batched as lpb)
+    from powersystemsreliabilityassessment_tpu_torch.engines.lp_ipm_structured import (
+        polish_structured)
+    from powersystemsreliabilityassessment_tpu_torch.ops import ipm_fused
+    store: list = []
+    kernels = lpb._DIRECT_KERNELS["cuda"]
+    lpb._DIRECT_KERNELS["cuda"] = kernels._replace(
+        factor=lambda M: store.append(M.clone()) or kernels.factor(M))
+    try:
+        polish_structured(st, ipm_fused.fused_ipm_iterations(st, *lanes),
+                          *lanes)
+    finally:
+        lpb._DIRECT_KERNELS["cuda"] = kernels
+    half = lanes[2].shape[0] // 2
+    return torch.cat([store[0][:half], store[1][half:]]).contiguous()
+
+
 def _rts96_normal(sys96):
     """[256, 191, 191]: equilibrated normal matrices of 256 real RTS-96 LP
     lanes as the blocked route factors them. Of the factored matrices,
@@ -483,6 +527,51 @@ def _k2_work(kind, args):
     return _solve_work(*args[1].shape)
 
 
+def _k2_row(tag, name, kind, args, checked):
+    """One K2 path shape: the kernel against its plain version on
+    ``checked``, and on ``args`` its device time in a CUDA graph, wrapper,
+    plain and library times, bound and bound share, K2a's launch shape
+    and the inputs' asymmetry; printed as one ``tag`` line."""
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.ops import (
+        batched_chol as bc)
+    kern, plain, library = _k2_fns(kind)
+    got, want = kern(*checked), plain(*checked)
+    torch.cuda.synchronize()
+    bound = _bound(*_k2_work(kind, args))
+    row = dict(kind=kind, shape=list(args[-1].shape),
+               rel_err=_rel_err(got, want),
+               abs_err=float((got - want).abs().max()),
+               finite=bool(torch.isfinite(got).all()),
+               asymmetry=_asymmetry(args[0]) if kind == "cholesky" else None,
+               device_ms=_graph_ms(kern, [args]),
+               ms=_time_ms(lambda: kern(*args)),
+               plain_ms=_time_ms(lambda: plain(*args), reps=3),
+               library_ms=_time_ms(lambda: library(*args)), **bound)
+    row["bound_share"] = bound["bound_ms"] / row["device_ms"]
+    if kind == "cholesky":
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        row["launch_shape"] = dict(zip(
+            ("warps_per_lane", "lanes_per_block", "smem_bytes"),
+            bc.launch_shape(args[0].shape[0], args[0].shape[-1], sms)))
+    tol = K2_L_BOUND if kind == "cholesky" else K2_X_BOUND
+    _line(tag, path_shape=name, **{
+        k: (f"{v:.3e}<={tol}" if k == "rel_err" else
+            f"{v:.4f}" if isinstance(v, float) and k.endswith("ms")
+            else f"{v:.3e}" if isinstance(v, float)
+            else json.dumps(v).replace(" ", "") if isinstance(v, dict)
+            else v) for k, v in row.items()})
+    return row
+
+
+def _check_k2_rows(tag, rows):
+    bad = [k for k, r in rows.items() if not r["finite"] or r["rel_err"] > (
+        K2_L_BOUND if r["kind"] == "cholesky" else K2_X_BOUND)]
+    if bad:
+        raise RuntimeError(f"{tag}: K2 disagrees with the plain version at "
+                           f"{bad}")
+
+
 def phase_k2(sys_, sys96, results):
     """K2a and K2b against their plain versions at the four path shapes
     (a pivot-floor lane in the polish's factor), with times: the kernel
@@ -493,7 +582,6 @@ def phase_k2(sys_, sys96, results):
     from powersystemsreliabilityassessment_tpu_torch.ops import (
         batched_chol as bc)
     shapes = _k2_inputs(sys_, sys96)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     # Lane 0 of the polish check has lost positive definiteness: its
     # second pivot is 1 - 1.0005^2 < 0, which the pivot floor turns into
     # L_11 = -1 (an unfloored rsqrt would give NaN).
@@ -504,45 +592,14 @@ def phase_k2(sys_, sys96, results):
     L0 = bc.cholesky(M0)
     torch.cuda.synchronize()
     floor_hit = bool(torch.isfinite(L0[0]).all() and L0[0, 1, 1] < 0)
-    rows = {}
-    for name, (kind, args) in shapes.items():
-        kern, plain, library = _k2_fns(kind)
-        checked = (M0,) if name == "chol_polish" else args
-        got, want = kern(*checked), plain(*checked)
-        torch.cuda.synchronize()
-        bound = _bound(*_k2_work(kind, args))
-        row = dict(kind=kind, shape=list(args[-1].shape),
-                   rel_err=_rel_err(got, want),
-                   abs_err=float((got - want).abs().max()),
-                   finite=bool(torch.isfinite(got).all()),
-                   asymmetry=_asymmetry(args[0]) if kind == "cholesky"
-                   else None,
-                   device_ms=_graph_ms(kern, [args]),
-                   ms=_time_ms(lambda: kern(*args)),
-                   plain_ms=_time_ms(lambda: plain(*args), reps=3),
-                   library_ms=_time_ms(lambda: library(*args)), **bound)
-        row["bound_share"] = bound["bound_ms"] / row["device_ms"]
-        if kind == "cholesky":
-            row["launch_shape"] = dict(zip(
-                ("warps_per_lane", "lanes_per_block", "smem_bytes"),
-                bc.launch_shape(args[0].shape[0], args[0].shape[-1], sms)))
-        rows[name] = row
-        tol = K2_L_BOUND if kind == "cholesky" else K2_X_BOUND
-        _line("k2", path_shape=name, **{
-            k: (f"{v:.3e}<={tol}" if k == "rel_err" else
-                f"{v:.4f}" if isinstance(v, float) and k.endswith("ms")
-                else f"{v:.3e}" if isinstance(v, float)
-                else json.dumps(v).replace(" ", "") if isinstance(v, dict)
-                else v) for k, v in row.items()})
+    rows = {name: _k2_row("k2", name, kind, args,
+                          (M0,) if name == "chol_polish" else args)
+            for name, (kind, args) in shapes.items()}
     _line("k2", pivot_floor_lane=floor_hit,
           pivot_floor_l11=f"{float(L0[0, 1, 1]):.5f}")
     if not floor_hit:
         raise RuntimeError("k2: the pivot-floor lane did not floor")
-    bad = [k for k, r in rows.items() if not r["finite"] or r["rel_err"] > (
-        K2_L_BOUND if r["kind"] == "cholesky" else K2_X_BOUND)]
-    if bad:
-        raise RuntimeError(f"k2: kernel disagrees with the plain version at "
-                           f"{bad}")
+    _check_k2_rows("k2", rows)
     # The bounds are relative to each lane's scale (solutions of these
     # ill-conditioned systems reach ~1e3), so both errors are reported.
     # The top-level numbers are the polish shapes (K2a's main RTS-24
@@ -569,9 +626,66 @@ def phase_k2(sys_, sys96, results):
 K1_LANES = (256, 2048)
 
 
-def _k1_shape(sys_, st, n_lanes, cfg):
-    """K1 against its plain version on ``n_lanes`` real RTS-24 LP lanes:
-    errors, times, launch shape and the work this run's lanes need."""
+def _lp_oracle(st, args, lanes) -> list:
+    """Float64 optima (HiGHS, scipy) of the structured LPs ``lanes`` of
+    ``args``: A is built column by column from the structure's A v."""
+    import numpy as np
+    import torch
+    from scipy.optimize import linprog
+    from powersystemsreliabilityassessment_tpu_torch.ops import ipm_fused
+    colscale, br_up, c, b, l, u = args
+    eye = torch.eye(st.n, device=c.device)
+    out = []
+    for i in lanes:
+        A = ipm_fused.mv(st, colscale[i].expand(st.n, -1),
+                         br_up[i].expand(st.n, -1), eye).T
+        f64 = lambda t: t.double().cpu().numpy()
+        r = linprog(f64(c[i]), A_eq=f64(A), b_eq=f64(b[i]),
+                    bounds=list(zip(f64(l[i]), f64(u[i]))), method="highs")
+        out.append(r.fun if r.success else float("nan"))
+    return np.asarray(out)
+
+
+def _k1_guarded_check(st, args, pol_k, pol_p, ker_score, pla_score):
+    """K1 against its plain version where the screened evaluator keeps
+    both answers (lane quality, primal residual + 2 n gap, within the
+    evaluator's LP_QUALITY_GUARD on both sides), and against the float64
+    optimum where one side fails the guard and the two objectives differ
+    by more than K1_OBJ_BOUND: there the kernel must be within
+    LP_QUALITY_GUARD of the optimum, or no farther from it than the plain
+    version. Returns the objective and best_score errors on the kept
+    lanes and the counts."""
+    import numpy as np
+    import torch
+    q = lambda sol: sol.primal_residual + 2 * st.n * sol.duality_gap
+    kept = (q(pol_k) <= LP_QUALITY_GUARD) & (q(pol_p) <= LP_QUALITY_GUARD)
+    diff = (pol_k.objective - pol_p.objective).abs()
+    lanes = torch.nonzero(~kept & (diff > K1_OBJ_BOUND)).flatten().tolist()
+    opt = _lp_oracle(st, args, lanes)
+    err_k = np.abs(pol_k.objective[lanes].double().cpu().numpy() - opt)
+    err_p = np.abs(pol_p.objective[lanes].double().cpu().numpy() - opt)
+    info = dict(
+        kept_lanes=int(kept.sum()),
+        guard_failed_kernel=int((q(pol_k) > LP_QUALITY_GUARD).sum()),
+        guard_failed_plain=int((q(pol_p) > LP_QUALITY_GUARD).sum()),
+        objective_err_all_lanes_pu=float(diff.max()),
+        oracle_lanes=len(lanes),
+        oracle_kernel_closer=int((err_k < err_p).sum()),
+        oracle_kernel_err_max=float(err_k.max()) if lanes else 0.0,
+        oracle_plain_err_max=float(err_p.max()) if lanes else 0.0,
+        oracle_plain_closer=int((err_k > err_p + K1_OBJ_BOUND).sum()),
+        oracle_kernel_off=int((err_k > np.maximum(err_p, LP_QUALITY_GUARD))
+                              .sum() + np.isnan(opt).sum()))
+    return (float(diff[kept].max()),
+            float((ker_score - pla_score).abs()[kept].max()), info)
+
+
+def _k1_shape(sys_, st, n_lanes, cfg, args=None, tag="k1", guarded=False):
+    """K1 against its plain version on ``n_lanes`` real RTS-24 LP lanes
+    (``args``, or :func:`_lp_lanes`' peak-load lanes): errors, times,
+    launch shape and the work this run's lanes need. ``guarded``: the
+    errors are taken where the evaluator keeps both answers, and the
+    float64 optimum judges the other lanes (:func:`_k1_guarded_check`)."""
     import ctypes
     import torch
     from powersystemsreliabilityassessment_tpu_torch.engines.lp_ipm_structured import (
@@ -580,15 +694,22 @@ def _k1_shape(sys_, st, n_lanes, cfg):
         cuda_build, ipm_fused)
     from powersystemsreliabilityassessment_tpu_torch.utils.config import (
         IPMConfig)
-    args = _lp_lanes(sys_, n_lanes, seed=7)
+    if args is None:
+        args = _lp_lanes(sys_, n_lanes, seed=7)
     ker = ipm_fused.fused_ipm_iterations(st, *args, cfg)
     pla = ipm_fused.fused_ipm_iterations_plain(st, *args, cfg)
     torch.cuda.synchronize()
-    obj_k = polish_structured(st, ker, *args, cfg).objective
-    obj_p = polish_structured(st, pla, *args, cfg).objective
+    pol_k = polish_structured(st, ker, *args, cfg)
+    pol_p = polish_structured(st, pla, *args, cfg)
+    obj_k, obj_p = pol_k.objective, pol_p.objective
     finite = all(bool(torch.isfinite(t).all()) for t in ker)
-    obj_err = float((obj_k - obj_p).abs().max())
-    score_err = float((ker[4] - pla[4]).abs().max())
+    guard = {}
+    if guarded:
+        obj_err, score_err, guard = _k1_guarded_check(
+            st, args, pol_k, pol_p, ker[4], pla[4])
+    else:
+        obj_err = float((obj_k - obj_p).abs().max())
+        score_err = float((ker[4] - pla[4]).abs().max())
     x_err = float((ker[5] - pla[5]).abs().max())
     ms = statistics.median(
         _time_ms(lambda: ipm_fused.fused_ipm_iterations(st, *args, cfg))
@@ -621,8 +742,8 @@ def _k1_shape(sys_, st, n_lanes, cfg):
                lanes_per_block=lpb, warps_per_lane=wpl, smem_bytes=smem,
                resident_lanes_per_sm=blocks.value * lpb,
                shed_lanes=int((obj_p > 1e-3).sum()), **bound,
-               bound_share=bound["bound_ms"] / ms)
-    _line("k1", lanes=B, finite=finite,
+               bound_share=bound["bound_ms"] / ms, **guard)
+    _line(tag, lanes=B, finite=finite,
           objective_err_pu=f"{obj_err:.3e}<={K1_OBJ_BOUND}",
           best_score_err=f"{score_err:.3e}<={K1_SCORE_BOUND}",
           best_x_err=f"{x_err:.3e}", kernel_ms=f"{ms:.4f}",
@@ -630,10 +751,13 @@ def _k1_shape(sys_, st, n_lanes, cfg):
           active_lane_iterations=active, lanes_per_block=lpb,
           warps_per_lane=wpl, smem_bytes=smem, resident_lanes_per_sm=row["resident_lanes_per_sm"],
           bound_ms=f"{bound['bound_ms']:.4f}({bound['bound_by']})",
-          bound_share=f"{row['bound_share']:.4f}")
+          bound_share=f"{row['bound_share']:.4f}",
+          **{k: (f"{v:.3e}" if isinstance(v, float) else v)
+             for k, v in guard.items()})
     if not (finite and obj_err <= K1_OBJ_BOUND
-            and score_err <= K1_SCORE_BOUND):
-        raise RuntimeError(f"k1: kernel disagrees with the plain version at "
+            and score_err <= K1_SCORE_BOUND
+            and guard.get("oracle_kernel_off", 0) == 0):
+        raise RuntimeError(f"{tag}: K1 disagrees with the plain version at "
                            f"{B} lanes")
     return row
 
@@ -1537,6 +1661,209 @@ def phase_k5(sys_, sys96, results):
         rts96_bound_ms=bound96["bound_ms"])
 
 
+def _seq_lp_lanes(sys_, n_lanes: int, seed: int):
+    """Structured LP inputs (colscale, br_up, c, b, l, u) of ``n_lanes``
+    real SEQ LP lanes: hour-states of the port's own 16-year blocks
+    (``hl2_seq.sample_years``, the study's load profile) that the
+    certificate leaves uncertified or with a deficit, the lanes
+    ``evaluate_years`` sends to the LP in "lp" nodal mode."""
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.core import (
+        cases, load_profile)
+    from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
+    from powersystemsreliabilityassessment_tpu_torch.models import twostate
+    from powersystemsreliabilityassessment_tpu_torch.sampling import (
+        chronological)
+    from powersystemsreliabilityassessment_tpu_torch.studies import (
+        hl2_nsq, hl2_seq)
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        CompatFlags, IPMConfig)
+    years, hours = 16, 8736
+    mt = twostate.mean_times(cases.rts24())
+    k = chronological.default_num_draws(mt[:, 0], mt[:, 1], hours)
+    load = hl2_seq.year_block_load(sys_, load_profile.load_factors(hours),
+                                   years)
+    downs, loads, got, block = [], [], 0, 0
+    while got < n_lanes:
+        flat = hl2_seq.sample_years(
+            hl2_nsq.batch_generator(seed, block, "cuda"), sys_, years, hours,
+            k).transpose(1, 2).reshape(years * hours, -1)
+        cert = dcopf.certify_states(sys_, flat, load,
+                                    repair_buffer=years * hours // 16)
+        idx = torch.nonzero((~cert.certified) | (cert.deficit > 0)).flatten()
+        downs.append(flat[idx])
+        loads.append(load[idx])
+        got += idx.numel()
+        block += 1
+    down, load = torch.cat(downs)[:n_lanes], torch.cat(loads)[:n_lanes]
+    up = 1.0 - down.float()
+    gen_up, br_up = up[:, :sys_.n_gen], up[:, sys_.n_gen:].contiguous()
+    c, b, l, u, colscale = dcopf.build_state_lp_vectors(
+        sys_, gen_up, br_up, load, CompatFlags(), IPMConfig().theta_max)
+    return (colscale, br_up, c, b, l, u), block * years
+
+
+def _seq_step_line(sys_, years: int, reps: int = 8):
+    """The SEQ step at ``years`` years a step: wall ms (the steps run
+    under torch.cuda.set_sync_debug_mode("error"), so any host sync in
+    the step raises), device ms (the sum of kernel events of
+    torch.profiler), hour-states a second and the device busy share."""
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.core import (
+        cases, load_profile)
+    from powersystemsreliabilityassessment_tpu_torch.models import twostate
+    from powersystemsreliabilityassessment_tpu_torch.sampling import (
+        chronological)
+    from powersystemsreliabilityassessment_tpu_torch.studies import (
+        hl2_nsq, hl2_seq)
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        CompatFlags, IPMConfig)
+    hours, max_lp = 8736, 256
+    mt = twostate.mean_times(cases.rts24())
+    k = chronological.default_num_draws(mt[:, 0], mt[:, 1], hours)
+    step = hl2_seq.make_seq_batch_step(
+        sys_, years, CompatFlags(), IPMConfig(), hours, k, max_lp,
+        load_profile.load_factors(hours))
+    seeds = iter(range(10**6))
+    gen = lambda: hl2_nsq.batch_generator(3, next(seeds), "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    out = step(gen())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(reps):
+            out = step(gen())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    _, dev, n_kernels, _ = _measure(lambda: step(gen()), reps=4)
+    if not bool(torch.isfinite(out[0]).all()) or int(out[8]) != 0:
+        raise RuntimeError(f"seq: step at {years} years: non-finite ENS or "
+                           f"{int(out[8])} overflow hours")
+    row = dict(years=years, hour_states=years * hours,
+               lp_lanes=years * max_lp, wall_ms=wall, device_ms=dev,
+               hour_states_per_s=years * hours / wall * 1e3,
+               device_busy_share=dev / wall, kernel_launches=n_kernels,
+               peak_mem_bytes=torch.cuda.max_memory_allocated())
+    _line("seq", step_years=years, **{
+        k: (f"{v:.4f}" if isinstance(v, float) else v)
+        for k, v in row.items() if k != "years"})
+    return row
+
+
+def phase_seq(sys_, results):
+    """The SEQ study on RTS-24 to its CoV stop, held against
+    results/seq_results.json; K1, K2a and K2b at the study's LP buffer
+    (4,096 real SEQ lanes) against their plain versions; the SEQ step's
+    times at 16 years a step (the default) and at 64."""
+    import math
+    import numpy as np
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.core import cases
+    from powersystemsreliabilityassessment_tpu_torch.ops import (
+        batched_chol as bc, ipm_fused)
+    from powersystemsreliabilityassessment_tpu_torch.studies import hl2_seq
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        IPMConfig, MCSConfig)
+    ref = json.loads((ROOT / "results" / "seq_results.json").read_text())
+    # The study keeps its per-year values in AnnualStats; this subclass
+    # only keeps a handle on the instance, for the standard errors.
+    seen = []
+
+    class _Seen(hl2_seq.AnnualStats):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            seen.append(self)
+
+    years_per_step = 16
+    annual_stats, hl2_seq.AnnualStats = hl2_seq.AnnualStats, _Seen
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = hl2_seq.run_seq_study(cases.rts24(), MCSConfig(seed=1),
+                                    device="cuda", log_every=0,
+                                    years_per_device=years_per_step)
+        wall = time.perf_counter() - t0
+        counts = _counts()
+    finally:
+        hl2_seq.AnnualStats = annual_stats
+    stats = seen[-1]
+    steps = res.years // years_per_step
+    se = lambda v: float(np.std(v, ddof=1) / math.sqrt(len(v)))
+    z = {"eens": abs(res.eens_mwh_yr - ref["eens_mwh_yr"]) / math.hypot(
+        se(ref["annual_ens"]), se(stats.ens))}
+    # results/seq_results.json keeps no per-year DLC or NLC: their
+    # reference standard error is taken equal to the port's.
+    for key, field, per_year in (("lole", "lole_hr_yr", stats.dlc),
+                                 ("lolf", "lolf_occ_yr", stats.nlc)):
+        z[key] = abs(getattr(res, field) - ref[field]) / (
+            math.sqrt(2.0) * se(per_year))
+    _line("seq", study_years=res.years, steps=steps,
+          converged=res.converged, eens_mwh_yr=f"{res.eens_mwh_yr:.4f}",
+          lole_hr_yr=f"{res.lole_hr_yr:.4f}",
+          lolf_occ_yr=f"{res.lolf_occ_yr:.4f}", cov=f"{res.cov:.5f}",
+          eens_z=f"{z['eens']:.2f}<=4", lole_z=f"{z['lole']:.2f}<=4",
+          lolf_z=f"{z['lolf']:.2f}<=4",
+          lole_lolf_ref_se="port's", overflow_hours=res.overflow_hours,
+          infeasible_hours=res.infeasible_hours, wall_s=f"{wall:.2f}",
+          peak_mem_bytes=torch.cuda.max_memory_allocated(),
+          launches=json.dumps(counts).replace(" ", ""))
+    _check_launched("seq", counts, RTS24_KERNELS)
+    low = [k for k, per in (("fused_ipm_iterations", 1), ("cholesky", 2),
+                            ("cho_solve", 3)) if counts[k] < per * steps]
+    if low:
+        raise RuntimeError(f"seq: {low} launched on fewer than every one of "
+                           f"{steps} steps")
+    if not (res.converged and all(v <= 4 for v in z.values())
+            and np.isfinite(res.nodal_eens_mwh_yr).all()):
+        raise RuntimeError("seq: the study did not converge, or EENS / LOLE "
+                           "/ LOLF fall outside 4 combined standard errors "
+                           "of results/seq_results.json")
+    for name in RTS24_KERNELS:
+        results.setdefault(name, {})["launches_seq_study"] = counts[name]
+
+    # The kernels at the SEQ step's LP buffer: 256 lanes a year x 16.
+    n = 256 * years_per_step
+    lanes, years_drawn = _seq_lp_lanes(sys_, n, seed=11)
+    _line("seq", lp_lanes=n, years_drawn=years_drawn,
+          lanes_per_year=f"{n / years_drawn:.2f}")
+    st = ipm_fused.build_structure(sys_)
+    cfg = IPMConfig()
+    k1 = _k1_shape(sys_, st, n, cfg, args=lanes, tag="seq", guarded=True)
+    k1["device_ms"] = _graph_ms(
+        lambda *a: ipm_fused.fused_ipm_iterations(st, *a, cfg), [lanes],
+        calls=4, replays=3)
+    k1["bound_share"] = k1["bound_ms"] / k1["device_ms"]
+    _line("seq", k1_lanes=n, device_ms=f"{k1['device_ms']:.4f}",
+          bound_share_of_device=f"{k1['bound_share']:.4f}", library_ms=None)
+    M = _polish_factor_inputs(st, lanes)
+    r = torch.randn(M.shape[:2], generator=torch.Generator(
+        device="cuda").manual_seed(12), device="cuda")
+    rows = {"chol_seq": _k2_row("seq", "chol_seq", "cholesky", (M,), (M,))}
+    solve = (bc.cholesky_plain(M), r)
+    rows["solve_seq"] = _k2_row("seq", "solve_seq", "cho_solve", solve,
+                                solve)
+    _check_k2_rows("seq", rows)
+    k1_err = max(k1["objective_err_pu"], k1["best_score_err"])
+    entry = results.setdefault("fused_ipm_iterations", {})
+    entry["seq_shape"] = k1
+    entry["max_abs_err"] = max(entry.get("max_abs_err", 0.0), k1_err)
+    for kind, name in (("cholesky", "chol_seq"), ("cho_solve", "solve_seq")):
+        entry = results.setdefault(kind, {})
+        entry.setdefault("path_shapes", {})[name] = rows[name]
+        entry["max_abs_err"] = max(entry.get("max_abs_err", 0.0),
+                                   rows[name]["abs_err"])
+        entry["max_rel_err"] = max(entry.get("max_rel_err", 0.0),
+                                   rows[name]["rel_err"])
+
+    # The step: the default 16 years, and 64 as a measurement.
+    for years in (years_per_step, 64):
+        _seq_step_line(sys_, years)
+
+
 def phase_studyfused(results):
     counts = phase_study("studyfused", fused=True, kernels=FUSED_KERNELS)
     results.setdefault("sample_certify_quick", {})["launches"] = \
@@ -1674,6 +2001,50 @@ def phase_profile(sys_):
     })
 
 
+def phase_profile_seq(sys_):
+    """The SEQ step (16 years x 8,736 hours, max_lp 256 a year) by
+    layer: the year-block draw, the certificate on the flat block, the
+    LP tier on its 4,096-lane buffer, and the whole evaluation."""
+    from powersystemsreliabilityassessment_tpu_torch.core import (
+        cases, load_profile)
+    from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
+    from powersystemsreliabilityassessment_tpu_torch.models import twostate
+    from powersystemsreliabilityassessment_tpu_torch.sampling import (
+        chronological)
+    from powersystemsreliabilityassessment_tpu_torch.studies import (
+        hl2_nsq, hl2_seq)
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        CompatFlags, IPMConfig)
+    hours, years, max_lp = 8736, 16, 256
+    mt = twostate.mean_times(cases.rts24())
+    k = chronological.default_num_draws(mt[:, 0], mt[:, 1], hours)
+    factors = load_profile.load_factors(hours)
+    load = hl2_seq.year_block_load(sys_, factors, years)
+    step = hl2_seq.make_seq_batch_step(sys_, years, CompatFlags(),
+                                       IPMConfig(), hours, k, max_lp,
+                                       factors)
+    seeds = iter(range(10**7))
+    gen = lambda: hl2_nsq.batch_generator(4, next(seeds), "cuda")
+    down = hl2_seq.sample_years(gen(), sys_, years, hours, k)
+    flat = down.transpose(1, 2).reshape(years * hours, -1)
+    rbuf = years * hours // 16
+    cert = dcopf.certify_states(sys_, flat, load, repair_buffer=rbuf)
+    idx = dcopf._topk_lanes(~(cert.certified & (cert.deficit <= 0)),
+                            years * max_lp)
+    _reset_counts()
+    _profile_lines("profile_seq", {
+        "step": lambda: step(gen()),
+        "sampling": lambda: hl2_seq.sample_years(gen(), sys_, years, hours,
+                                                 k),
+        "evaluation": lambda: hl2_seq.evaluate_years(
+            sys_, CompatFlags(), IPMConfig(), load, down, years * max_lp),
+        "tier1": lambda: dcopf.certify_states(sys_, flat, load,
+                                              repair_buffer=rbuf),
+        "lp_tier": lambda: dcopf.evaluate_states(sys_, flat[idx],
+                                                 load[idx]),
+    })
+
+
 def phase_profile96(sys96):
     """The RTS-96 study step (batch 8192, "lp" nodal mode, the default
     max_lp 2048) by layer, with the LP tier split into its parts, each
@@ -1779,9 +2150,13 @@ def main() -> int:
         phase_k5(sys_, sys96, results)
     if "studyfused" in phases:
         phase_studyfused(results)
+    if "seq" in phases:
+        phase_seq(sys_, results)
     if "profile" in phases:
         phase_profile(sys_)
         phase_profile96(sys96)
+    if "profileseq" in phases:
+        phase_profile_seq(sys_)
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

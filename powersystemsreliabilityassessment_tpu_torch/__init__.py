@@ -9,8 +9,9 @@ version beside it that CPU tensors take.
 
 Ported so far: the HL2 non-sequential Monte Carlo main path
 (``studies.hl2_nsq.run_nsq_study``) on IEEE RTS-24 and, through the
-blocked-Cholesky LP route for 72 < m <= 336, on IEEE RTS-96; see
-ROADMAP.md for the rest. Entry points run on the card unless the caller
+blocked-Cholesky LP route for 72 < m <= 336, on IEEE RTS-96; the HL2
+sequential study (``studies.hl2_seq.run_seq_study``) on IEEE RTS-24;
+JSON checkpoints and resume for both; see ROADMAP.md for the rest. Entry points run on the card unless the caller
 passes ``device="cpu"``.
 """
 

@@ -29,6 +29,10 @@ hands tier 1's work to ``certify_finish`` and its result to
 ``evaluate_states_screened(pre=...)``; ``ops/certify_kernel.py`` is the
 whole of ``certify_states`` as one kernel.
 
+``baseline_report`` / ``print_baseline`` are the host-side sanity line
+the studies print before their loop, and ``copper_sheet_bound`` the
+network-free DNS lower bound.
+
 Not ported yet (ROADMAP.md Queue 1): the island-PF tier
 (``certify_island_pf``, ``pf_buffer``), ``island_blackout``, the large-m
 LP path (m > 336).
@@ -520,6 +524,57 @@ def overgen_infeasible(sys: System, comp_down, load_pu,
     gen_up = 1.0 - comp_down[:, :sys.n_gen].to(dt)
     pmin_committed = (gen_up * (sys.gen_pmax > 0).to(dt)) @ sys.gen_pmin
     return pmin_committed > load_pu.sum(1) + 1e-9
+
+
+def baseline_report(sys: System) -> dict:
+    """Intact-system sanity check before a study starts, on the host in
+    float64; mirrors reference ``engines/dcopf.py::baseline_report``.
+
+    The reference's MATLAB runs a full ``runopf`` on the intact network
+    (nsqMain.m:188-198); this is the capacity margin against peak load
+    and the largest intact line loading of the proportional (copper)
+    dispatch through the PTDF. A congested proportional dispatch is only
+    a warning (the OPF can redispatch); capacity below peak load means
+    the system sheds even intact and is flagged.
+    """
+    f64 = lambda t: t.detach().cpu().double().numpy()
+    cap, load = f64(sys.gen_pmax), f64(sys.load_pd)
+    total_cap, total_load = cap.sum(), load.sum()
+    disp = cap * (total_load / max(total_cap, 1e-12))
+    inj = f64(sys.gen_bus_onehot) @ disp - f64(sys.load_onehot) @ load
+    loading = np.abs(f64(sys.ptdf) @ inj) / np.maximum(f64(sys.br_rate),
+                                                       1e-12)
+    base = float(sys.base_mva)
+    return {
+        "capacity_mw": total_cap * base,
+        "peak_load_mw": total_load * base,
+        "margin_mw": (total_cap - total_load) * base,
+        "max_line_loading": float(loading.max()),
+        "capacity_feasible": bool(total_cap >= total_load),
+    }
+
+
+def print_baseline(sys: System) -> dict:
+    """Print :func:`baseline_report` on one line and return it; mirrors
+    reference ``engines/dcopf.py::print_baseline``."""
+    r = baseline_report(sys)
+    status = ("ok" if r["capacity_feasible"]
+              else "INFEASIBLE (sheds even intact)")
+    print(f"baseline: intact capacity {r['capacity_mw']:.0f} MW vs peak "
+          f"{r['peak_load_mw']:.0f} MW (margin {r['margin_mw']:.0f} MW, "
+          f"{status}); proportional-dispatch max line loading "
+          f"{100 * r['max_line_loading']:.0f}%")
+    return r
+
+
+def copper_sheet_bound(sys: System, comp_down: torch.Tensor,
+                       load_pu: torch.Tensor) -> torch.Tensor:
+    """Lower bound on DNS (MW): the generation-capacity deficit ignoring
+    the network; mirrors reference ``engines/dcopf.py::copper_sheet_bound``
+    (the tests' invariant: LP shed >= this bound)."""
+    up = 1.0 - comp_down[..., :sys.n_gen].to(sys.gen_pmax.dtype)
+    cap = up @ sys.gen_pmax
+    return torch.clamp_min(load_pu.sum(-1) - cap, 0.0) * sys.base_mva
 
 
 def _solve_batch(sys: System, comp_down, load_pu, compat: CompatFlags,

@@ -1,10 +1,12 @@
 """Reliability-index accumulators: device partial sums, host float64 stats.
 
 Port of ``powersystemsreliabilityassessment_tpu/parallel/accumulators.py``
-(``BatchMoments``, ``batch_moments``, ``RunningStats``). Each batch's
-partial sums are taken on the device; the host folds them into float64
-running statistics and evaluates the beta stopping rule. The mesh
-``psum`` is not ported (one device; ROADMAP.md Queue 1 item 12).
+(``BatchMoments``, ``batch_moments``, ``RunningStats``, ``AnnualStats``).
+Each batch's partial sums are taken on the device; the host folds them
+into float64 running statistics and evaluates the beta (NSQ) or CoV
+(SEQ) stopping rule. Both host accumulators round-trip through the JSON
+checkpoints of ``runtime/checkpoint.py`` (``state`` / ``from_state``).
+The mesh ``psum`` is not ported (one device; ROADMAP.md Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -134,3 +136,91 @@ class RunningStats:
         if den == 0:
             return np.zeros(0)
         return self.sum_comp_fail / den
+
+    def state(self) -> dict:
+        """The fields as a dict, for a checkpoint."""
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_state(cls, d: dict) -> "RunningStats":
+        """Inverse of :meth:`state`. A JSON round trip may turn the array
+        fields into lists; they come back as float64 arrays, so the index
+        properties work even when a restored study stops before folding
+        another batch."""
+        d = dict(d)
+        for k in ("sum_nodal", "sum_comp_fail"):
+            if d.get(k) is not None:
+                d[k] = np.asarray(d[k], np.float64)
+        return cls(**d)
+
+
+@dataclasses.dataclass
+class AnnualStats:
+    """Host-side per-year accumulator (SEQ path, seqMain.m:160-198);
+    mirrors reference ``parallel/accumulators.py::AnnualStats``."""
+
+    ens: list = dataclasses.field(default_factory=list)    # MWh per year
+    plc: list = dataclasses.field(default_factory=list)
+    nlc: list = dataclasses.field(default_factory=list)
+    dlc: list = dataclasses.field(default_factory=list)
+    dns: list = dataclasses.field(default_factory=list)
+    sum_nodal: np.ndarray | None = None
+    sum_comp_fail: np.ndarray | None = None
+    total_loss_hours: float = 0.0
+
+    def update_years(self, ens, plc, nlc, dlc, dns, nodal_sum,
+                     comp_fail_sum, loss_hours) -> None:
+        """Append one batch's per-year indices and add its sums."""
+        for lst, v in ((self.ens, ens), (self.plc, plc), (self.nlc, nlc),
+                       (self.dlc, dlc), (self.dns, dns)):
+            lst.extend(_f64(v).reshape(-1).tolist())
+        nodal_sum, comp_fail_sum = _f64(nodal_sum), _f64(comp_fail_sum)
+        self.sum_nodal = (nodal_sum if self.sum_nodal is None
+                          else self.sum_nodal + nodal_sum)
+        self.sum_comp_fail = (comp_fail_sum if self.sum_comp_fail is None
+                              else self.sum_comp_fail + comp_fail_sum)
+        self.total_loss_hours += float(loss_hours)
+
+    @property
+    def years(self) -> int:
+        return len(self.ens)
+
+    @property
+    def eens(self) -> float:
+        return float(np.mean(self.ens)) if self.ens else 0.0
+
+    @property
+    def cov(self) -> float:
+        """std / (mean sqrt(N)) with ddof = 1 (seqMain.m:183-185); inf
+        below two years, at a zero mean, or at zero observed spread (a
+        positive mean with no spread cannot show convergence)."""
+        n = self.years
+        if n < 2 or self.eens <= 0:
+            return float("inf")
+        s = np.std(self.ens, ddof=1)
+        if s == 0.0:
+            return float("inf")
+        return float(s / (self.eens * np.sqrt(n)))
+
+    def nodal_eens(self) -> np.ndarray:
+        """Per-bus EENS, MWh/yr (seqMain.m:252-257)."""
+        return self.sum_nodal / max(self.years, 1)
+
+    def component_importance(self) -> np.ndarray:
+        """Share of loss hours each component was down in."""
+        if self.sum_comp_fail is None or self.total_loss_hours == 0:
+            return np.zeros(0)
+        return self.sum_comp_fail / self.total_loss_hours
+
+    def state(self) -> dict:
+        """The fields as a dict, for a checkpoint."""
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_state(cls, d: dict) -> "AnnualStats":
+        """Inverse of :meth:`state` (array fields may arrive as lists)."""
+        d = dict(d)
+        for k in ("sum_nodal", "sum_comp_fail"):
+            if d.get(k) is not None:
+                d[k] = np.asarray(d[k], np.float64)
+        return cls(**d)

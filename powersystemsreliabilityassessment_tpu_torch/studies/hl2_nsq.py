@@ -12,9 +12,11 @@ Threefry keys become one ``torch.Generator`` per batch, seeded from
 (study seed, batch index): a batch is reproducible from its index, which
 the grow-and-redo protocol relies on. ``MCSConfig.fused_tier1`` samples
 and first-pass-certifies each batch in the K4 kernel
-(``ops/fused_sampler_cert.py``). Not ported yet (ROADMAP.md Queue 1):
-the mesh and ``psum``, checkpointing, antithetic / importance / CE /
-mixture sampling, the control variate, enumeration.
+(``ops/fused_sampler_cert.py``). A ``runtime.checkpoint.Checkpointer``
+saves the host state every few batches, and a study given one resumes
+from it. Not ported yet (ROADMAP.md Queue 1): the mesh and ``psum``,
+antithetic / importance / CE / mixture sampling, the control variate,
+enumeration.
 """
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ from powersystemsreliabilityassessment_tpu_torch.core.system import (
 from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
 from powersystemsreliabilityassessment_tpu_torch.ops import fused_sampler_cert
 from powersystemsreliabilityassessment_tpu_torch.parallel import accumulators
+from powersystemsreliabilityassessment_tpu_torch.runtime.checkpoint import (
+    Checkpointer)
 from powersystemsreliabilityassessment_tpu_torch.runtime.host_loop import (
     double_buffered_loop)
 from powersystemsreliabilityassessment_tpu_torch.sampling.state import (
@@ -142,17 +146,11 @@ def make_nsq_batch_step(sys: System, batch_per_device: int,
     return step
 
 
-def _fetch_async(out):
-    """Start copying one step's outputs to the host. Returns (host
-    tensor, CUDA event or None); the event completes when this batch's
-    own work and copy are done, so waiting on it never waits for a batch
-    dispatched later."""
-    m, n_over, n_infeas = out
-    flat = torch.cat([
-        torch.stack([m.n, m.sum_dns, m.sum_dns_sq, m.sum_flag,
-                     m.sum_flag_raw, n_over.to(m.sum_dns.dtype),
-                     n_infeas.to(m.sum_dns.dtype)]),
-        m.sum_nodal, m.sum_comp_fail])
+def fetch_async(flat: torch.Tensor):
+    """Start copying a step's packed outputs ``flat`` to the host. Returns
+    (host tensor, CUDA event or None); the event completes when this
+    batch's own work and copy are done, so waiting on it never waits for
+    a batch dispatched later."""
     if not flat.is_cuda:
         return flat, None
     host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
@@ -162,11 +160,25 @@ def _fetch_async(out):
     return host, event
 
 
-def _unpack(fetched, nb: int):
+def fetched_numpy(fetched) -> np.ndarray:
+    """Wait for one :func:`fetch_async` copy; its values as float64."""
     host, event = fetched
     if event is not None:
         event.synchronize()
-    v = host.numpy().astype(np.float64)
+    return host.numpy().astype(np.float64)
+
+
+def _fetch_async(out):
+    m, n_over, n_infeas = out
+    return fetch_async(torch.cat([
+        torch.stack([m.n, m.sum_dns, m.sum_dns_sq, m.sum_flag,
+                     m.sum_flag_raw, n_over.to(m.sum_dns.dtype),
+                     n_infeas.to(m.sum_dns.dtype)]),
+        m.sum_nodal, m.sum_comp_fail]))
+
+
+def _unpack(fetched, nb: int):
+    v = fetched_numpy(fetched)
     moments = accumulators.BatchMoments(
         n=v[0], sum_dns=v[1], sum_dns_sq=v[2], sum_flag=v[3],
         sum_nodal=v[7:7 + nb], sum_comp_fail=v[7 + nb:], sum_flag_raw=v[4])
@@ -204,7 +216,9 @@ def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
                   ipm: IPMConfig = IPMConfig(),
                   device: torch.device | str = "cuda",
                   log_every: int = 10,
-                  max_lp: int | None = None) -> NSQResult:
+                  max_lp: int | None = None,
+                  checkpointer: Checkpointer | None = None,
+                  checkpoint_every: int = 20) -> NSQResult:
     """HL2 NSQ study on one device (the card unless the caller passes
     ``device="cpu"``); mirrors reference
     ``studies/hl2_nsq.py::run_nsq_study`` (plain MC).
@@ -212,11 +226,28 @@ def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
     ``max_lp``: initial LP-lane buffer per batch (None = the default for
     ``cfg.nodal_mode``); on overflow it doubles and the batch is redone
     with the same generator, so the estimate does not depend on it.
+
+    ``checkpointer``: every ``checkpoint_every`` folded batches the
+    stats, histories, next batch index, overflow and infeasible counts
+    and the grown ``max_lp`` are saved; a study whose checkpointer holds
+    a state starts from it. A batch's draws depend only on (seed, batch
+    index), so the resumed study equals an uninterrupted one.
     """
     sys = build_system(case, compat, device)
     bpd = max(cfg.batch_size, 1)
     if max_lp is None:
         max_lp = default_max_lp(bpd, cfg.nodal_mode)
+    stats = accumulators.RunningStats()
+    histories = {"beta": [], "edns": [], "lole": [], "plc": []}
+    batch_idx, overflow, infeasible = 0, 0, 0
+    restored = checkpointer.restore() if checkpointer is not None else None
+    if restored is not None:
+        stats = accumulators.RunningStats.from_state(restored["stats"])
+        histories = restored["histories"]
+        batch_idx = int(restored["batch_idx"])
+        overflow = int(restored.get("overflow", 0))
+        infeasible = int(restored.get("infeasible", 0))
+        max_lp = int(restored.get("max_lp", max_lp))
     # Static shed-direction calibration: the first certificate pass then
     # closes ~99.96% of lanes. Correctness never depends on the hint.
     shed_hint = dcopf.calibrate_shed_hint(sys)
@@ -228,9 +259,6 @@ def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
     step = make_nsq_batch_step(sys, bpd, compat, ipm, max_lp=max_lp,
                                **step_kwargs)
 
-    stats = accumulators.RunningStats()
-    histories = {"beta": [], "edns": [], "lole": [], "plc": []}
-    overflow, infeasible = 0, 0
     hours = compat.hours_per_year_annualize
 
     def consume(fetched, next_idx) -> bool:
@@ -253,10 +281,16 @@ def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
         histories["edns"].append(stats.edns)
         histories["lole"].append(stats.lole(hours))
         histories["plc"].append(stats.plc)
-        if log_every and len(histories["beta"]) % log_every == 0:
+        n_batches = len(histories["beta"])
+        if log_every and n_batches % log_every == 0:
             print(f"samples {int(stats.n):7d}: beta={stats.beta:.6f} "
                   f"EDNS={stats.edns:.4f} MW LOLE={stats.lole(hours):.2f} "
                   f"hr/yr")
+        if checkpointer is not None and n_batches % checkpoint_every == 0:
+            checkpointer.save({"stats": stats.state(),
+                               "histories": histories,
+                               "batch_idx": next_idx, "overflow": overflow,
+                               "infeasible": infeasible, "max_lp": max_lp})
         return False
 
     double_buffered_loop(
@@ -264,7 +298,8 @@ def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
             step(batch_generator(cfg.seed, i, sys.device))),
         consume=consume,
         should_continue=lambda i: (i * bpd < cfg.max_samples
-                                   and stats.beta > cfg.beta_limit))
+                                   and stats.beta > cfg.beta_limit),
+        start_idx=batch_idx)
 
     return NSQResult(
         edns_mw=stats.edns, lole_hr_yr=stats.lole(hours), plc=stats.plc,

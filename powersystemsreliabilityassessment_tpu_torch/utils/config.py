@@ -3,7 +3,7 @@
 Port of ``powersystemsreliabilityassessment_tpu/utils/config.py``
 (``CompatFlags``, ``IPMConfig``, ``MCSConfig``). Field names, defaults and
 meanings are the reference's. The port carries only the fields its
-ported code reads; the reference's options for paths not ported yet
+ported code (the NSQ and SEQ studies) reads; the reference's options for paths not ported yet
 (antithetic and importance sampling, cross-entropy proposals, the
 large-m rescue ladder) arrive with those paths (ROADMAP.md Queue 1).
 """
@@ -18,18 +18,25 @@ class CompatFlags:
     (utils/config.py). Defaults replicate the reference behaviour."""
 
     # mc_sampling.m:40-41: the sync condenser (component 15, 1-based) is
-    # pinned up in the NSQ sampler.
+    # pinned up in the NSQ sampler only (the SEQ sampler does not pin it).
     sync_cond_always_up_nsq: bool = True
     # mc_simulation.m:57-59: DNS noise floor.
     dns_noise_floor_mw: float = 0.1
     # nsqMain.m:270: failure flag threshold on total DNS.
     nsq_fail_flag_threshold_mw: float = 1e-4
+    # seqMain.m:41: curtailment event threshold of the SEQ study.
+    seq_curtail_threshold_mw: float = 0.01
     # mc_simulation.m:86: nodal shed noise threshold.
     nodal_noise_threshold_mw: float = 1e-3
-    # NSQ LOLE annualization uses 8760 h.
+    # SEQ simulates 8736 h a year (seqMain.m:38); NSQ LOLE annualization
+    # uses 8760 h.
+    hours_per_year_seq: int = 8736
     hours_per_year_annualize: int = 8760
     # Committed-unit Pmin in the min-shed LP (reference default False).
     enforce_pmin: bool = False
+    # anloducurve.m:39's day-of-week formula ("reference") or the
+    # conventional calendar ("calendar"); core/load_profile.py.
+    weekday_mode: str = "reference"
     # Shed islands outright (reference option; not ported yet — the port
     # raises NotImplementedError when it is set).
     island_blackout: bool = False
@@ -43,6 +50,8 @@ class MCSConfig:
     batch_size: int = 8192
     max_samples: int = 100_000      # NSQ cap (nsqMain.m:61)
     beta_limit: float = 0.0017      # NSQ convergence target (nsqMain.m:60)
+    max_years: int = 4000           # SEQ cap (seqMain.m:39)
+    cov_threshold: float = 0.05     # SEQ convergence target (seqMain.m:40)
     # Certificate multi-branch-outage rank; None = auto per system
     # (studies.hl2_nsq.default_woodbury_k).
     woodbury_k: int | None = None

@@ -1,9 +1,10 @@
 """PyTorch port on a CUDA card: the hand-written kernels (K1-K6)
-against their plain PyTorch versions, the blocked Cholesky route on the
+against their plain PyTorch versions (K1, K2a and K2b also at the SEQ
+study's 4,096-lane LP buffer), the blocked Cholesky route on the
 kernels against the same route on the plain versions, the RTS-24 main
 path on the card against the same path on the CPU, an RTS-96 step that
-must launch K2 and K3, the fused sampler-certificate step without a
-host sync, and the 98-state golden replay on the card
+must launch K2 and K3, the fused sampler-certificate step and the SEQ
+step without a host sync, and the 98-state golden replay on the card
 (tests/test_torch_nsq.py runs it on the CPU through the same helper).
 
 Tests that need a card carry the ``gpu`` marker and skip without one.
@@ -21,7 +22,8 @@ import numpy as np
 import pytest
 import torch
 
-from powersystemsreliabilityassessment_tpu_torch.core import cases
+from powersystemsreliabilityassessment_tpu_torch.core import (
+    cases, load_profile)
 from powersystemsreliabilityassessment_tpu_torch.core.system import (
     build_system)
 from powersystemsreliabilityassessment_tpu_torch.engines import (
@@ -30,7 +32,9 @@ from powersystemsreliabilityassessment_tpu_torch.models import twostate
 from powersystemsreliabilityassessment_tpu_torch.ops import (
     batched_chol as bc, blocked_chol as bl, certify_kernel,
     fused_sampler_cert as ff, hw_sampler, ipm_fused)
-from powersystemsreliabilityassessment_tpu_torch.studies import hl2_nsq
+from powersystemsreliabilityassessment_tpu_torch.sampling import chronological
+from powersystemsreliabilityassessment_tpu_torch.studies import (
+    hl2_nsq, hl2_seq)
 from powersystemsreliabilityassessment_tpu_torch.utils.config import (
     CompatFlags, IPMConfig, MCSConfig)
 
@@ -1137,3 +1141,162 @@ def test_fused_step_never_waits_for_the_device(cuda):
     assert ff.launches["sample_certify_quick"] == before + 1
     assert float(m.n) == 8192 and int(n_over) == 0
     assert bool(torch.isfinite(m.sum_dns))
+
+
+# -- the SEQ study's shapes: 16 years x 256 LP lanes a year -------------------
+
+SEQ_LANES = 4096
+
+
+def seq_lp_inputs(sys_, n_lanes=SEQ_LANES, seed=11):
+    """Structured LP inputs of ``n_lanes`` real SEQ LP lanes: hour-states
+    of the port's own 16-year blocks at the study's load profile that the
+    certificate leaves uncertified or with a deficit (the lanes
+    ``hl2_seq.evaluate_years`` sends to the LP in "lp" nodal mode)."""
+    years, hours = 16, 8736
+    mt = twostate.mean_times(cases.rts24())
+    k = chronological.default_num_draws(mt[:, 0], mt[:, 1], hours)
+    load = hl2_seq.year_block_load(sys_, load_profile.load_factors(hours),
+                                   years)
+    downs, loads, got, block = [], [], 0, 0
+    while got < n_lanes:
+        flat = hl2_seq.sample_years(
+            hl2_nsq.batch_generator(seed, block, sys_.device), sys_, years,
+            hours, k).transpose(1, 2).reshape(years * hours, -1)
+        cert = dcopf.certify_states(sys_, flat, load,
+                                    repair_buffer=years * hours // 16)
+        idx = torch.nonzero((~cert.certified) | (cert.deficit > 0)).flatten()
+        downs.append(flat[idx])
+        loads.append(load[idx])
+        got += idx.numel()
+        block += 1
+    down, load = torch.cat(downs)[:n_lanes], torch.cat(loads)[:n_lanes]
+    up = 1.0 - down.float()
+    gen_up, br_up = up[:, :sys_.n_gen], up[:, sys_.n_gen:].contiguous()
+    c, b, l, u, cs = dcopf.build_state_lp_vectors(
+        sys_, gen_up, br_up, load, CompatFlags(), IPMConfig().theta_max)
+    return cs, br_up, c, b, l, u
+
+
+# The screened evaluator keeps an LP lane's answer only where its quality
+# (primal residual + 2 n duality gap) is within this (engines/dcopf.py
+# _finalize); elsewhere it takes the certificate's bound.
+LP_QUALITY_GUARD = 5e-3
+
+
+def _lp_optimum(st, args, lane):
+    """Float64 optimum (HiGHS) of one structured LP lane."""
+    from scipy.optimize import linprog
+    colscale, br_up, c, b, l, u = args
+    A = ipm_fused.mv(st, colscale[lane].expand(st.n, -1),
+                     br_up[lane].expand(st.n, -1),
+                     torch.eye(st.n, device=c.device)).T
+    f64 = lambda t: t.double().cpu().numpy()
+    r = linprog(f64(c[lane]), A_eq=f64(A), b_eq=f64(b[lane]),
+                bounds=list(zip(f64(l[lane]), f64(u[lane]))), method="highs")
+    assert r.success
+    return r.fun
+
+
+@pytest.mark.gpu
+def test_k1_at_the_seq_buffer_matches_plain(cuda):
+    # 4,096 lanes: one warp a lane and more blocks than one wave. Where
+    # the evaluator keeps both answers, K1 equals its plain version within
+    # chip_smoke.py's K1_OBJ_BOUND and K1_SCORE_BOUND (1e-3). Some SEQ
+    # lanes are LPs neither float32 IPM solves in 16 iterations (~5% fail
+    # the guard on both paths); where one side fails it and the objectives
+    # differ by more than 1e-3, the kernel is within the guard's 5e-3 of
+    # the float64 optimum, or no farther from it than the plain version.
+    sys_ = build_system(cases.rts24(), device=cuda)
+    st = ipm_fused.build_structure(sys_)
+    assert ipm_fused.launch_shape(st, SEQ_LANES, _sms())[1] == 1
+    args = seq_lp_inputs(sys_)
+    before = ipm_fused.launches["fused_ipm_iterations"]
+    ker = ipm_fused.fused_ipm_iterations(st, *args)
+    pla = ipm_fused.fused_ipm_iterations_plain(st, *args)
+    torch.cuda.synchronize()
+    assert ipm_fused.launches["fused_ipm_iterations"] == before + 1
+    assert all(bool(torch.isfinite(t).all()) for t in ker)
+    sol = [lp_ipm_structured.polish_structured(st, v, *args)
+           for v in (ker, pla)]
+    q = [s_.primal_residual + 2 * st.n * s_.duality_gap for s_ in sol]
+    kept = (q[0] <= LP_QUALITY_GUARD) & (q[1] <= LP_QUALITY_GUARD)
+    assert int(kept.sum()) >= 0.9 * SEQ_LANES
+    diff = (sol[0].objective - sol[1].objective).abs()
+    assert float(diff[kept].max()) <= 1e-3
+    assert float((ker[4] - pla[4]).abs()[kept].max()) <= 1e-3
+    for lane in torch.nonzero(~kept & (diff > 1e-3)).flatten().tolist():
+        opt = _lp_optimum(st, args, lane)
+        assert abs(float(sol[0].objective[lane]) - opt) <= max(
+            abs(float(sol[1].objective[lane]) - opt), LP_QUALITY_GUARD), lane
+
+
+@pytest.mark.gpu
+def test_k1_lane_alone_equals_it_in_the_seq_batch(cuda):
+    # A lane's bits in the 4,096-lane batch equal its bits among 4,096
+    # copies of itself and in a permuted batch (the same instance).
+    sys_ = build_system(cases.rts24(), device=cuda)
+    st = ipm_fused.build_structure(sys_)
+    args = seq_lp_inputs(sys_)
+    full = ipm_fused.fused_ipm_iterations(st, *args)
+    perm = torch.randperm(SEQ_LANES, generator=torch.Generator(
+        ).manual_seed(5)).to(cuda)
+    permuted = ipm_fused.fused_ipm_iterations(
+        st, *(a[perm].contiguous() for a in args))
+    inv = torch.argsort(perm)
+    for a, b in zip(full, permuted):
+        assert torch.equal(a, b[inv])
+    for lane in (0, 2047, 2048, SEQ_LANES - 1):
+        alone = ipm_fused.fused_ipm_iterations(
+            st, *(a[lane].expand_as(a).contiguous() for a in args))
+        for a, b in zip(_lane_rows(full, slice(lane, lane + 1)),
+                        _lane_rows(alone, slice(0, 1))):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_k2_at_the_seq_polish_shape_matches_plain(cuda, monkeypatch):
+    # [4096, 62, 62] on one warp a lane, and the solve [4096, 62], on the
+    # two matrices the polish factors for K1's iterates (A A' and
+    # A W^-1 A' + I), captured on the path.
+    sys_ = build_system(cases.rts24(), device=cuda)
+    assert bc.launch_shape(SEQ_LANES, 62, _sms())[0] == 1
+    st = ipm_fused.build_structure(sys_)
+    args = seq_lp_inputs(sys_)
+    kernels, mats = lp_ipm_batched._DIRECT_KERNELS["cuda"], []
+    monkeypatch.setitem(lp_ipm_batched._DIRECT_KERNELS, "cuda",
+                        kernels._replace(factor=lambda M: mats.append(
+                            M.clone()) or kernels.factor(M)))
+    lp_ipm_structured.polish_structured(
+        st, ipm_fused.fused_ipm_iterations(st, *args), *args)
+    assert [M.shape for M in mats] == [(SEQ_LANES, 62, 62)] * 2
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    for M in mats:
+        _k2_check(M, torch.randn((SEQ_LANES, 62), generator=gen,
+                                 device=cuda))
+
+
+@pytest.mark.gpu
+def test_seq_step_never_waits_for_the_device(cuda):
+    sys_ = build_system(cases.rts24(), device=cuda)
+    hours = 8736
+    mt = twostate.mean_times(cases.rts24())
+    k = chronological.default_num_draws(mt[:, 0], mt[:, 1], hours)
+    step = hl2_seq.make_seq_batch_step(
+        sys_, 16, CompatFlags(), IPMConfig(), hours, k, 256,
+        load_profile.load_factors(hours))
+    step(hl2_nsq.batch_generator(0, 0, cuda))      # builds the kernels
+    torch.cuda.synchronize()
+    before = dict(ipm_fused.launches, **bc.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = step(hl2_nsq.batch_generator(0, 1, cuda))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ens, plc, nlc, dlc = out[:4]
+    assert ens.shape == (16,) and bool(torch.isfinite(ens).all())
+    assert int(out[8]) == 0 and bool((dlc <= hours).all())
+    assert ipm_fused.launches["fused_ipm_iterations"] == \
+        before["fused_ipm_iterations"] + 1
+    assert bc.launches["cholesky"] == before["cholesky"] + 2
+    assert bc.launches["cho_solve"] == before["cho_solve"] + 3
