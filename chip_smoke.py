@@ -75,6 +75,19 @@ Phases, one line each (any failure raises, so the exit code is not 0):
               wrapper, plain and library times and bounds; the SEQ step's
               wall and device ms, hour-states a second and device busy
               share under the sync check at 16 and at 64 years a step
+ 14. lp300    the large-m LP path on case300s (m = 792): evaluate_states
+              on scripts/parity_case300.py's 128 stress lanes (block-Schur
+              bulk pass on K2a and K3, dense rescue ladder), guard-tripped
+              lanes (must be 0), every shed lane and 64 zero-shed lanes
+              against float64 HiGHS on the host (within 1.5 MW), quality
+              median and max, wall and device ms and launches of the call;
+              the same call at 2,048 lanes (the 128 tiled 16 times): wall
+              ms, guard-tripped and shed lanes and the lanes more than 1.5
+              MW from the 128-lane call's DNS, printed, not checked; K2a
+              at the Schur inverses' panels [B, 56, 56] / [B, 20, 20] and
+              K3 on identity right-hand sides at (56, 56) / (20, 20)
+              against their plain versions at B = 128 and 2,048, with
+              times, library calls and bounds; the seconds of each step
 The bench phase also times the fused step (fused_tier1) at its shape,
 under the same sync check, and prints it on a line of its own.
 Then one JSON line of per-kernel results and, last, the device line
@@ -102,7 +115,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PKG = "powersystemsreliabilityassessment_tpu_torch"
 ALL_PHASES = ("build", "k2", "k1", "bench", "study", "k3", "study96", "k6",
-              "k4", "k5", "studyfused", "seq")
+              "k4", "k5", "studyfused", "seq", "lp300")
 # Not run by default: a per-layer and per-kernel breakdown of the
 # bench-shaped step and of the RTS-96 step (for PERF.md), not part of
 # the smoke contract.
@@ -314,15 +327,17 @@ def _capturing_blocked_factor(store: list):
 
 
 @contextlib.contextmanager
-def _capturing_panels(store: list):
+def _capturing_panels(store: list, keep: int | None = None):
     """While active, every diagonal panel the blocked factor hands to K2
-    (the lifted Schur complement) is appended to ``store`` (a copy)."""
+    (the lifted Schur complement), or the first ``keep``, is appended to
+    ``store`` (a copy)."""
     from powersystemsreliabilityassessment_tpu_torch.ops import (
         batched_chol as bc)
     orig = bc.cholesky
 
     def cholesky(S):
-        store.append(S.clone())
+        if keep is None or len(store) < keep:
+            store.append(S.clone())
         return orig(S)
 
     bc.cholesky = cholesky
@@ -1666,7 +1681,8 @@ def _seq_lp_lanes(sys_, n_lanes: int, seed: int):
     real SEQ LP lanes: hour-states of the port's own 16-year blocks
     (``hl2_seq.sample_years``, the study's load profile) that the
     certificate leaves uncertified or with a deficit, the lanes
-    ``evaluate_years`` sends to the LP in "lp" nodal mode."""
+    ``evaluate_years`` sends to the LP in "lp" nodal mode; then the
+    years drawn and the lanes' (outage states, loads)."""
     import torch
     from powersystemsreliabilityassessment_tpu_torch.core import (
         cases, load_profile)
@@ -1700,7 +1716,7 @@ def _seq_lp_lanes(sys_, n_lanes: int, seed: int):
     gen_up, br_up = up[:, :sys_.n_gen], up[:, sys_.n_gen:].contiguous()
     c, b, l, u, colscale = dcopf.build_state_lp_vectors(
         sys_, gen_up, br_up, load, CompatFlags(), IPMConfig().theta_max)
-    return (colscale, br_up, c, b, l, u), block * years
+    return (colscale, br_up, c, b, l, u), block * years, (down, load)
 
 
 def _seq_step_line(sys_, years: int, reps: int = 8):
@@ -1827,7 +1843,7 @@ def phase_seq(sys_, results):
 
     # The kernels at the SEQ step's LP buffer: 256 lanes a year x 16.
     n = 256 * years_per_step
-    lanes, years_drawn = _seq_lp_lanes(sys_, n, seed=11)
+    lanes, years_drawn, _ = _seq_lp_lanes(sys_, n, seed=11)
     _line("seq", lp_lanes=n, years_drawn=years_drawn,
           lanes_per_year=f"{n / years_drawn:.2f}")
     st = ipm_fused.build_structure(sys_)
@@ -1862,6 +1878,302 @@ def phase_seq(sys_, results):
     # The step: the default 16 years, and 64 as a measurement.
     for years in (years_per_step, 64):
         _seq_step_line(sys_, years)
+
+
+# The large-m path (case300s, m = 792): scripts/parity_case300.py's 128
+# stress lanes (seed 5: 64 spread, 64 concentrated), every shed and
+# guard-tripped lane plus LP300_ZERO_LANES zero-shed ones held against
+# float64 HiGHS within LP300_ORACLE_MW (tests/test_case300.py's bound;
+# the reference: 0.033 MW over 76 lanes, results/case300_parity.json).
+# No lane may stay past the evaluator's guard. 2,048 lanes (the
+# reference's large-m buffer cap) is timed only.
+LP300_ORACLE_MW = 1.5
+LP300_ZERO_LANES = 64
+LP300_LANES = (128, 2048)
+LP300_KERNELS = ("cholesky", "trsm_fwd", "trsm_bwd")
+
+
+def _stress300_states(case, seed: int = 5):
+    """[128, n_comp] float32 outage states of scripts/parity_case300.py's
+    ``make_states``: 64 spread (2-4 lines, 3-8 units anywhere), then 64
+    concentrated (6-14 units and 0-3 lines inside one RTS-24 area)."""
+    import numpy as np
+    ng, nl = case.n_gen, case.n_branch
+    rng = np.random.default_rng(seed)
+    states = np.zeros((128, ng + nl), np.float32)
+    for i in range(64):
+        for j in rng.choice(nl, rng.integers(2, 5), replace=False):
+            states[i, ng + j] = 1.0
+        for j in rng.choice(ng, rng.integers(3, 9), replace=False):
+            states[i, j] = 1.0
+    area_ng, area_nl, n_areas = 33, 38, 12
+    for i in range(64, 128):
+        a = int(rng.integers(n_areas))
+        gs = rng.choice(area_ng, rng.integers(6, 15), replace=False)
+        states[i, a * area_ng + gs] = 1.0
+        nlo = int(rng.integers(0, 4))
+        if nlo:
+            ls = rng.choice(area_nl, nlo, replace=False)
+            states[i, ng + a * area_nl + ls] = 1.0
+    return states
+
+
+def _oracle300(case, states, dns, tripped):
+    """Float64 HiGHS DNS (MW, the 0.1 MW noise floor applied) of every
+    shed or guard-tripped lane and LP300_ZERO_LANES zero-shed lanes
+    (scripts/probe_oracle_diff.py's choice), on the host in four threads
+    (HiGHS releases the interpreter lock): (lanes, max |error| MW)."""
+    import numpy as np
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from scipy.optimize import linprog
+    from powersystemsreliabilityassessment_tpu_torch.core.system import (
+        build_system)
+    from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        CompatFlags, IPMConfig)
+    sys_ = build_system(case, device="cpu")
+    ng, nd = sys_.n_gen, sys_.n_load
+    idx = list(np.nonzero(dns > 0)[0]) + list(np.nonzero(tripped)[0])
+    zeros = np.nonzero(dns == 0)[0]
+    rng = np.random.default_rng(1)
+    idx += list(rng.choice(zeros, min(LP300_ZERO_LANES, len(zeros)),
+                           replace=False))
+    idx = list(dict.fromkeys(int(i) for i in idx))
+    up = torch.as_tensor(1.0 - states[idx])
+    load = sys_.load_pd[None, :].expand(len(idx), nd)
+    c, A, b, l, u = (t.double().numpy() for t in dcopf.build_state_lp(
+        sys_, up[:, :ng], up[:, ng:].contiguous(), load, CompatFlags(),
+        IPMConfig().theta_max))
+
+    def err(j):
+        r = linprog(c[j], A_eq=A[j], b_eq=b[j], bounds=list(zip(l[j], u[j])),
+                    method="highs")
+        if r.status != 0:
+            raise RuntimeError(f"lp300: HiGHS failed on lane {idx[j]}")
+        ref = float(r.x[ng:ng + nd].sum()) * sys_.base_mva
+        ref = 0.0 if ref < CompatFlags().dns_noise_floor_mw else ref
+        return abs(ref - float(dns[idx[j]]))
+
+    with ThreadPoolExecutor(4) as pool:
+        worst = max(pool.map(err, range(len(idx))))
+    return len(idx), worst
+
+
+def _schur_kernel_rows(panels):
+    """K2a at the Schur inverses' panels [B, 56, 56] and [B, 20, 20], and
+    K3 on identity right-hand sides at (P, K) = (56, 56) and (20, 20),
+    each against its plain version, timed beside its plain version,
+    one library call (cholesky_ex; solve_triangular) and its bound, at
+    B = 128 (the captured lanes) and 2,048 (tiled)."""
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.ops import (
+        batched_chol as bc, blocked_chol as bl)
+    S = {p.shape[-1]: p for p in panels}     # the last panel of each width
+    rows = {}
+    for B in LP300_LANES:
+        for P in (bl.PANEL, min(S)):
+            Sp = _tile(S[P], B)
+            L = bc.cholesky_plain(Sp)
+            eye = torch.eye(P, device="cuda").expand(B, P, P).contiguous()
+            for kind, args, kern, plain, lib, work, tol in (
+                    ("cholesky", (Sp,), bc.cholesky, bc.cholesky_plain,
+                     lambda M: torch.linalg.cholesky_ex(M)[0],
+                     _chol_work(B, P), K2_L_BOUND),
+                    ("trsm_fwd", (L, eye), bl.trsm_fwd, bl.trsm_fwd_plain,
+                     lambda L_, E: torch.linalg.solve_triangular(
+                         L_, E, upper=False), _trsm_work(B, P, P),
+                     K3_BOUND)):
+                got, want = kern(*args), plain(*args)
+                torch.cuda.synchronize()
+                row = dict(kind=kind, shape=[B, P, P],
+                           rel_err=_rel_err(got, want),
+                           abs_err=float((got - want).abs().max()),
+                           finite=bool(torch.isfinite(got).all()),
+                           ms=_time_ms(lambda: kern(*args)),
+                           plain_ms=_time_ms(lambda: plain(*args), reps=2),
+                           library_ms=_time_ms(lambda: lib(*args)),
+                           tolerance=tol, **_bound(*work))
+                name = f"{'chol' if kind == 'cholesky' else 'inv'}_p{P}_b{B}"
+                rows[name] = row
+                _line("lp300", path_shape=name, **{
+                    k: (f"{v:.3e}<={tol}" if k == "rel_err" else
+                        f"{v:.4f}" if isinstance(v, float) and
+                        k.endswith("ms") else
+                        f"{v:.3e}" if isinstance(v, float) else v)
+                    for k, v in row.items() if k != "tolerance"})
+    bad = [k for k, r in rows.items()
+           if not r["finite"] or r["rel_err"] > r["tolerance"]]
+    if bad:
+        raise RuntimeError(f"lp300: kernels disagree with their plain "
+                           f"versions at {bad}")
+    return rows
+
+
+def _device_once(fn):
+    """(device kernel ms, kernel launches, kernel events) of one call of
+    ``fn`` under torch.profiler, CUDA activity only: a large-m call
+    launches ~1.1e5 kernels, and host-op events would double what the
+    profiler keeps and sorts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if "cuda" in str(getattr(e, "device_type", "")).lower()
+               and _dev_us(e) > 0]
+    if not kernels:
+        raise RuntimeError("lp300: the profiler saw no device kernel")
+    return (sum(_dev_us(e) for e in kernels) / 1e3,
+            sum(e.count for e in kernels), kernels)
+
+
+def phase_lp300(results):
+    """The large-m LP path on case300s: evaluate_states on the 128 stress
+    lanes (guard, HiGHS oracle, quality, wall and device ms, launches),
+    the same call at 2,048 lanes (the 128 lanes tiled: wall time, and its
+    guard and DNS beside the 128-lane call's, unchecked), and K2a /
+    K3 at the Schur inverses' shapes against their plain versions; the
+    seconds each step of the phase took."""
+    import numpy as np
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.core import cases
+    from powersystemsreliabilityassessment_tpu_torch.core.system import (
+        build_system)
+    from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
+    from powersystemsreliabilityassessment_tpu_torch.ops import (
+        blocked_chol as bl)
+    seconds: dict = {}
+    clock = time.perf_counter()
+
+    def lap(name):
+        nonlocal clock
+        now = time.perf_counter()
+        seconds[name] = round(now - clock, 2)
+        clock = now
+
+    case = cases.case300s()
+    sys_ = build_system(case, device="cuda")
+    states = _stress300_states(case)
+    panels: list = []
+    rows = {}
+    lap("setup")
+    for B in LP300_LANES:
+        tile = B // 128
+        down = torch.as_tensor(np.tile(states, (tile, 1)),
+                               device="cuda").bool()
+        load = sys_.load_pd[None, :].expand(B, sys_.n_load)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        with _capturing_panels(panels, 12 if B == 128 else 0):
+            res = dcopf.evaluate_states(sys_, down, load)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = _counts()
+        resc = {k: int(v) for k, v in bl.rescues.items()}
+        _check_launched("lp300", counts, LP300_KERNELS)
+        lap(f"first_call_b{B}")
+        q = res.primal_residual.double().cpu().numpy()
+        dns = res.dns_mw.double().cpu().numpy()
+        cert = dcopf.certify_states(sys_, down, load).certified
+        tripped = (q > LP_QUALITY_GUARD) & ~cert.cpu().numpy()
+        row = dict(lanes=B, first_wall_ms=wall)
+        if B == 128:
+            # One more call for a warm wall time (the first call above
+            # also captures the panels), and one under the profiler for
+            # the device time. At 2,048 lanes the call is timed only: its
+            # first call is warm to within 1%, and the profiler takes
+            # ~25 s over the ~1.1e5 kernels of a call.
+            t0 = time.perf_counter()
+            dcopf.evaluate_states(sys_, down, load)
+            torch.cuda.synchronize()
+            row["wall_ms"] = (time.perf_counter() - t0) * 1e3
+            lap(f"warm_call_b{B}")
+            dev, n_kernels, kernels = _device_once(
+                lambda: dcopf.evaluate_states(sys_, down, load))
+            lap(f"profiled_call_b{B}")
+            # K2a's and K3's device ms in the call, and the kernels that
+            # take the most of it.
+            mine = {name: sum(_dev_us(e) for e in kernels
+                              if any(k in e.key for k in keys)) / 1e3
+                    for name, keys in (
+                        ("cholesky", ("cholesky_lanes_kernel",)),
+                        ("trsm", ("trsm_vec_kernel", "trsm_cols_kernel")))}
+            for e in sorted(kernels, key=_dev_us, reverse=True)[:8]:
+                print(f"  lp300 lanes={B} kernel {_dev_us(e) / 1e3:9.3f} "
+                      f"ms {e.count:6.0f}x  {e.key[:90]}")
+            row.update(device_ms=dev, device_kernels=n_kernels,
+                       kernel_device_ms=mine)
+        row.update(finite=bool(np.isfinite(dns).all()),
+                   quality_median=float(np.median(q)),
+                   quality_max=float(q.max()),
+                   shed_lanes=int((dns > 0).sum()),
+                   guard_tripped=int(tripped.sum()),
+                   launches={k: counts[k] for k in LP300_KERNELS},
+                   probe_rescued_lanes=resc["lanes"],
+                   peak_mem_bytes=torch.cuda.max_memory_allocated())
+        if B == 128:
+            n_oracle, worst = _oracle300(case, states, dns, tripped)
+            row.update(tripped_lanes=np.nonzero(tripped)[0].tolist(),
+                       oracle_lanes=n_oracle, oracle_max_err_mw=worst)
+            dns128 = dns
+            lap("oracle_b128")
+        else:
+            # The same lanes tiled: what the 128-lane call solves and
+            # this one does not (more hard lanes than restart_compact).
+            diff = np.abs(dns - np.tile(dns128, tile))
+            row.update(shed_lanes_tiled_128=int((dns128 > 0).sum()) * tile,
+                       lanes_off_128_call=int(
+                           (diff > LP300_ORACLE_MW).sum()),
+                       max_diff_from_128_call_mw=float(diff.max()))
+        rows[B] = row
+        _line("lp300", **{k: (f"{v:.4e}" if k.startswith("quality") else
+                              f"{v:.4f}" if isinstance(v, float) else
+                              json.dumps(v).replace(" ", "")
+                              if isinstance(v, (dict, list)) else v)
+                          for k, v in row.items()})
+        del res, down
+        torch.cuda.empty_cache()
+    main = rows[128]
+    if not (main["finite"] and rows[2048]["finite"]
+            and main["guard_tripped"] == 0
+            and main["oracle_max_err_mw"] <= LP300_ORACLE_MW):
+        raise RuntimeError(
+            f"lp300: guard_tripped {main['guard_tripped']} (must be 0) or "
+            f"oracle error {main['oracle_max_err_mw']:.4f} MW > "
+            f"{LP300_ORACLE_MW}")
+    kernel_rows = _schur_kernel_rows(panels)
+    lap("kernel_rows")
+    _line("lp300", seconds=json.dumps(seconds).replace(" ", ""),
+          total_s=round(sum(seconds.values()), 2))
+    src = f"{PKG}/csrc/"
+    ref = "powersystemsreliabilityassessment_tpu/ops/"
+    for name, kind, source, line, tol in (
+            ("cholesky", "cholesky", "batched_chol.cu",
+             "batched_chol.py:143", K2_L_BOUND),
+            ("trsm_fwd", "trsm_fwd", "blocked_trsm.cu",
+             "blocked_chol.py:97", K3_BOUND)):
+        mine = {k: r for k, r in kernel_rows.items() if r["kind"] == kind}
+        top = next(iter(mine.values()))
+        entry = results.setdefault(name, dict(
+            name=name, route="cuda", source=src + source,
+            replaces=ref + line, launches=main["launches"][name],
+            max_abs_err=0.0, tolerance=tol, shape=top["shape"],
+            ms=top["ms"], plain_ms=top["plain_ms"],
+            library_ms=top["library_ms"], bound_ms=top["bound_ms"],
+            bound_by=top["bound_by"]))
+        entry["launches_lp300"] = main["launches"][name]
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   *(r["abs_err"] for r in mine.values()))
+        entry.setdefault("path_shapes", {}).update(mine)
+    results.setdefault("trsm_bwd", dict(
+        name="trsm_bwd", route="cuda", source=src + "blocked_trsm.cu",
+        replaces=ref + "blocked_chol.py:102",
+        launches=main["launches"]["trsm_bwd"], max_abs_err=0.0,
+        ms=None, plain_ms=None, library_ms=None, bound_ms=None,
+        bound_by=None))["launches_lp300"] = main["launches"]["trsm_bwd"]
 
 
 def phase_studyfused(results):
@@ -2152,6 +2464,8 @@ def main() -> int:
         phase_studyfused(results)
     if "seq" in phases:
         phase_seq(sys_, results)
+    if "lp300" in phases:
+        phase_lp300(results)
     if "profile" in phases:
         phase_profile(sys_)
         phase_profile96(sys96)

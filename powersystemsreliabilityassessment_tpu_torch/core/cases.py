@@ -3,9 +3,9 @@
 Port of ``powersystemsreliabilityassessment_tpu/core/cases.py``:
 ``CaseData``, ``rts24`` (IEEE RTS-24, 24 buses, 33 units including the
 synchronous condenser, 38 branches, 2850 MW peak), ``replicate_case`` and
-``rts96`` (IEEE RTS-96, three RTS-24 areas and five ties), unchanged — the
-data is numpy and framework-free. ``case300s`` comes with the large-m
-slice (ROADMAP.md).
+``rts96`` (IEEE RTS-96, three RTS-24 areas and five ties) and ``case300s``
+(twelve RTS-24 areas on a backbone ring, 300 buses, LP m = 792),
+unchanged — the data is numpy and framework-free.
 """
 from __future__ import annotations
 
@@ -315,6 +315,91 @@ def rts96() -> CaseData:
         bus_pd=tile_f(base.bus_pd),
         bus_qd=tile_f(base.bus_qd),
         bus_area=np.repeat(np.arange(areas, dtype=np.int64), nb),
+        gen_bus=gen_bus,
+        gen_pmax=tile_f(base.gen_pmax),
+        gen_pmin=tile_f(base.gen_pmin),
+        gen_mttf=tile_f(base.gen_mttf),
+        gen_mttr=tile_f(base.gen_mttr),
+        gen_maint_weeks=tile_f(base.gen_maint_weeks),
+        br_from=np.concatenate(br_from).astype(np.int32),
+        br_to=np.concatenate(br_to).astype(np.int32),
+        br_x=np.concatenate(br_x),
+        br_rate=np.concatenate(br_rate),
+        br_lambda=np.concatenate(br_lambda),
+        br_dur=np.concatenate(br_dur),
+    )
+
+
+def case300s() -> CaseData:
+    """Synthetic 300-bus system at MATPOWER case300's scale (300 buses, 396
+    units, 492 branches; LP m = nb + nl = 792, n = 1,392), built in the
+    repository since no public case of this size ships reliability data.
+
+    * **12 RTS-24 areas** (buses 0..287): every bus, generator and branch
+      parameter, the reliability columns included, is the RTS-79 value
+      replicated per area.
+    * **12 backbone hub buses** (288..299, one per area, no load or
+      generation), a 345 kV ring: hub k joins its area at buses 13 and 23
+      (1-based) with two 500 MW links (x = 0.05 p.u.), and consecutive
+      hubs are joined by a 1000 MW ring branch (x = 0.03 p.u.); the links
+      take the RTS-79 230 kV line class's reliability (lambda = 0.38 a
+      year, 11 h repairs).
+
+    Totals: 36,860 MW of units, 34,200 MW peak. A deficit area imports up
+    to 1000 MW over the ring, so network-limited states exist.
+
+    Mirrors reference ``core/cases.py::case300s``.
+    """
+    base = rts24()
+    nb = base.n_bus
+    areas = 12
+    nb_total = areas * nb + areas          # 288 + 12 hubs = 300
+
+    def tile_f(a):
+        return np.concatenate([a for _ in range(areas)])
+
+    bus_pd = np.zeros(nb_total)
+    bus_qd = np.zeros(nb_total)
+    bus_pd[: areas * nb] = tile_f(base.bus_pd)
+    bus_qd[: areas * nb] = tile_f(base.bus_qd)
+
+    gen_bus = np.concatenate(
+        [base.gen_bus + k * nb for k in range(areas)]).astype(np.int32)
+
+    br_from = [base.br_from + k * nb for k in range(areas)]
+    br_to = [base.br_to + k * nb for k in range(areas)]
+    br_x = [base.br_x] * areas
+    br_rate = [base.br_rate] * areas
+    br_lambda = [base.br_lambda] * areas
+    br_dur = [base.br_dur] * areas
+
+    hub = lambda k: areas * nb + k
+    # Area-to-hub links: bus 13 and bus 23 (1-based) of each area.
+    for k in range(areas):
+        br_from.append(_i([k * nb + 12, k * nb + 22]))
+        br_to.append(_i([hub(k), hub(k)]))
+        br_x.append(_f([0.05, 0.05]))
+        br_rate.append(_f([500.0, 500.0]))
+        br_lambda.append(_f([0.38, 0.38]))
+        br_dur.append(_f([11.0, 11.0]))
+    # 345 kV backbone ring.
+    for k in range(areas):
+        br_from.append(_i([hub(k)]))
+        br_to.append(_i([hub((k + 1) % areas)]))
+        br_x.append(_f([0.03]))
+        br_rate.append(_f([1000.0]))
+        br_lambda.append(_f([0.38]))
+        br_dur.append(_f([11.0]))
+
+    return CaseData(
+        name="case300s",
+        base_mva=base.base_mva,
+        bus_pd=bus_pd,
+        bus_qd=bus_qd,
+        # Tile buses 0..287 keep their area; hub bus 288 + k is in area k.
+        bus_area=np.concatenate([
+            np.repeat(np.arange(areas, dtype=np.int64), nb),
+            np.arange(areas, dtype=np.int64)]),
         gen_bus=gen_bus,
         gen_pmax=tile_f(base.gen_pmax),
         gen_pmin=tile_f(base.gen_pmin),

@@ -22,7 +22,11 @@ solved on the lanes tier 1 leaves, compacted into a ``max_lp`` buffer
 (``evaluate_states_screened``): for m <= 72 by
 ``lp_ipm_structured.solve_box_lp_structured`` (the fused K1 kernel on
 CUDA), for 72 < m <= 336 by ``lp_ipm_batched.solve_box_lp_batched`` on
-the materialized A (the blocked Cholesky, K2 + K3 on CUDA).
+the materialized A (the blocked Cholesky, K2 + K3 on CUDA). For m > 336
+(``case300s``, m = 792) ``evaluate_states`` solves every lane through
+``lp_ipm_batched.solve_box_lp_ops`` on the structured operator
+``make_dc_linops`` (block-Schur bulk pass on K2a and K3, dense rescue
+ladder).
 
 The fused sampler-certificate path (``ops/fused_sampler_cert.py``)
 hands tier 1's work to ``certify_finish`` and its result to
@@ -34,8 +38,8 @@ the studies print before their loop, and ``copper_sheet_bound`` the
 network-free DNS lower bound.
 
 Not ported yet (ROADMAP.md Queue 1): the island-PF tier
-(``certify_island_pf``, ``pf_buffer``), ``island_blackout``, the large-m
-LP path (m > 336).
+(``certify_island_pf``, ``pf_buffer``), and with it the screened
+evaluator at m > 336, and ``island_blackout``.
 """
 from __future__ import annotations
 
@@ -567,6 +571,150 @@ def print_baseline(sys: System) -> dict:
     return r
 
 
+# Relative flow-block diagonal lift of the block-Schur normal solve
+# (make_dc_linops.schur_factor; reference dcopf.py:199): bounds the 1/dphi
+# cancellation on lanes whose flows sit at a bound, is compensated exactly
+# in the Schur complement, and the IPM's refinement against the true
+# operator removes it.
+_SCHUR_LIFT = 1e-5
+
+
+def _bvm(v, M):
+    """Batched row vector times matrix: v [B, i], M [B, i, j] -> [B, j]."""
+    return (v[:, None, :] @ M)[:, 0, :]
+
+
+def _bmv(M, v):
+    """Batched matrix times vector: M [B, i, j], v [B, j] -> [B, i]."""
+    return (M @ v[:, :, None])[:, :, 0]
+
+
+def make_dc_linops(sys: System, gen_col: torch.Tensor, br_up: torch.Tensor):
+    """Structured ``lp_ipm_batched.LinOps`` for the DC-OPF LP; mirrors
+    reference ``engines/dcopf.py::make_dc_linops``.
+
+    Uses :func:`build_state_lp`'s block layout (variables [pg | shed | f
+    | theta], rows [balance | flow]) so the IPM never materializes the
+    [B, m, n] constraint tensor: A v and A' y are one-hot scatters and
+    incidence products; A diag(w) A' is assembled by blocks (a
+    wf-weighted Laplacian plus the scattered gen / shed weights, a scaled
+    incidence, a diagonal plus the br_up-masked theta congruence). Lanes
+    differ only by ``gen_col`` [B, ng] (gen_up * (pmax > 0)) and
+    ``br_up`` [B, nl].
+
+    ``schur_factor(w, ridge, delta)`` factors A diag(w) A' + ridge I by
+    two exact reductions to [nb, nb] systems: Woodbury through the flow
+    block, with K = diag(1/wt) + mref' diag(br_up^2 / dphi) mref, then a
+    Schur complement onto the balance block, S = diag(dbal) + G K^-1 G'
+    + lap(gamma), where the Laplacian term cancels analytically (gamma
+    is zero at ridge = lift = 0). K^-1 and S^-1 are explicit inverses
+    (``ops/xla_chol.inv_spd_equilibrated``: K2a and K3 on the card).
+    ``schur_solve(F, r)`` is one block-elimination pass, each inverse
+    refined once against its matrix; the caller refines the whole solve
+    against the matrix-free operator.
+    """
+    from powersystemsreliabilityassessment_tpu_torch.engines.lp_ipm_batched import (
+        LinOps)
+    from powersystemsreliabilityassessment_tpu_torch.ops import xla_chol
+    ng, nd, nl, nb = sys.n_gen, sys.n_load, sys.n_branch, sys.n_bus
+    dt, dev = _fdt(sys), sys.device
+    cg = sys.gen_bus_onehot          # [nb, ng]
+    cd = sys.load_onehot             # [nb, nd]
+    minc = sys.incidence             # [nl, nb]
+    ref_mask = (torch.arange(nb, device=dev) != 0).to(dt)
+    mref = minc * ref_mask[None, :]  # gauge-fixed theta columns
+    inv_b = 1.0 / sys.b_susceptance  # [nl]
+    inv_b2 = inv_b * inv_b
+    eye_nb = torch.eye(nb, dtype=dt, device=dev)
+    eye_nl = torch.eye(nl, dtype=dt, device=dev)
+    f_lo, f_hi = ng + nd, ng + nd + nl
+
+    def split(v):
+        return v[:, :ng], v[:, ng:f_lo], v[:, f_lo:f_hi], v[:, f_hi:]
+
+    def congruence(left, wts, right):
+        """left' diag(wts[b]) right per lane: [nl, i], [B, nl], [nl, j]
+        -> [B, i, j] (the reference's einsum "lb,Bl,lc->Bbc")."""
+        return (left.T[None] * wts[:, None, :]) @ right
+
+    def mv(v):
+        vg, vs, vf, vt = split(v)
+        bal = (gen_col * vg) @ cg.T + vs @ cd.T - vf @ minc
+        flow = vf * inv_b[None, :] - br_up * (vt @ mref.T)
+        return torch.cat([bal, flow], dim=1)
+
+    def mtv(y):
+        yb, yf = y[:, :nb], y[:, nb:]
+        return torch.cat([gen_col * (yb @ cg), yb @ cd,
+                          inv_b[None, :] * yf - yb @ minc.T,
+                          -(br_up * yf) @ mref], dim=1)
+
+    def gram(w):
+        wg, ws, wf, wt = split(w)
+        dbal = (wg * gen_col * gen_col) @ cg.T + ws @ cd.T   # [B, nb]
+        mbb = congruence(minc, wf, minc) + dbal[:, :, None] * eye_nb
+        mbf = -minc.T[None] * (wf * inv_b[None, :])[:, None, :]
+        k = (mref[None] * wt[:, None, :]) @ mref.T
+        mff = (br_up[:, :, None] * k * br_up[:, None, :]
+               + (wf * inv_b2[None, :])[:, :, None] * eye_nl)
+        return torch.cat([torch.cat([mbb, mbf], dim=2),
+                          torch.cat([mbf.transpose(1, 2), mff], dim=2)],
+                         dim=1)
+
+    def normal(d):
+        return gram(1.0 / d)
+
+    def schur_factor(w, ridge: float = 0.0, delta: float = 1e-6):
+        wg, ws, wf, wt = split(w)
+        dbal = (wg * gen_col * gen_col) @ cg.T + ws @ cd.T + ridge
+        alpha = wf * inv_b[None, :]                      # [B, nl]
+        # The flow block's lift: a small fraction of the theta
+        # congruence's row scale q, compensated exactly in S (gamma).
+        q = br_up * br_up * (wt @ (mref * mref).T)       # [B, nl]
+        dphi = wf * inv_b2 + ridge + _SCHUR_LIFT * q
+        K = (congruence(mref, br_up * br_up / dphi, mref)
+             + (1.0 / wt)[:, :, None] * eye_nb)
+        Kinv = xla_chol.inv_spd_equilibrated(K, delta)
+        G = congruence(minc, alpha * br_up / dphi, mref)
+        Gt = G.transpose(1, 2)
+        Z = Kinv @ Gt                                    # K^-1 G', refined
+        Z = Z + Kinv @ (Gt - K @ Z)
+        S = G @ Z
+        S = 0.5 * (S + S.transpose(1, 2))
+        # The balance block's exact residue lap(wf) - minc' diag(alpha^2 /
+        # dphi) minc = lap(gamma), in a form without cancellation.
+        gam = wf * (ridge + _SCHUR_LIFT * q) / dphi
+        S = S + congruence(minc, gam, minc) + dbal[:, :, None] * eye_nb
+        Sinv = xla_chol.inv_spd_equilibrated(S, delta)
+        return alpha, dphi, K, Kinv, S, Sinv
+
+    def schur_solve(F, r):
+        alpha, dphi, K, Kinv, S, Sinv = F
+        rb, rf = r[:, :nb], r[:, nb:]
+
+        def kvec(v):                                     # K^-1 v, refined
+            z = _bvm(v, Kinv)
+            return z + _bvm(v - _bmv(K, z), Kinv)
+
+        def ff_inv(v):                                   # N_ff^-1 v
+            # Subtract in v's scale before the 1/dphi division.
+            h = kvec((br_up * (v / dphi)) @ mref)
+            return (v - br_up * (h @ mref.T)) / dphi
+
+        u = ff_inv(rf)
+        rhs_b = rb + (alpha * u) @ minc                  # rb - N_bf u
+        yb = _bvm(rhs_b, Sinv)
+        yb = yb + _bvm(rhs_b - _bmv(S, yb), Sinv)
+        yf = ff_inv(rf + alpha * (yb @ minc.T))          # rf - N_fb yb
+        return torch.cat([yb, yf], dim=1)
+
+    def take(idx):
+        return make_dc_linops(sys, gen_col[idx], br_up[idx])
+
+    return LinOps(mv, mtv, gram, normal, take, schur_factor=schur_factor,
+                  schur_solve=schur_solve)
+
+
 def copper_sheet_bound(sys: System, comp_down: torch.Tensor,
                        load_pu: torch.Tensor) -> torch.Tensor:
     """Lower bound on DNS (MW): the generation-capacity deficit ignoring
@@ -581,10 +729,12 @@ def _solve_batch(sys: System, comp_down, load_pu, compat: CompatFlags,
                  ipm: IPMConfig):
     """LP tier on every lane; mirrors reference
     ``engines/dcopf.py::_solve_batch`` (any batch size, no padding): m <=
-    72 takes the structured route (K1 + polish), 72 < m <= 336 the
+    72 takes the structured route (K1 + polish); m > 336 with
+    ``ipm.structured_gram`` the structured operator
+    (:func:`make_dc_linops`) through ``solve_box_lp_ops`` (block-Schur
+    bulk pass on K2a and K3, then the rescue ladder); otherwise the
     materialized-A solver ``solve_box_lp_batched`` (blocked Cholesky, K2
-    + K3); larger m raises NotImplementedError. Returns (shed, pg,
-    quality)."""
+    + K3, at 72 < m <= 336). Returns (shed, pg, quality)."""
     ng, nd, nl = sys.n_gen, sys.n_load, sys.n_branch
     n_vars = ng + nd + nl + sys.n_bus
     up = 1.0 - comp_down.to(_fdt(sys))
@@ -594,9 +744,13 @@ def _solve_batch(sys: System, comp_down, load_pu, compat: CompatFlags,
             sys, gen_up, br_up, load_pu, compat, ipm.theta_max)
         sol = lp_ipm_structured.solve_box_lp_structured(
             build_structure(sys), colscale, br_up, c, b, l, u, ipm)
+    elif (ipm.structured_gram
+          and sys.n_bus + nl > lp_ipm_batched._BLOCKED_MAX_M):
+        c, b, l, u, colscale = build_state_lp_vectors(
+            sys, gen_up, br_up, load_pu, compat, ipm.theta_max)
+        lops = make_dc_linops(sys, colscale[:, :ng], br_up)
+        sol = lp_ipm_batched.solve_box_lp_ops(c, b, l, u, lops, ipm)
     else:
-        # Before the [B, m, n] tensor is built.
-        lp_ipm_batched.check_lp_rows(sys.n_bus + nl)
         c, A, b, l, u = build_state_lp(sys, gen_up, br_up, load_pu, compat,
                                        ipm.theta_max)
         sol = lp_ipm_batched.solve_box_lp_batched(c, A, b, l, u, ipm)
@@ -699,9 +853,10 @@ def evaluate_states_screened(sys: System, comp_down: torch.Tensor,
     _check_compat(compat)
     if sys.n_bus + sys.n_branch > lp_ipm_batched._BLOCKED_MAX_M:
         raise NotImplementedError(
-            "m > 336: the island-PF tier (certify_island_pf, "
-            "default_pf_buffer) and the large-m LP are not ported yet "
-            "(ROADMAP.md Queue 1 item 6)")
+            "m > 336: the screened evaluator's island-PF tier 1.5 "
+            "(certify_island_pf, _island_rebalance, default_pf_buffer) is "
+            "not ported yet (ROADMAP.md Queue 1 item 6); evaluate_states "
+            "solves the LP on every lane at this size")
     B = comp_down.shape[0]
     if pre is None:
         hint_b = None

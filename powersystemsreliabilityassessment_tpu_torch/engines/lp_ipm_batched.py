@@ -1,26 +1,30 @@
 """Batched box-LP interior-point solver and the LP kernel routes.
 
-Port of ``powersystemsreliabilityassessment_tpu/engines/lp_ipm_batched.py``:
-``LPBatchSolution``, ``_pos``, ``polish_box_lp``, the materialized-A
-solver (``LinOps``, ``dense_linops``, ``solve_box_lp_batched``,
-``solve_box_lp_ops``) and the backend choice ``_make_chol_ops``. The
-reference picks its backend in several places (``on_tpu`` branches here
-and in ``dcopf._solve_batch``); the port has one place,
-:func:`lp_kernels`, that every LP caller reads, and one guard,
-:func:`check_lp_rows`, for the row counts it solves. The large-m
-machinery (m > 336: the warm restarts and ``_merge_lanes``, the
-compacted restart, the rescue ladder, the escalation passes, the
-block-Schur operator fields of ``LinOps`` and ``LinOps.take``) is not
-ported yet (ROADMAP.md Queue 1 item 6).
+Port of ``powersystemsreliabilityassessment_tpu/engines/lp_ipm_batched.py``,
+all of it: ``LPBatchSolution``, ``_pos``, ``_merge_lanes``,
+``_schur_solvers``, ``polish_box_lp``, the operator solver (``LinOps``
+with its block-Schur fields and ``take``, ``dense_linops``,
+``solve_box_lp_batched``, ``solve_box_lp_ops`` with the large-m warm
+restarts, compacted rescue ladder and escalation) and the backend choice
+``_make_chol_ops``. The reference picks its backend in several places
+(``on_tpu`` branches here and in ``dcopf._solve_batch``); the port has
+one place, :func:`lp_kernels`, that every LP caller reads.
+
+The reference's ``jax.lax.cond`` gates of the large-m ladder (run a
+stage only while some lane's quality score exceeds ``escalate_tol``)
+read their flag on the host here: one read a gate, at most seven a
+solve (the compacted rescue, its four stages, two escalations), none per
+iteration.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, NamedTuple
 
 import torch
 
 from powersystemsreliabilityassessment_tpu_torch.ops import (
-    batched_chol as bc, blocked_chol, ipm_fused)
+    batched_chol as bc, blocked_chol, ipm_fused, xla_chol)
 from powersystemsreliabilityassessment_tpu_torch.utils.config import (
     IPMConfig)
 
@@ -36,6 +40,32 @@ class LPBatchSolution(NamedTuple):
 def _pos(a, eps=1e-12):
     """max(a, eps); mirrors reference ``lp_ipm_batched.py::_pos``."""
     return torch.clamp_min(a, eps)
+
+
+def _merge_lanes(new: LPBatchSolution, old: LPBatchSolution
+                 ) -> LPBatchSolution:
+    """Per-lane keep-the-better merge of two solver passes; mirrors
+    reference ``lp_ipm_batched.py::_merge_lanes``. Lanes are ranked by
+    objective plus a heavy penalty on a primal residual past 3e-4 and on
+    a duality-gap bound (2 n gap) past 1e-3, so a feasible but
+    suboptimal candidate (small residual, large gap) never displaces a
+    near-optimal one, and a well-converged lane never regresses."""
+    n = new.x.shape[-1]
+
+    def pen(s):
+        return s.objective + 1e4 * (
+            torch.clamp_min(s.primal_residual - 3e-4, 0.0)
+            + torch.clamp_min(2 * n * s.duality_gap - 1e-3, 0.0))
+
+    take_new = pen(new) < pen(old)
+    return LPBatchSolution(*(
+        torch.where(take_new[:, None] if a.dim() == 2 else take_new, a, o)
+        for a, o in zip(new, old)))
+
+
+def _quality(sol: LPBatchSolution) -> torch.Tensor:
+    """[B] the evaluator's trust score, primal residual + 2 n gap."""
+    return sol.primal_residual + 2 * sol.x.shape[-1] * sol.duality_gap
 
 
 class LPKernels(NamedTuple):
@@ -70,18 +100,47 @@ _BLOCKED_KERNELS = LPKernels(blocked_chol.blocked_cholesky,
                              blocked_chol.blocked_cho_solve, None)
 
 
-def check_lp_rows(m: int) -> None:
-    """Raise NotImplementedError for an LP the port cannot solve yet."""
-    if m > _BLOCKED_MAX_M:
-        raise NotImplementedError(
-            f"LP with m = {m} > {_BLOCKED_MAX_M} rows: the large-m path "
-            "(xla_chol, explicit_spd_inv, the rescue ladder) is not ported "
-            "yet (ROADMAP.md Queue 1 item 6)")
+# Large-m refinement steps of a dense solve against the retained matrix
+# (reference _make_chol_ops, m > _BLOCKED_MAX_M).
+LARGE_REFINE_STEPS = 2
+
+
+def _large_factor(M: torch.Tensor):
+    """m > 336: the Cholesky factor (``xla_chol.chol``, cuSOLVER on the
+    card) and the matrix itself, kept for the refinement in
+    :func:`_large_solve`. The reference factors into the explicit L^-1
+    (``ops/xla_chol.factor``), a TPU choice that makes each solve two
+    matrix products. On an NVIDIA H100 80GB HBM3 at 700 W the
+    substitutions cost more (a refined solve of 32 lanes 3.7 ms against
+    0.4 ms), but they cleared case300s stress lane 106 (a 94 MW shed),
+    which every explicit-inverse variant left past the guard at its 0 MW
+    bound (PERF.md §6)."""
+    return xla_chol.chol(M), M
+
+
+def _large_solve(LM, r: torch.Tensor) -> torch.Tensor:
+    """Solve with :func:`_large_factor`, then LARGE_REFINE_STEPS steps of
+    iterative refinement against the retained M, which restore the
+    Newton directions a float32 factor of these barrier-weighted
+    matrices stalls (reference ``_make_chol_ops``)."""
+    L, M = LM
+    dy = xla_chol.cho_solve(L, r)
+    for _ in range(LARGE_REFINE_STEPS):
+        dy = dy + xla_chol.cho_solve(L, r - (M @ dy[:, :, None])[:, :, 0])
+    return dy
+
+
+# m > 336, any device: the dense factor (cuSOLVER on the card), used by
+# the rescue ladder's sub-solves and by large_m_schur=False. The
+# block-Schur bulk pass of solve_box_lp_ops runs K2a and K3 instead
+# (ops/blocked_chol.explicit_spd_inv).
+_LARGE_KERNELS = LPKernels(_large_factor, _large_solve, None)
 
 
 def lp_kernels(device: torch.device, m: int) -> LPKernels:
     """The LP kernels for ``device`` and row count ``m``."""
-    check_lp_rows(m)
+    if m > _BLOCKED_MAX_M:
+        return _LARGE_KERNELS
     if m > _PALLAS_MAX_M:
         return _BLOCKED_KERNELS
     dev = torch.device(device).type
@@ -117,34 +176,72 @@ def _eq_solve(chol_solve, chol_s, rhs):
     return s * chol_solve(chol, (s * rhs).contiguous())
 
 
+def _schur_solvers(mv_fn, mtv_fn, schur_factor, schur_solve, delta: float):
+    """(factor, solve) over gram-convention weights for the block-Schur
+    route; mirrors reference ``lp_ipm_batched.py::_schur_solvers``.
+    ``factor(w, ridge)`` builds the two-block inverse of A diag(w) A' +
+    ridge I; ``solve`` refines the one substitution pass twice against
+    the matrix-free operator, which removes the explicit inverses'
+    float32 rounding and the equilibration ridge, and returns the iterate
+    with the smallest max-norm residual (at extreme barrier-weight spans
+    the refinement can diverge)."""
+    def nfactor(w, ridge: float = 0.0):
+        return schur_factor(w, ridge, delta), w, ridge
+
+    def nsolve(F3, rhs):
+        F, w, ridge = F3
+
+        def apply_n(v):
+            out = mv_fn(w * mtv_fn(v))
+            return out + ridge * v if ridge else out
+
+        dy = schur_solve(F, rhs)
+        best_dy = dy
+        best_rn = (rhs - apply_n(dy)).abs().amax(1)
+        for _ in range(2):
+            dy = dy + schur_solve(F, rhs - apply_n(dy))
+            rn = (rhs - apply_n(dy)).abs().amax(1)
+            best_dy = torch.where((rn < best_rn)[:, None], dy, best_dy)
+            best_rn = torch.minimum(rn, best_rn)
+        return best_dy
+
+    return nfactor, nsolve
+
+
 def polish_box_lp(state, c, b, l, u, cfg: IPMConfig, mv_fn, mtv_fn,
-                  gram_fn) -> LPBatchSolution:
+                  gram_fn, schur=None) -> LPBatchSolution:
     """Post-iteration polish; mirrors reference
-    ``engines/lp_ipm_batched.py::polish_box_lp`` (dense-factor branch).
+    ``engines/lp_ipm_batched.py::polish_box_lp``.
 
     ``state`` is ``(x, y, zl, zu, best_score, best_x)``; the constraint
     operator comes as ``mv_fn(v) -> A v``, ``mtv_fn(y) -> A' y`` and
-    ``gram_fn(w) -> A diag(w) A'``. Steps: best-iterate selection,
-    projection onto Ax = b, a Woodbury crossover snap toward the active
-    bounds kept only when it does not worsen feasibility or objective,
-    and the final residual and duality-gap report.
+    ``gram_fn(w) -> A diag(w) A'``; ``schur``, a ``(schur_factor,
+    schur_solve)`` pair, takes the block-Schur route for the m x m
+    solves (:func:`_schur_solvers`) in place of the dense factor. Steps:
+    best-iterate selection, projection onto Ax = b, a Woodbury crossover
+    snap toward the active bounds kept only when it does not worsen
+    feasibility or objective, and the final residual and duality-gap
+    report.
     """
     x, y, zl, zu, best_score, best_x = state
     B, n = x.shape
     m = b.shape[1]
-    factor, chol_solve = _make_chol_ops(x.device, m)
     eye_m = torch.eye(m, dtype=x.dtype, device=x.device)
+    if schur is not None:
+        nfactor, fsolve = _schur_solvers(mv_fn, mtv_fn, *schur,
+                                         cfg.regularization)
+        chol_aat = nfactor(torch.ones_like(x))
+    else:
+        factor, chol_solve = _make_chol_ops(x.device, m)
 
-    def equilibrated_chol(M):
-        return _equilibrated_factor(factor, M, cfg.regularization)
+        def fsolve(chol_s, rhs):
+            return _eq_solve(chol_solve, chol_s, rhs)
 
-    def eq_solve(chol_s, rhs):
-        return _eq_solve(chol_solve, chol_s, rhs)
-
-    chol_aat = equilibrated_chol(gram_fn(torch.ones_like(x)))
+        chol_aat = _equilibrated_factor(factor, gram_fn(torch.ones_like(x)),
+                                        cfg.regularization)
 
     def project(xv):
-        return xv + mtv_fn(eq_solve(chol_aat, b - mv_fn(xv)))
+        return xv + mtv_fn(fsolve(chol_aat, b - mv_fn(xv)))
 
     width = u - l
     # Final candidate vs best-ever, then one projection polish.
@@ -165,9 +262,13 @@ def polish_box_lp(state, c, b, l, u, cfg: IPMConfig, mv_fn, mtv_fn,
     w = torch.where(at_l | at_u, 1e2, 1e-4)
     rhs = mtv_fn(b) + w * target
     winv = 1.0 / w
-    cholK = equilibrated_chol(gram_fn(winv) + eye_m)
+    if schur is not None:
+        cholK = nfactor(winv, 1.0)
+    else:
+        cholK = _equilibrated_factor(factor, gram_fn(winv) + eye_m,
+                                     cfg.regularization)
     t1 = winv * rhs
-    t2 = eq_solve(cholK, mv_fn(t1))
+    t2 = fsolve(cholK, mv_fn(t1))
     xp = t1 - winv * mtv_fn(t2)
     xp = torch.clamp(project(xp), l, u)
     ok = (torch.isfinite(xp).all(-1)
@@ -196,14 +297,19 @@ def polish_box_lp(state, c, b, l, u, cfg: IPMConfig, mv_fn, mtv_fn,
 
 class LinOps(NamedTuple):
     """Batched constraint operator for the box-LP core; mirrors reference
-    ``engines/lp_ipm_batched.py::LinOps`` without the block-Schur fields
-    and ``take`` (both serve only m > 336). ``normal`` stays apart from
+    ``engines/lp_ipm_batched.py::LinOps``. ``normal`` stays apart from
     ``gram`` so the dense operator keeps its symmetric square-root
-    rounding."""
+    rounding. ``schur_factor(w, ridge, delta) -> F`` and
+    ``schur_solve(F, r) -> one unrefined substitution pass`` are the
+    block-Schur factorization of A diag(w) A' + ridge I for structured A
+    (``dcopf.make_dc_linops``); None on dense operators."""
     mv: Callable      # v [B, n] -> A v                 [B, m]
     mtv: Callable     # y [B, m] -> A' y                [B, n]
     gram: Callable    # w [B, n] -> A diag(w) A'        [B, m, m]
     normal: Callable  # d [B, n] -> A diag(1/d) A'      [B, m, m]
+    take: Callable    # idx [k] -> LinOps over the idx lanes
+    schur_factor: Callable | None = None
+    schur_solve: Callable | None = None
 
 
 def dense_linops(A: torch.Tensor) -> LinOps:
@@ -226,42 +332,82 @@ def dense_linops(A: torch.Tensor) -> LinOps:
         G = A * torch.rsqrt(d)[:, None, :]
         return G @ G.transpose(1, 2)
 
-    return LinOps(mv, mtv, gram, normal)
+    def take(idx):
+        return dense_linops(A[idx])
+
+    return LinOps(mv, mtv, gram, normal, take)
 
 
-def solve_box_lp_batched(c, A, b, l, u,
-                         cfg: IPMConfig = IPMConfig()) -> LPBatchSolution:
+def solve_box_lp_batched(c, A, b, l, u, cfg: IPMConfig = IPMConfig(),
+                         x_init=None) -> LPBatchSolution:
     """Solve a batch of LPs min c'x s.t. Ax = b, l <= x <= u; c, l, u
     [B, n], A [B, m, n], b [B, m], float32 on one device. Mirrors
-    reference ``engines/lp_ipm_batched.py::solve_box_lp_batched`` (without
-    ``x_init``, which only the large-m recursion passes)."""
-    return solve_box_lp_ops(c, b, l, u, dense_linops(A), cfg)
+    reference ``engines/lp_ipm_batched.py::solve_box_lp_batched``."""
+    return solve_box_lp_ops(c, b, l, u, dense_linops(A), cfg, x_init=x_init)
 
 
-def solve_box_lp_ops(c, b, l, u, ops: LinOps,
-                     cfg: IPMConfig = IPMConfig()) -> LPBatchSolution:
+def _gate(score: torch.Tensor, tol: float) -> bool:
+    """The reference's ``lax.cond`` predicate ``any(score > tol)``, read
+    on the host (one device sync)."""
+    return bool((score > tol).any())
+
+
+def solve_box_lp_ops(c, b, l, u, ops: LinOps, cfg: IPMConfig = IPMConfig(),
+                     x_init=None) -> LPBatchSolution:
     """Batched Mehrotra IPM over a constraint operator, then the polish;
-    mirrors reference ``engines/lp_ipm_batched.py::solve_box_lp_ops`` for
-    m <= 336: the box-midpoint start, ``cfg.iterations`` predictor-
-    corrector steps (damped pure centering once mu < ``center_tol``),
-    per-lane freezing at ``mu_tol`` or on a non-finite step, best-iterate
-    tracking and ``polish_box_lp``. The reference's warm restarts
-    (``IPMConfig.restarts``) run only at m > 336 and are not ported.
-    Every normal matrix goes through :func:`_make_chol_ops` (at
-    72 < m <= 336 the blocked Cholesky)."""
+    mirrors reference ``engines/lp_ipm_batched.py::solve_box_lp_ops``.
+
+    One pass: the box-midpoint start (or ``x_init``, strictly inside the
+    box), ``cfg.iterations`` predictor-corrector steps (damped pure
+    centering once mu < ``center_tol``), per-lane freezing at ``mu_tol``
+    or on a non-finite step, best-iterate tracking and
+    :func:`polish_box_lp`. Every normal matrix goes through
+    :func:`_make_chol_ops` (blocked Cholesky at 72 < m <= 336, the dense
+    ``xla_chol`` factor above), or, at m > 336 when ``ops`` has the
+    block-Schur fields and ``cfg.large_m_schur``, through
+    :func:`_schur_solvers` (two [B, nb, nb] explicit inverses on K2a and
+    K3).
+
+    At m > 336 the rescue ladder follows the pass (``cfg.restarts``,
+    None = 1 there): the ``restart_compact`` worst lanes by quality score
+    are solved again, on the dense factor, through the stages of
+    ``cfg.rescue_stages`` (warm 2%, cold, two warm 1e-3 restorations),
+    each stage run only while some lane's best score exceeds
+    ``escalate_tol``, and merged back lane by lane (:func:`_merge_lanes`);
+    with ``restart_compact`` 0, full-buffer warm restarts instead. Then up
+    to ``escalate_passes`` full-buffer warm passes (insets 0.05, 0.1),
+    each run only while a lane still exceeds ``escalate_tol``. The gates
+    read their flag on the host (:func:`_gate`).
+    """
     B, n = c.shape
     m = b.shape[1]
-    factor, chol_solve = _make_chol_ops(c.device, m)
-    margin = 1e-9 * _pos(u - l)
+    large = m > _BLOCKED_MAX_M
+    use_schur = ops.schur_factor is not None and large and cfg.large_m_schur
+    width = u - l
+    margin = 1e-9 * _pos(width)
     tau = cfg.tau
 
-    def nfactor(d):
-        return _equilibrated_factor(factor, ops.normal(d), cfg.regularization)
+    if use_schur:
+        s_factor, nsolve = _schur_solvers(
+            ops.mv, ops.mtv, ops.schur_factor, ops.schur_solve,
+            cfg.regularization)
+
+        def nfactor(d):
+            return s_factor(1.0 / d)
+    else:
+        factor, chol_solve = _make_chol_ops(c.device, m)
+
+        def nfactor(d):
+            return _equilibrated_factor(factor, ops.normal(d),
+                                        cfg.regularization)
+
+        def nsolve(chol_s, rhs):
+            return _eq_solve(chol_solve, chol_s, rhs)
 
     def newton_step(d, sl, su, zl, zu, rd, rp, rcl, rcu, chol_s):
         rhat = rd - rcl / sl + rcu / su
         rhs = rp + ops.mv(rhat / d)
-        dy = _eq_solve(chol_solve, chol_s, rhs)
+        dy = nsolve(chol_s, rhs)
         dx = (ops.mtv(dy) - rhat) / d
         dzl = (rcl - zl * dx) / sl
         dzu = (rcu + zu * dx) / su
@@ -280,61 +426,131 @@ def solve_box_lp_ops(c, b, l, u, ops: LinOps,
         return (torch.clamp_max(tau * ap, 1.0)[:, None],
                 torch.clamp_max(tau * ad, 1.0)[:, None])
 
-    x, y = 0.5 * (l + u), torch.zeros_like(b)
-    zl, zu = torch.ones_like(c), torch.ones_like(c)
-    done = torch.zeros(B, dtype=torch.bool, device=c.device)
-    best_score = torch.full((B,), float("inf"), dtype=c.dtype,
-                            device=c.device)
-    best_x = x
-    for _ in range(cfg.iterations):
-        sl = _pos(x - l)
-        su = _pos(u - x)
-        rp = b - ops.mv(x)
-        rd = c - ops.mtv(y) - zl + zu
-        mu = (_bdot(sl, zl) + _bdot(su, zu)) / (2 * n)
+    def one_pass(x) -> LPBatchSolution:
+        y = torch.zeros_like(b)
+        zl, zu = torch.ones_like(c), torch.ones_like(c)
+        done = torch.zeros(B, dtype=torch.bool, device=c.device)
+        best_score = torch.full((B,), float("inf"), dtype=c.dtype,
+                                device=c.device)
+        best_x = x
+        for _ in range(cfg.iterations):
+            sl = _pos(x - l)
+            su = _pos(u - x)
+            rp = b - ops.mv(x)
+            rd = c - ops.mtv(y) - zl + zu
+            mu = (_bdot(sl, zl) + _bdot(su, zu)) / (2 * n)
 
-        score = mu + rp.abs().amax(-1)
-        better = score < best_score
-        best_score = torch.where(better, score, best_score)
-        best_x = torch.where(better[:, None], x, best_x)
+            score = mu + rp.abs().amax(-1)
+            better = score < best_score
+            best_score = torch.where(better, score, best_score)
+            best_x = torch.where(better[:, None], x, best_x)
 
-        done = done | (mu < cfg.mu_tol)
-        d = torch.clamp(zl / sl + zu / su, 1e-6, 1e10)
-        chol_s = nfactor(d)
-        centering = (mu < cfg.center_tol)[:, None]
+            done = done | (mu < cfg.mu_tol)
+            d = torch.clamp(zl / sl + zu / su, 1e-6, 1e10)
+            chol_s = nfactor(d)
+            centering = (mu < cfg.center_tol)[:, None]
 
-        dxa, dya, dzla, dzua = newton_step(
-            d, sl, su, zl, zu, rd, rp, -sl * zl, -su * zu, chol_s)
-        apa, ada = max_step(sl, su, zl, zu, dxa, dzla, dzua)
-        mu_aff = (_bdot(sl + apa * dxa, zl + ada * dzla)
-                  + _bdot(su - apa * dxa, zu + ada * dzua)) / (2 * n)
-        sigma = torch.where(
-            centering[:, 0], 0.5,
-            torch.clamp((mu_aff / _pos(mu)) ** 3, 0.0, 1.0))[:, None]
-        gate = torch.where(centering, 0.0, 1.0)
+            dxa, dya, dzla, dzua = newton_step(
+                d, sl, su, zl, zu, rd, rp, -sl * zl, -su * zu, chol_s)
+            apa, ada = max_step(sl, su, zl, zu, dxa, dzla, dzua)
+            mu_aff = (_bdot(sl + apa * dxa, zl + ada * dzla)
+                      + _bdot(su - apa * dxa, zu + ada * dzua)) / (2 * n)
+            sigma = torch.where(
+                centering[:, 0], 0.5,
+                torch.clamp((mu_aff / _pos(mu)) ** 3, 0.0, 1.0))[:, None]
+            gate = torch.where(centering, 0.0, 1.0)
 
-        rcl = sigma * mu[:, None] - sl * zl - gate * dxa * dzla
-        rcu = sigma * mu[:, None] - su * zu + gate * dxa * dzua
-        dx, dy, dzl, dzu = newton_step(
-            d, sl, su, zl, zu, rd, rp, rcl, rcu, chol_s)
-        ap, ad = max_step(sl, su, zl, zu, dx, dzl, dzu)
-        damp = torch.where(centering, 0.9, 1.0)
-        ap = damp * ap
-        ad = damp * ad
+            rcl = sigma * mu[:, None] - sl * zl - gate * dxa * dzla
+            rcu = sigma * mu[:, None] - su * zu + gate * dxa * dzua
+            dx, dy, dzl, dzu = newton_step(
+                d, sl, su, zl, zu, rd, rp, rcl, rcu, chol_s)
+            ap, ad = max_step(sl, su, zl, zu, dx, dzl, dzu)
+            damp = torch.where(centering, 0.9, 1.0)
+            ap = damp * ap
+            ad = damp * ad
 
-        xn = torch.clamp(x + ap * dx, l + margin, u - margin)
-        yn = y + ad * dy
-        zln = _pos(zl + ad * dzl)
-        zun = _pos(zu + ad * dzu)
-        finite = (torch.isfinite(xn).all(-1) & torch.isfinite(yn).all(-1)
-                  & torch.isfinite(zln).all(-1)
-                  & torch.isfinite(zun).all(-1))
-        keep = (done | ~finite)[:, None]
-        done = done | ~finite
-        x = torch.where(keep, x, xn)
-        y = torch.where(keep, y, yn)
-        zl = torch.where(keep, zl, zln)
-        zu = torch.where(keep, zu, zun)
-    return polish_box_lp((x, y, zl, zu, best_score, best_x), c, b, l, u,
-                         cfg, mv_fn=ops.mv, mtv_fn=ops.mtv,
-                         gram_fn=ops.gram)
+            xn = torch.clamp(x + ap * dx, l + margin, u - margin)
+            yn = y + ad * dy
+            zln = _pos(zl + ad * dzl)
+            zun = _pos(zu + ad * dzu)
+            finite = (torch.isfinite(xn).all(-1) & torch.isfinite(yn).all(-1)
+                      & torch.isfinite(zln).all(-1)
+                      & torch.isfinite(zun).all(-1))
+            keep = (done | ~finite)[:, None]
+            done = done | ~finite
+            x = torch.where(keep, x, xn)
+            y = torch.where(keep, y, yn)
+            zl = torch.where(keep, zl, zln)
+            zu = torch.where(keep, zu, zun)
+        return polish_box_lp(
+            (x, y, zl, zu, best_score, best_x), c, b, l, u, cfg,
+            mv_fn=ops.mv, mtv_fn=ops.mtv, gram_fn=ops.gram,
+            schur=((ops.schur_factor, ops.schur_solve) if use_schur
+                   else None))
+
+    def inset(xv, frac):
+        return torch.clamp(xv, l + frac * width, u - frac * width)
+
+    sol = one_pass(0.5 * (l + u) if x_init is None else x_init)
+    n_restarts = (cfg.restarts if cfg.restarts is not None
+                  else (1 if large else 0))
+    # A buffer no larger than restart_compact takes the whole-buffer
+    # "compacted" restart: a full restart, but through the dense rescue
+    # sub-solve, which must not share the Schur bulk pass's failure mode.
+    k = min(cfg.restart_compact, B)
+    if n_restarts > 0 and large and k > 0:
+        score = _quality(sol)
+        if _gate(score, cfg.escalate_tol):
+            sol = _rescue(c, b, l, u, ops, cfg, sol, score, k)
+        n_restarts = 0   # the rescue ladder replaces the full restarts
+    for _ in range(n_restarts):
+        # A full-length warm pass from the polished solution, 2% inside
+        # the box with fresh duals, merged lane by lane.
+        sol = _merge_lanes(one_pass(inset(sol.x, 0.02)), sol)
+    # Escalation: further warm passes, deeper inside the box each time,
+    # while some lane stays past the evaluator's trust tolerance.
+    for i in range(cfg.escalate_passes if large else 0):
+        if not _gate(_quality(sol), cfg.escalate_tol):
+            break
+        sol = _merge_lanes(one_pass(inset(sol.x, (0.05, 0.1)[min(i, 1)])),
+                           sol)
+    return sol
+
+
+def _rescue(c, b, l, u, ops: LinOps, cfg: IPMConfig, sol: LPBatchSolution,
+            score: torch.Tensor, k: int) -> LPBatchSolution:
+    """The compacted rescue ladder of reference ``solve_box_lp_ops``
+    (``run_rescue``): the ``k`` worst lanes by ``score`` are solved again
+    on the dense factor (no Schur, no restarts or escalation of their
+    own), through ``cfg.rescue_stages``. A float stage is a warm
+    sub-solve from the trajectory point clipped that fraction of the box
+    width inside (its result is the next stage's start); None is the cold
+    side branch from the box midpoint, which feeds only the merge. Each
+    stage runs only while the best-so-far worst score exceeds
+    ``escalate_tol``; results merge lane by lane (:func:`_merge_lanes`)
+    and go back into the buffer through the same merge."""
+    sub_cfg = dataclasses.replace(
+        cfg, restart_compact=0, large_m_schur=False, restarts=0,
+        escalate_passes=0,
+        iterations=(cfg.rescue_iterations
+                    if cfg.rescue_iterations is not None
+                    else cfg.iterations))
+    idx = torch.topk(score, k).indices
+    li, ui = l[idx], u[idx]
+    wid = ui - li
+    sub_ops = ops.take(idx)
+    cs, bs = c[idx], b[idx]
+    best = LPBatchSolution(*(t[idx] for t in sol))
+    probe_x = best.x
+    for frac in cfg.rescue_stages:
+        if not _gate(_quality(best), cfg.escalate_tol):
+            break
+        x0 = (0.5 * (li + ui) if frac is None
+              else torch.clamp(probe_x, li + frac * wid, ui - frac * wid))
+        s = solve_box_lp_ops(cs, bs, li, ui, sub_ops, sub_cfg, x_init=x0)
+        if frac is not None:
+            probe_x = s.x
+        best = _merge_lanes(s, best)
+    cand = LPBatchSolution(*(t.index_copy(0, idx, v)
+                             for t, v in zip(sol, best)))
+    return _merge_lanes(cand, sol)

@@ -1,8 +1,8 @@
 """Blocked batched Cholesky for systems wider than the direct K2 kernel.
 
 Port of ``powersystemsreliabilityassessment_tpu/ops/blocked_chol.py``
-(``blocked_cholesky``, ``blocked_cho_solve`` and the K3 kernels
-``trsm_fwd`` / ``trsm_bwd``) in batch-major layout, [B, m, m] and
+(``blocked_cholesky``, ``blocked_cho_solve``, ``explicit_spd_inv`` and the
+K3 kernels ``trsm_fwd`` / ``trsm_bwd``) in batch-major layout, [B, m, m] and
 [B, m]; ``to_batch_minor`` / ``from_batch_minor`` are not needed. A
 left-looking panel factorization:
 
@@ -22,7 +22,8 @@ launch the hand-written kernel of ``csrc/blocked_trsm.cu`` (or raise); on
 a CPU tensor they run ``trsm_fwd_plain`` / ``trsm_bwd_plain``, the same
 row-by-row substitution in plain PyTorch. ``launches`` counts kernel
 launches; ``rescues`` counts the probe's fragile-lane rescues.
-``explicit_spd_inv`` serves only m > 336 and is not ported yet.
+``explicit_spd_inv`` (the large-m LP's block-Schur inverses) runs K3 on
+identity right-hand sides.
 """
 from __future__ import annotations
 
@@ -245,3 +246,33 @@ def blocked_cho_solve(factor, r: torch.Tensor) -> torch.Tensor:
         best_x = torch.where((rn < best_rn)[:, None], x, best_x)
         best_rn = torch.minimum(rn, best_rn)
     return best_x
+
+
+def explicit_spd_inv(M: torch.Tensor) -> torch.Tensor:
+    """Explicit M^-1 of an SPD batch [B, m, m] through the blocked factor;
+    mirrors reference ``ops/blocked_chol.py::explicit_spd_inv``.
+
+    :func:`blocked_cholesky` (K2a on the diagonal panels, K3 on the
+    blocks below them, the probe and its rescue), then each panel's
+    L_ii^-1 by K3 ``trsm_fwd`` on identity right-hand sides, L^-1
+    assembled by block forward substitution in matmuls, and M^-1 =
+    L^-T L^-1. The panel lift and the explicit inverse's rounding are
+    left to the caller's refinement against the true operator.
+    """
+    panels, Ls, Loff, _ = blocked_cholesky(M)
+    B = M.shape[0]
+    inv_diag = []
+    for (i0, i1), Li in zip(panels, Ls):
+        p = i1 - i0
+        eye = torch.eye(p, dtype=M.dtype, device=M.device)
+        inv_diag.append(trsm_fwd(Li, eye.expand(B, p, p).contiguous()))
+    Linv = torch.zeros_like(M)
+    p0 = panels[0][1]
+    Linv[:, :p0, :p0] = inv_diag[0]
+    for i in range(1, len(panels)):
+        i0, i1 = panels[i]
+        slab = torch.cat([Loff[(i, k)] for k in range(i)], dim=2)
+        S = slab @ Linv[:, :i0, :i0]
+        Linv[:, i0:i1, :i0] = -(inv_diag[i] @ S)
+        Linv[:, i0:i1, i0:i1] = inv_diag[i]
+    return Linv.transpose(1, 2) @ Linv

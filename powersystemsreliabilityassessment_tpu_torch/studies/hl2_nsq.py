@@ -218,7 +218,7 @@ def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
                   log_every: int = 10,
                   max_lp: int | None = None,
                   checkpointer: Checkpointer | None = None,
-                  checkpoint_every: int = 20) -> NSQResult:
+                  checkpoint_every: int = 50) -> NSQResult:
     """HL2 NSQ study on one device (the card unless the caller passes
     ``device="cpu"``); mirrors reference
     ``studies/hl2_nsq.py::run_nsq_study`` (plain MC).

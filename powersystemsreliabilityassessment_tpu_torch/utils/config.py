@@ -3,9 +3,10 @@
 Port of ``powersystemsreliabilityassessment_tpu/utils/config.py``
 (``CompatFlags``, ``IPMConfig``, ``MCSConfig``). Field names, defaults and
 meanings are the reference's. The port carries only the fields its
-ported code (the NSQ and SEQ studies) reads; the reference's options for paths not ported yet
-(antithetic and importance sampling, cross-entropy proposals, the
-large-m rescue ladder) arrive with those paths (ROADMAP.md Queue 1).
+ported code (the NSQ and SEQ studies, the large-m LP solver) reads; the
+reference's options for paths not ported yet (antithetic and importance
+sampling, cross-entropy proposals) arrive with those paths (ROADMAP.md
+Queue 1).
 """
 from __future__ import annotations
 
@@ -81,3 +82,38 @@ class IPMConfig:
     mu_tol: float = 1e-7
     # Below this mu, damped pure-centering steps replace Mehrotra steps.
     center_tol: float = 1e-4
+    # Extra polished warm-restart passes of the batched IPM (the stall
+    # rescue at large m; lp_ipm_batched.solve_box_lp_ops). None = 1 when m
+    # exceeds the blocked-Cholesky range (case300 scale), else 0.
+    restarts: int | None = None
+    # Large-m only: after the restarts, up to this many further warm-
+    # restart passes, each run only when some lane's quality score
+    # (primal_residual + 2 n duality_gap, the score dcopf's 5e-3 guard
+    # reads) still exceeds escalate_tol. A clean batch skips them.
+    escalate_passes: int = 2
+    escalate_tol: float = 5e-3
+    # Large-m only: in place of the restart on the whole buffer, compact
+    # the worst restart_compact lanes by quality score into a sub-buffer
+    # and run the restart and escalation there (the rescue ladder, on the
+    # dense factor); lanes left behind keep their first-pass solution,
+    # whose score bounds their duality gap. 0 restarts the whole buffer.
+    restart_compact: int = 32
+    # Mehrotra iterations of each rescue-ladder sub-solve; None =
+    # ``iterations``.
+    rescue_iterations: int | None = None
+    # Rescue-ladder stage insets, in trajectory order: a float is a warm
+    # sub-solve started that fraction of the box width inside its
+    # trajectory point, None the cold side branch (box midpoint; it feeds
+    # the per-lane merge only). A stage runs only while some lane's best
+    # score exceeds escalate_tol: warm 2% (escapes step-length jams) ->
+    # cold (escapes a wrong basin) -> two 1e-3 feasibility restorations.
+    rescue_stages: tuple = (0.02, None, 1e-3, 1e-3)
+    # Large m: the structured constraint operator (dcopf.make_dc_linops),
+    # which assembles A diag(w) A' from the DC-OPF blocks without a
+    # [B, m, n] tensor. False materializes A.
+    structured_gram: bool = True
+    # Large m with the structured operator: the block-Schur normal solve
+    # (two [B, nb, nb] explicit inverses, Woodbury through the flow block
+    # and a Schur complement onto the balance block) in place of the
+    # [B, m, m] dense factor. False = the dense factor.
+    large_m_schur: bool = True

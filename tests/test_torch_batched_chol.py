@@ -98,3 +98,55 @@ def test_wrappers_run_plain_on_cpu(spd):
 def test_kernel_operand_checks(bad, msg):
     with pytest.raises(ValueError, match=msg):
         cuda_build.check_operand(bad, "M", (2, 3, 3))
+
+
+def test_k2_difference_on_synthetic_polish_weights_is_conditioning():
+    """The 31 lanes where K2a and its plain version differed by more than
+    chip_smoke.py's K2_L_BOUND (1e-4; up to 1.9e-4) at the SEQ polish
+    shape with synthetic barrier weights (tests/golden/
+    k2_synthetic_lanes.npz, from scripts/torch_seq_lanes_dump.py on the
+    card and scripts/torch_seq_lane_faults.py --golden: the states,
+    hourly loads and the 1e2 / 1e-4 weight mask of lanes of chip_smoke.py
+    seq's 4,096-lane buffer, equilibrated A W^-1 A' + I). Factored in float32 by the reference's
+    own kernel (Pallas, interpret mode) and by the plain version, both
+    land more than K2_L_BOUND from the float64 factor too (the card's
+    two results differ by the same order): the matrices' conditioning
+    (cond 4.7e4-9.2e4), not K2a, sets the difference, and every float32
+    factor stays within cond * eps_f32 of the float64 one."""
+    import pathlib
+    from powersystemsreliabilityassessment_tpu_torch.core import cases
+    from powersystemsreliabilityassessment_tpu_torch.core.system import (
+        build_system)
+    from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
+    from powersystemsreliabilityassessment_tpu_torch.ops import ipm_fused
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        CompatFlags)
+    d = np.load(pathlib.Path(__file__).parent / "golden"
+                / "k2_synthetic_lanes.npz")
+    sys_ = build_system(cases.rts24(), device="cpu")
+    up = 1.0 - torch.as_tensor(d["down"]).float()
+    br_up = up[:, 33:].contiguous()
+    *_, cs = dcopf.build_state_lp_vectors(
+        sys_, up[:, :33], br_up, torch.as_tensor(d["load"]), CompatFlags(),
+        6.0)
+    st = ipm_fused.build_structure(sys_)
+    w = torch.where(torch.as_tensor(d["wmask"]), 1e2, 1e-4)
+    M = ipm_fused.normal_matrix(st, cs * cs / w, br_up) + torch.eye(st.m)
+    s = torch.rsqrt(torch.diagonal(M, dim1=1, dim2=2))
+    M = (M * s[:, :, None] * s[:, None, :] + 1e-7 * torch.eye(st.m)).numpy()
+    n = M.shape[0]
+    pad = np.concatenate([M, np.tile(np.eye(st.m, dtype=np.float32),
+                                     (B - n, 1, 1))])
+    L_ref = np.asarray(ref_bc.from_batch_minor(ref_bc.cholesky_bm(
+        ref_bc.to_batch_minor(jnp.asarray(pad)))))[:n]
+    L_plain = bc.cholesky_plain(torch.as_tensor(M)).numpy()
+    L64 = np.linalg.cholesky(M.astype(np.float64))
+    lane = lambda a: np.abs(a).reshape(n, -1).max(1)
+    rel = lambda a: lane(a - L64) / np.maximum(lane(L64), 1.0)
+    cond = np.linalg.cond(M.astype(np.float64))
+    card = d["kernel_vs_plain"]
+    assert card.min() > 1e-4                     # the lanes over the bound
+    assert rel(L_ref).max() > 1e-4              # the reference off as far
+    assert rel(L_plain).max() > 1e-4
+    assert (rel(L_ref) <= cond * 2.0 ** -24).all()
+    assert (rel(L_plain) <= cond * 2.0 ** -24).all()

@@ -3,7 +3,8 @@ against their plain PyTorch versions (K1, K2a and K2b also at the SEQ
 study's 4,096-lane LP buffer), the blocked Cholesky route on the
 kernels against the same route on the plain versions, the RTS-24 main
 path on the card against the same path on the CPU, an RTS-96 step that
-must launch K2 and K3, the fused sampler-certificate step and the SEQ
+must launch K2 and K3, K2a and K3 at the case300s block-Schur shapes and
+the case300s LP path on eight deep contingencies, the fused sampler-certificate step and the SEQ
 step without a host sync, and the 98-state golden replay on the card
 (tests/test_torch_nsq.py runs it on the CPU through the same helper).
 
@@ -72,6 +73,23 @@ def _lp_inputs(sys_, down):
     c, b, l, u, cs = dcopf.build_state_lp_vectors(
         sys_, gen_up, br_up, load, CompatFlags(), IPMConfig().theta_max)
     return cs, br_up, c, b, l, u
+
+
+def concentrated_300(case, n):
+    """[n, n_comp] float32 deep contingencies of ``case300s``
+    (tests/test_case300.py's recipe, its four lanes first): in area 2 i +
+    1 (lanes 6-11: area 2 (i - 6)), the 9 + i largest of its 33 units and
+    two of its lines go down, so the area's deficit exceeds its 1000 MW
+    import and the shed is transmission-limited. Shared with
+    tests/test_torch_case300.py (CPU)."""
+    ng, nl = case.n_gen, case.n_branch
+    states = np.zeros((n, ng + nl), np.float32)
+    for i in range(n):
+        a = 2 * i + 1 if i < 6 else 2 * (i - 6)
+        gs = np.argsort(case.gen_pmax[a * 33:(a + 1) * 33])[-(9 + i):]
+        states[i, a * 33 + gs] = 1.0
+        states[i, ng + a * 38 + np.array([3 + i, 17])] = 1.0
+    return states
 
 
 def golden_states(case, sys_):
@@ -662,6 +680,73 @@ def test_rts96_step_launches_k2_and_k3(cuda):
     after = {**bc.launches, **bl.launches}
     for name in ("cholesky", "trsm_fwd", "trsm_bwd"):
         assert after[name] > before[name], name
+
+
+def case300_schur_panels(sys_, n=8):
+    """The diagonal panels K2a factors in the first block-Schur factor of
+    ``n`` concentrated case300s lanes at the box-midpoint start's barrier
+    weights: K's five [n, 56, 56] and one [n, 20, 20] (nb = 300), then
+    S's."""
+    states = concentrated_300(cases.case300s(), n)
+    up = 1.0 - torch.as_tensor(states, device=sys_.device)
+    ng = sys_.n_gen
+    load = sys_.load_pd[None, :].expand(n, sys_.n_load)
+    c, b, l, u, cs = dcopf.build_state_lp_vectors(
+        sys_, up[:, :ng], up[:, ng:].contiguous(), load, CompatFlags(),
+        IPMConfig().theta_max)
+    ops = dcopf.make_dc_linops(sys_, cs[:, :ng], up[:, ng:].contiguous())
+    x = 0.5 * (l + u)
+    d = 1.0 / (x - l) + 1.0 / (u - x)
+    panels = []
+    factor = bc.cholesky
+
+    def capture(S):
+        panels.append(S.clone())
+        return factor(S)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(bc, "cholesky", capture)
+        ops.schur_factor(1.0 / d, 0.0, IPMConfig().regularization)
+    return panels
+
+
+@pytest.mark.gpu
+def test_k2a_and_k3_at_the_schur_shapes_match_plain(cuda):
+    sys_ = build_system(cases.case300s(), device=cuda)
+    panels = case300_schur_panels(sys_)
+    assert [p.shape[-1] for p in panels] == [56] * 5 + [20] + [56] * 5 + [20]
+    for S in (panels[4], panels[5], panels[10], panels[11]):
+        for batch in (S.shape[0], 2048):
+            M = S.repeat(batch // S.shape[0], 1, 1).contiguous()
+            L = _k2_check(M)
+            P = M.shape[-1]
+            eye = torch.eye(P, device=cuda).expand(batch, P, P).contiguous()
+            before = bl.launches["trsm_fwd"]
+            got, want = bl.trsm_fwd(L, eye), bl.trsm_fwd_plain(L, eye)
+            torch.cuda.synchronize()
+            assert bl.launches["trsm_fwd"] == before + 1
+            # chip_smoke.py's K3_BOUND.
+            assert float(_lane_rel_err(got, want).max()) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_case300_evaluate_states_on_card(cuda):
+    """Eight concentrated deep contingencies of case300s through
+    evaluate_states on the card: the Schur bulk pass launches K2a and K3,
+    and no lane trips the evaluator's 5e-3 guard."""
+    sys_ = build_system(cases.case300s(), device=cuda)
+    down = torch.as_tensor(concentrated_300(cases.case300s(), 8),
+                           device=cuda).bool()
+    load = sys_.load_pd[None, :].expand(8, sys_.n_load)
+    before = {**bc.launches, **bl.launches}
+    res = dcopf.evaluate_states(sys_, down, load)
+    cert = dcopf.certify_states(sys_, down, load).certified
+    tripped = int(((res.primal_residual > 5e-3) & ~cert).sum())
+    assert tripped == 0
+    assert bool(torch.isfinite(res.dns_mw).all())
+    assert float(res.dns_mw.min()) > 600.0     # transmission-limited shed
+    for name, d in (("cholesky", bc.launches), ("trsm_fwd", bl.launches)):
+        assert d[name] > before[name]
 
 
 @pytest.mark.gpu
