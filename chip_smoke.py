@@ -88,6 +88,32 @@ Phases, one line each (any failure raises, so the exit code is not 0):
               K3 on identity right-hand sides at (56, 56) / (20, 20)
               against their plain versions at B = 128 and 2,048, with
               times, library calls and bounds; the seconds of each step
+ 15. pf300    tier 1.5 on the card: certify_states(woodbury_k=4) on
+              16,384 plain-MC case300s states from the port's sampler
+              (seed 300), the misses compacted into default_pf_buffer's
+              256 lanes and certify_island_pf on them under the sync
+              check; every certified lane within 0.05 MW of float64
+              HiGHS and the island bound at most 0.05 MW above it on
+              every valid lane; the same certified mask and the bound
+              within 1e-4 p.u. as the port on CPU tensors; the miss and
+              certified shares, the call's wall and device ms, launches,
+              peak memory, bound and bound share
+ 16. study300 run_nsq_study(case300s(), MCSConfig(batch_size=16384,
+              max_samples=262144, beta_limit=0, seed=3,
+              nodal_mode="proportional")) through the screened evaluator
+              with tier 1.5, held against results/case300_scaleup.json
+              (EDNS and LOLE within 4 combined standard errors; z against
+              the seed-4 replicate printed), overflow 0, K2a and K3
+              launched on every batch with LP work, at most 8 LP lanes
+              past the guard over the study (7 measured, fault E); per
+              screened call the tier-1 misses, the lanes tier 1.5 leaves,
+              the LP lanes, the lanes past the guard and the lanes over
+              escalate_tol that enter the rescue ladder (beside
+              restart_compact); wall and
+              samples/s; the wall and peak memory of study batches 1
+              and 0 alone at max_lp 128, and batch 0's host syncs, device
+              ms and launches; evaluate_states' wall and peak memory at
+              the 2,048-lane cap
 The bench phase also times the fused step (fused_tier1) at its shape,
 under the same sync check, and prints it on a line of its own.
 Then one JSON line of per-kernel results and, last, the device line
@@ -115,7 +141,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PKG = "powersystemsreliabilityassessment_tpu_torch"
 ALL_PHASES = ("build", "k2", "k1", "bench", "study", "k3", "study96", "k6",
-              "k4", "k5", "studyfused", "seq", "lp300")
+              "k4", "k5", "studyfused", "seq", "lp300", "pf300", "study300")
 # Not run by default: a per-layer and per-kernel breakdown of the
 # bench-shaped step and of the RTS-96 step (for PERF.md), not part of
 # the smoke contract.
@@ -1921,43 +1947,49 @@ def _stress300_states(case, seed: int = 5):
 def _oracle300(case, states, dns, tripped):
     """Float64 HiGHS DNS (MW, the 0.1 MW noise floor applied) of every
     shed or guard-tripped lane and LP300_ZERO_LANES zero-shed lanes
-    (scripts/probe_oracle_diff.py's choice), on the host in four threads
-    (HiGHS releases the interpreter lock): (lanes, max |error| MW)."""
+    (scripts/probe_oracle_diff.py's choice): (lanes, max |error| MW)."""
     import numpy as np
-    import torch
-    from concurrent.futures import ThreadPoolExecutor
-    from scipy.optimize import linprog
     from powersystemsreliabilityassessment_tpu_torch.core.system import (
         build_system)
-    from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
     from powersystemsreliabilityassessment_tpu_torch.utils.config import (
-        CompatFlags, IPMConfig)
-    sys_ = build_system(case, device="cpu")
-    ng, nd = sys_.n_gen, sys_.n_load
+        CompatFlags)
     idx = list(np.nonzero(dns > 0)[0]) + list(np.nonzero(tripped)[0])
     zeros = np.nonzero(dns == 0)[0]
     rng = np.random.default_rng(1)
     idx += list(rng.choice(zeros, min(LP300_ZERO_LANES, len(zeros)),
                            replace=False))
     idx = list(dict.fromkeys(int(i) for i in idx))
-    up = torch.as_tensor(1.0 - states[idx])
-    load = sys_.load_pd[None, :].expand(len(idx), nd)
+    ref = _highs300(build_system(case, device="cpu"), states, idx)
+    ref = np.where(ref < CompatFlags().dns_noise_floor_mw, 0.0, ref)
+    return len(idx), float(np.abs(ref - dns[idx]).max())
+
+
+def _highs300(sys_cpu, states, ids):
+    """Float64 HiGHS DNS (MW, no noise floor) of ``states[ids]``, on the
+    host in four threads (HiGHS releases the interpreter lock)."""
+    import numpy as np
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from scipy.optimize import linprog
+    from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        CompatFlags, IPMConfig)
+    ng, nd = sys_cpu.n_gen, sys_cpu.n_load
+    up = torch.as_tensor(1.0 - states[ids])
+    load = sys_cpu.load_pd[None, :].expand(len(ids), nd)
     c, A, b, l, u = (t.double().numpy() for t in dcopf.build_state_lp(
-        sys_, up[:, :ng], up[:, ng:].contiguous(), load, CompatFlags(),
+        sys_cpu, up[:, :ng], up[:, ng:].contiguous(), load, CompatFlags(),
         IPMConfig().theta_max))
 
-    def err(j):
+    def dns(j):
         r = linprog(c[j], A_eq=A[j], b_eq=b[j], bounds=list(zip(l[j], u[j])),
                     method="highs")
         if r.status != 0:
-            raise RuntimeError(f"lp300: HiGHS failed on lane {idx[j]}")
-        ref = float(r.x[ng:ng + nd].sum()) * sys_.base_mva
-        ref = 0.0 if ref < CompatFlags().dns_noise_floor_mw else ref
-        return abs(ref - float(dns[idx[j]]))
+            raise RuntimeError(f"HiGHS failed on case300s lane {ids[j]}")
+        return float(r.x[ng:ng + nd].sum()) * sys_cpu.base_mva
 
     with ThreadPoolExecutor(4) as pool:
-        worst = max(pool.map(err, range(len(idx))))
-    return len(idx), worst
+        return np.asarray(list(pool.map(dns, range(len(ids)))))
 
 
 def _schur_kernel_rows(panels):
@@ -2024,7 +2056,7 @@ def _device_once(fn):
                if "cuda" in str(getattr(e, "device_type", "")).lower()
                and _dev_us(e) > 0]
     if not kernels:
-        raise RuntimeError("lp300: the profiler saw no device kernel")
+        raise RuntimeError("the profiler saw no device kernel")
     return (sum(_dev_us(e) for e in kernels) / 1e3,
             sum(e.count for e in kernels), kernels)
 
@@ -2174,6 +2206,376 @@ def phase_lp300(results):
         launches=main["launches"]["trsm_bwd"], max_abs_err=0.0,
         ms=None, plain_ms=None, library_ms=None, bound_ms=None,
         bound_by=None))["launches_lp300"] = main["launches"]["trsm_bwd"]
+
+
+PF300_BATCH = 16384
+PF300_SEED = 300
+PF300_ORACLE_MW = 0.05     # tests/test_island_pf.py's bound against HiGHS
+PF300_DEFICIT_PU = 1e-4    # the card against the port on CPU tensors
+STUDY300_SAMPLES = 262144
+STUDY300_MEM_LANES = 2048  # hl2_nsq.PF_TIER_LP_CAP
+# LP lanes the study may leave past the evaluator's guard, summed over its
+# screened calls: 7 in two runs on the card (fault E, ROADMAP Queue 3),
+# and one lane of room for the rounding order.
+STUDY300_PAST_GUARD_MAX = 8
+# Study batches timed alone: 1 takes the rescue ladder and the
+# escalation passes (a lane stays past escalate_tol after the ladder), 0
+# the ladder only, as 12 of the study's 16 batches do; the last one is
+# also profiled.
+STUDY300_STEPS = (1, 0)
+
+
+def _island_pf_work(B, nb, nl):
+    """Operations one certify_island_pf call on B lanes needs, per lane:
+    the ceil(log2 nb) boolean squarings (2 nb^3 each) and the Cholesky
+    factor (nb^3 / 3); the O(nb^2) work of its five refined solves (three
+    substitution pairs and two Lg products, 10 nb^2 each), three residual
+    products and three centrings (6 nb^2 a check) and 17 island sums
+    through R (2 nb^2 each); and the adjacency and Laplacian, which need
+    8 nl operations since the incidence has two nonzeros a row (the code
+    forms them as dense products, which this bound does not charge)."""
+    import math
+    squarings = math.ceil(math.log2(max(nb, 2)))
+    return B * (squarings * 2 * nb ** 3 + nb ** 3 / 3
+                + (5 * 10 + 3 * 6 + 17 * 2) * nb ** 2 + 8 * nl)
+
+
+def phase_pf300():
+    """Tier 1.5 on the card: certify_states(woodbury_k=4) on 16,384
+    plain-MC case300s states, the misses compacted into
+    default_pf_buffer's 256 lanes and certified by certify_island_pf;
+    soundness against float64 HiGHS, the mask and bound against the port
+    on CPU tensors, the miss and certified shares, and the call's wall
+    and device ms, launches, bound and bound share."""
+    import numpy as np
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.core import cases
+    from powersystemsreliabilityassessment_tpu_torch.core.system import (
+        build_system)
+    from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
+    from powersystemsreliabilityassessment_tpu_torch.sampling.state import (
+        sample_states)
+    from powersystemsreliabilityassessment_tpu_torch.studies import hl2_nsq
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        CompatFlags)
+    t_phase = time.perf_counter()
+    case = cases.case300s()
+    sys_ = build_system(case, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(PF300_SEED)
+    down = sample_states(gen, sys_.unavail, sys_.always_up_nsq, PF300_BATCH)
+    load = sys_.load_pd[None, :].expand(PF300_BATCH, sys_.n_load)
+    woodbury_k = hl2_nsq.default_woodbury_k(sys_)
+    miss = ~dcopf.certify_states(sys_, down, load,
+                                 woodbury_k=woodbury_k).certified
+    kpf = dcopf.default_pf_buffer(sys_, PF300_BATCH)
+    pidx = dcopf._topk_lanes(miss, kpf)
+    n_miss = int(miss.sum())
+    d_buf = down[pidx].contiguous()
+    l_buf = load[:kpf]
+
+    def call():
+        return dcopf.certify_island_pf(sys_, d_buf, l_buf)
+
+    call()                                             # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        cert = call()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ms = _time_ms(call, reps=10)
+    dev, n_kernels, kernels = _device_once(call)
+    for e in sorted(kernels, key=_dev_us, reverse=True)[:8]:
+        print(f"  pf300 kernel {_dev_us(e) / 1e3:9.3f} ms {e.count:6.0f}x  "
+              f"{e.key[:90]}")
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    valid = np.arange(kpf) < n_miss
+    certified = cert.certified.cpu().numpy()
+    deficit = cert.deficit.double().cpu().numpy()
+    # The port on CPU tensors, the same lanes.
+    sys_cpu = build_system(case, device="cpu")
+    states = d_buf.float().cpu().numpy()
+    cpu = dcopf.certify_island_pf(
+        sys_cpu, torch.as_tensor(states),
+        sys_cpu.load_pd[None, :].expand(kpf, sys_cpu.n_load))
+    same_mask = bool((cpu.certified.numpy() == certified).all())
+    def_diff = float(np.abs(cpu.deficit.double().numpy() - deficit).max())
+    ids = np.nonzero(valid)[0]
+    oracle = _highs300(sys_cpu, states, ids)
+    bound_mw = deficit[ids] * sys_.base_mva
+    cert_ids = certified[ids]
+    cert_err = (float(np.abs(bound_mw - oracle)[cert_ids].max())
+                if cert_ids.any() else 0.0)
+    over_bound = float((bound_mw - oracle).max())
+    n_cert = int(cert_ids.sum())
+    # Bytes: the bool states and float32 loads in; the bool mask and the
+    # float32 deficit, shed and dispatch out.
+    b = _bound(_island_pf_work(kpf, sys_.n_bus, sys_.n_branch),
+               kpf * (sys_.n_comp + 4 * sys_.n_load + 1
+                      + 4 * (1 + sys_.n_load + sys_.n_gen)))
+    _line("pf300", batch=PF300_BATCH, woodbury_k=woodbury_k,
+          tier1_misses=n_miss, miss_share=f"{n_miss / PF300_BATCH:.5f}",
+          pf_buffer=kpf, certified=n_cert,
+          certified_share=f"{n_cert / max(n_miss, 1):.4f}",
+          oracle_lanes=len(ids),
+          oracle_shed_lanes=int((oracle > CompatFlags().dns_noise_floor_mw
+                                 ).sum()),
+          certified_max_err_mw=f"{cert_err:.4f}<={PF300_ORACLE_MW}",
+          bound_over_oracle_max_mw=f"{over_bound:.4f}<={PF300_ORACLE_MW}",
+          cpu_same_mask=same_mask,
+          cpu_deficit_max_diff=f"{def_diff:.3e}<={PF300_DEFICIT_PU}",
+          wall_ms_sync_checked=f"{wall:.3f}", ms=f"{ms:.3f}",
+          device_ms=f"{dev:.3f}", device_kernels=n_kernels,
+          device_busy_share=f"{dev / ms:.3f}",
+          bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"],
+          bound_share=f"{b['bound_ms'] / ms:.4f}", peak_mem_bytes=peak,
+          seconds=round(time.perf_counter() - t_phase, 2))
+    if not (n_miss <= kpf and cert_err <= PF300_ORACLE_MW
+            and over_bound <= PF300_ORACLE_MW and same_mask
+            and def_diff <= PF300_DEFICIT_PU
+            and np.isfinite(deficit).all()):
+        raise RuntimeError(
+            "pf300: tier 1.5 unsound against HiGHS, or the card's mask or "
+            f"bound off the CPU's (misses {n_miss} of buffer {kpf})")
+
+
+class _Study300Probe:
+    """Per-batch accounting of the case300s study, read after it: the
+    wrappers keep device tensors and host counters only, so they add no
+    host sync. Tier-1 misses (certify_states on a whole batch), tier-1.5
+    certified lanes among the valid buffer slots (the needy lanes come
+    first in the buffer), the LP lanes past the evaluator's guard, the
+    lanes over escalate_tol that enter the rescue ladder, and K2a / K3
+    launches per screened call."""
+
+    def __init__(self, batch):
+        self.batch = batch
+        self.tier1, self.pf, self.guard, self.rescue = [], [], [], []
+        self.k2a, self.k3 = [], []
+
+    @contextlib.contextmanager
+    def installed(self):
+        from powersystemsreliabilityassessment_tpu_torch.engines import (
+            dcopf, lp_ipm_batched)
+        from powersystemsreliabilityassessment_tpu_torch.ops import (
+            batched_chol as bc, blocked_chol as bl)
+        orig = (dcopf.certify_states, dcopf.certify_island_pf,
+                dcopf.evaluate_states_screened, lp_ipm_batched._rescue)
+
+        def certify_states(sys_, down, *a, **kw):
+            cert = orig[0](sys_, down, *a, **kw)
+            if down.shape[0] == self.batch:
+                self.tier1.append((~cert.certified).sum())
+            return cert
+
+        def certify_island_pf(*a, **kw):
+            cert = orig[1](*a, **kw)
+            self.pf.append(cert.certified.cumsum(0))
+            return cert
+
+        def screened(*a, **kw):
+            k2a, k3 = bc.launches["cholesky"], bl.launches["trsm_fwd"]
+            self.rescue.append(None)       # set by the rescue, if it runs
+            res, over = orig[2](*a, **kw)
+            self.guard.append((res.primal_residual > LP_QUALITY_GUARD).sum())
+            self.k2a.append(bc.launches["cholesky"] - k2a)
+            self.k3.append(bl.launches["trsm_fwd"] - k3)
+            return res, over
+
+        def rescue(c, b, l, u, ops, cfg, sol, score, k):
+            self.rescue[-1] = (score > cfg.escalate_tol).sum()
+            return orig[3](c, b, l, u, ops, cfg, sol, score, k)
+
+        dcopf.certify_states, dcopf.certify_island_pf = (certify_states,
+                                                         certify_island_pf)
+        dcopf.evaluate_states_screened = screened
+        lp_ipm_batched._rescue = rescue
+        try:
+            yield self
+        finally:
+            (dcopf.certify_states, dcopf.certify_island_pf,
+             dcopf.evaluate_states_screened, lp_ipm_batched._rescue) = orig
+
+    def rows(self, max_lp):
+        """One dict per screened call, in call order."""
+        out = []
+        for t1, pf, g, r, k2a, k3 in zip(self.tier1, self.pf, self.guard,
+                                         self.rescue, self.k2a, self.k3):
+            t1 = int(t1)
+            n_valid = min(t1, pf.shape[0])
+            left = t1 - (int(pf[n_valid - 1]) if n_valid else 0)
+            out.append(dict(tier1_misses=t1, left_after_pf=left,
+                            lp_lanes=min(left, max_lp),
+                            past_guard=int(g),
+                            rescue_lanes_over_tol=(None if r is None
+                                                   else int(r)),
+                            k2a=k2a, k3=k3))
+        return out
+
+
+def _count_syncs(fn) -> int:
+    """Host syncs PyTorch reports in one call of ``fn``
+    (set_sync_debug_mode("warn"))."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_study300(results):
+    """The case300s NSQ study through the screened evaluator with tier
+    1.5 (plain MC, proportional nodal mode, batch 16,384, seed 3, 262,144
+    samples) held against results/case300_scaleup.json: EDNS and LOLE
+    within 4 combined standard errors, overflow 0, K2a and K3 launched on
+    every batch, at most STUDY300_PAST_GUARD_MAX LP lanes past the guard
+    in all; per batch the tier-1 misses, the lanes tier 1.5 leaves,
+    the LP lanes, the lanes past the guard and the lanes over
+    escalate_tol entering the rescue (beside restart_compact); the
+    study's wall time and samples/s; the wall and peak memory of two
+    study batches alone at max_lp 128, the second one's host syncs,
+    device ms and launches; evaluate_states' wall and peak memory at the
+    2,048-lane cap."""
+    import math
+    import numpy as np
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.core import cases
+    from powersystemsreliabilityassessment_tpu_torch.core.system import (
+        build_system)
+    from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
+    from powersystemsreliabilityassessment_tpu_torch.sampling.state import (
+        sample_states)
+    from powersystemsreliabilityassessment_tpu_torch.studies import hl2_nsq
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        CompatFlags, IPMConfig, MCSConfig)
+    t_phase = time.perf_counter()
+    ref = json.loads((ROOT / "results" / "case300_scaleup.json").read_text())
+    cfg = MCSConfig(batch_size=PF300_BATCH, max_samples=STUDY300_SAMPLES,
+                    beta_limit=0.0, seed=3, nodal_mode="proportional")
+    case = cases.case300s()
+    probe = _Study300Probe(cfg.batch_size)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with probe.installed():
+        res = hl2_nsq.run_nsq_study(case, cfg, device="cuda", log_every=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    sys_ = build_system(case, device="cuda")
+    max_lp = hl2_nsq.default_max_lp(
+        cfg.batch_size, cfg.nodal_mode,
+        pf_tier=dcopf.default_pf_buffer(sys_, cfg.batch_size) is not None)
+    rows = probe.rows(max_lp)
+    for i, r in enumerate(rows):
+        _line("study300", call=i, **r)
+    hours = CompatFlags().hours_per_year_annualize
+
+    def z_scores(r):
+        # The artifact's standard errors: beta * EDNS, and the binomial
+        # one of PLC times the hours of a year for LOLE.
+        se_e = math.hypot(r["beta"] * r["edns_mw"], res.beta * res.edns_mw)
+        se_l = hours * math.hypot(
+            math.sqrt(r["plc"] * (1 - r["plc"]) / r["samples"]),
+            math.sqrt(res.plc * (1 - res.plc) / res.samples))
+        return (abs(res.edns_mw - r["edns_mw"]) / se_e,
+                abs(res.lole_hr_yr - r["lole_hr_yr"]) / se_l)
+
+    z_e, z_l = z_scores(ref)
+    z_e4, z_l4 = z_scores(ref["replicates"][0])
+    rescue = [r["rescue_lanes_over_tol"] for r in rows
+              if r["rescue_lanes_over_tol"] is not None]
+    # Steps of the study's shape, alone: the wall and peak memory of
+    # batches STUDY300_STEPS (the study's own draws), and the host syncs
+    # and device time of the last of them.
+    step = hl2_nsq.make_nsq_batch_step(
+        sys_, cfg.batch_size, CompatFlags(), IPMConfig(),
+        nodal_mode=cfg.nodal_mode, shed_hint=dcopf.calibrate_shed_hint(sys_))
+    gen_of = lambda i: hl2_nsq.batch_generator(cfg.seed, i, "cuda")
+    step_wall, step_peak = {}, {}
+    for i in STUDY300_STEPS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        step(gen_of(i))
+        torch.cuda.synchronize()
+        step_wall[i] = round((time.perf_counter() - t1) * 1e3, 1)
+        step_peak[i] = torch.cuda.max_memory_allocated()
+    last = STUDY300_STEPS[-1]
+    syncs = _count_syncs(lambda: step(gen_of(last)))
+    step_dev, step_kernels, kernels = _device_once(lambda: step(gen_of(last)))
+    mine = {name: sum(_dev_us(e) for e in kernels
+                      if any(k in e.key for k in keys)) / 1e3
+            for name, keys in (("cholesky", ("cholesky_lanes_kernel",)),
+                               ("trsm", ("trsm_vec_kernel",
+                                         "trsm_cols_kernel")))}
+    for e in sorted(kernels, key=_dev_us, reverse=True)[:8]:
+        print(f"  study300 batch={last} kernel {_dev_us(e) / 1e3:9.3f} ms "
+              f"{e.count:6.0f}x  {e.key[:90]}")
+    # evaluate_states at the grow-and-redo cap, on a batch's first lanes.
+    down = sample_states(gen_of(0), sys_.unavail, sys_.always_up_nsq,
+                         cfg.batch_size)[:STUDY300_MEM_LANES]
+    load = sys_.load_pd[None, :].expand(STUDY300_MEM_LANES, sys_.n_load)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    dcopf.evaluate_states(sys_, down, load)
+    torch.cuda.synchronize()
+    cap_wall = (time.perf_counter() - t1) * 1e3
+    cap_peak = torch.cuda.max_memory_allocated()
+    batches_lp = [r for r in rows if r["lp_lanes"] > 0]
+    past_guard = sum(r["past_guard"] for r in rows)
+    _line("study300", samples=res.samples, edns_mw=f"{res.edns_mw:.5f}",
+          lole_hr_yr=f"{res.lole_hr_yr:.3f}", plc=f"{res.plc:.6f}",
+          beta=f"{res.beta:.5f}", edns_z=f"{z_e:.2f}<=4",
+          lole_z=f"{z_l:.2f}<=4", edns_z_seed4=f"{z_e4:.2f}",
+          lole_z_seed4=f"{z_l4:.2f}", overflow=res.overflow_states,
+          wall_s=f"{wall:.2f}", samples_per_s=f"{res.samples / wall:.0f}",
+          max_lp=max_lp, screened_calls=len(rows),
+          batches_with_lp_work=len(batches_lp),
+          max_rescue_lanes_over_tol=max(rescue) if rescue else 0,
+          rescue_calls=len(rescue), restart_compact=IPMConfig().restart_compact,
+          past_guard=f"{past_guard}<={STUDY300_PAST_GUARD_MAX}",
+          max_past_guard=max(r["past_guard"] for r in rows),
+          launches=json.dumps(counts).replace(" ", ""))
+    _line("study300", step_batch=last,
+          step_wall_ms=json.dumps(step_wall).replace(" ", ""),
+          step_peak_mem_bytes=json.dumps(step_peak).replace(" ", ""),
+          step_device_ms=f"{step_dev:.1f}", step_kernels=step_kernels,
+          step_device_busy_share=f"{step_dev / step_wall[last]:.3f}",
+          step_k2a_device_ms=f"{mine['cholesky']:.3f}",
+          step_k3_device_ms=f"{mine['trsm']:.3f}",
+          host_syncs_per_step=syncs,
+          evaluate_states_lanes=STUDY300_MEM_LANES,
+          evaluate_states_wall_ms=f"{cap_wall:.1f}",
+          evaluate_states_peak_mem_bytes=cap_peak,
+          seconds=round(time.perf_counter() - t_phase, 2))
+    if not (z_e <= 4 and z_l <= 4):
+        raise RuntimeError("study300: estimates outside 4 combined standard "
+                           "errors of results/case300_scaleup.json")
+    if res.overflow_states or not rows or any(
+            r["k2a"] <= 0 or r["k3"] <= 0 for r in batches_lp):
+        raise RuntimeError(f"study300: overflow {res.overflow_states}, or "
+                           "K2a / K3 not launched on a batch with LP work")
+    if past_guard > STUDY300_PAST_GUARD_MAX:
+        raise RuntimeError(f"study300: {past_guard} LP lanes past the guard, "
+                           f"more than {STUDY300_PAST_GUARD_MAX}")
+    for name, key in (("cholesky", "cholesky"), ("trsm_fwd", "trsm_fwd")):
+        results.setdefault(name, {})["launches_study300"] = counts[key]
 
 
 def phase_studyfused(results):
@@ -2466,6 +2868,10 @@ def main() -> int:
         phase_seq(sys_, results)
     if "lp300" in phases:
         phase_lp300(results)
+    if "pf300" in phases:
+        phase_pf300()
+    if "study300" in phases:
+        phase_study300(results)
     if "profile" in phases:
         phase_profile(sys_)
         phase_profile96(sys96)

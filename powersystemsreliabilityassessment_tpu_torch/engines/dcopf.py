@@ -28,6 +28,13 @@ the materialized A (the blocked Cholesky, K2 + K3 on CUDA). For m > 336
 ``make_dc_linops`` (block-Schur bulk pass on K2a and K3, dense rescue
 ladder).
 
+**Tier 1.5 — island-aware power-flow certificate**
+(``certify_island_pf``): with ``pf_buffer`` the screened evaluator
+compacts tier 1's misses into that many lanes and certifies the deep
+multi-branch and islanding states among them on the reduced network
+before the LP buffer is filled; ``default_pf_buffer`` turns it on at
+m > 336.
+
 The fused sampler-certificate path (``ops/fused_sampler_cert.py``)
 hands tier 1's work to ``certify_finish`` and its result to
 ``evaluate_states_screened(pre=...)``; ``ops/certify_kernel.py`` is the
@@ -37,9 +44,7 @@ whole of ``certify_states`` as one kernel.
 the studies print before their loop, and ``copper_sheet_bound`` the
 network-free DNS lower bound.
 
-Not ported yet (ROADMAP.md Queue 1): the island-PF tier
-(``certify_island_pf``, ``pf_buffer``), and with it the screened
-evaluator at m > 336, and ``island_blackout``.
+Not ported yet (ROADMAP.md Queue 1 item 8): ``island_blackout``.
 """
 from __future__ import annotations
 
@@ -382,6 +387,196 @@ def certify_states(sys: System, comp_down: torch.Tensor,
                        dispatch=dispatch)
 
 
+def _island_rebalance(R: torch.Tensor, x: torch.Tensor, caps: torch.Tensor,
+                      target_bus: torch.Tensor,
+                      onehot: torch.Tensor) -> torch.Tensor:
+    """Per-island exact rebalance of a nonnegative pattern ``x`` (caps
+    ``caps``) so that its island totals equal ``target_bus``'s; mirrors
+    reference ``engines/dcopf.py::_island_rebalance``.
+
+    ``R`` is the [B, nb, nb] island matrix (R[b, i, j] = 1 iff buses i
+    and j are connected), ``onehot`` the [nb, k] bus scatter of x's
+    entities. :func:`_rebalance_shed`'s down-scale / headroom up-scale,
+    with every total an R product (no gathers). Needs each island's
+    target <= its cap sum."""
+    x_bus = x @ onehot.T                                   # [B, nb]
+    tot_i = _bmv(R, x_bus)                                 # island totals
+    tgt_i = _bmv(R, target_bus)
+    resid_i = tot_i - tgt_i
+    down = torch.clamp_min(tgt_i, 0.0) / torch.clamp_min(tot_i, 1e-9)
+    head = torch.clamp_min(caps - x, 0.0)
+    head_i = _bmv(R, head @ onehot.T)
+    up_frac = (-resid_i) / torch.clamp_min(head_i, 1e-9)
+    down_e = down @ onehot                                 # [B, k]
+    up_e = up_frac @ onehot
+    resid_e = resid_i @ onehot
+    return torch.where(resid_e >= 0, x * down_e,
+                       torch.minimum(x + head * up_e, caps))
+
+
+# Repair steps of tier 1.5: the default of reference
+# ``engines/dcopf.py::certify_island_pf``, the only value any caller uses.
+_ISLAND_REPAIR_ITERS = 2
+
+
+def certify_island_pf(sys: System, comp_down: torch.Tensor,
+                      load_pu: torch.Tensor,
+                      theta_cap: float = 6.0) -> Certificate:
+    """Tier-1.5 certificate: an exact, island-aware DC power-flow check
+    on the reduced network, valid for any outage set; mirrors reference
+    ``engines/dcopf.py::certify_island_pf``.
+
+    Runs on the compacted buffer of tier-1 misses (deep multi-branch and
+    islanding states). Per lane, batched and without gathers:
+
+    1. **Islands.** R = 1 where two buses are connected, by
+       ``ceil(log2 nb)`` boolean squarings of the [B, nb, nb] adjacency
+       (exact for any diameter). The entries are 0/1 and the sums at most
+       nb, so float32 products are exact while TF32 is off (the
+       package's ``__init__`` turns it off).
+    2. **Per-island copper bound.** The deficit is the sum over islands
+       of max(0, island load - island capacity): a proven lower bound on
+       the lane's DNS, at least Tier 1's.
+    3. **Candidate at the bound.** An island-proportional shed and a
+       dispatch that covers each bus's load locally first, pooled per
+       island (:func:`_island_rebalance`).
+    4. **Reduced power flow.** L theta = inj with L the lane's weighted
+       Laplacian, grounded by the island projector: Lg = L + c R / size
+       has the same solutions on island-balanced injections and is
+       positive definite. Factored equilibrated (s = rsqrt(diag)) with
+       ``cholesky_ex`` (a lane that fails the factor gets NaN, as the
+       reference's ``jnp.linalg.cholesky`` gives), solved by two
+       ``solve_triangular`` and refined twice against Lg. A lane certifies
+       when its flows fit the ratings, the residual is within 3e-5 of
+       the injection scale, the island-centred angles fit the LP's box
+       and every flow is finite.
+    5. **Repair descent** (``_ISLAND_REPAIR_ITERS`` steps): on overload,
+       one adjoint solve on the retained factor gives the gradient; shed
+       and dispatch move along it and are rebalanced per island.
+
+    ``deficit`` / ``shed`` / ``dispatch`` are valid (bound, pattern) for
+    uncertified lanes too. Nothing here reads the device on the host.
+    """
+    ng, nl, nb = sys.n_gen, sys.n_branch, sys.n_bus
+    dt, dev = _fdt(sys), sys.device
+    gen_up = 1.0 - comp_down[:, :ng].to(dt)
+    br_up = 1.0 - comp_down[:, ng:ng + nl].to(dt)
+    minc = sys.incidence                                   # [nl, nb]
+    e_from = (minc > 0).to(dt)
+    e_to = (minc < 0).to(dt)
+
+    # 1. Island matrix by exact boolean squaring.
+    adj = (e_from.T[None] * br_up[:, None, :]) @ e_to     # [B, nb, nb]
+    adj = adj + adj.transpose(1, 2) + torch.eye(nb, dtype=dt, device=dev)
+    R = torch.clamp_max(adj, 1.0)
+    for _ in range(int(np.ceil(np.log2(max(nb, 2))))):
+        R = torch.clamp_max(R @ R, 1.0)
+    size = R.sum(2)                                        # [B, nb]
+
+    # 2. Per-island copper bound.
+    gen_cap = sys.gen_pmax[None, :] * gen_up               # [B, ng]
+    cap_bus = gen_cap @ sys.gen_bus_onehot.T               # [B, nb]
+    load_bus = load_pu @ sys.load_onehot.T
+    icap, iload = _bmv(R, cap_bus), _bmv(R, load_bus)
+    idef = torch.clamp_min(iload - icap, 0.0)              # [B, nb]
+    deficit = (idef / torch.clamp_min(size, 1.0)).sum(1)
+
+    # 3. Candidate at the bound.
+    frac = idef / torch.clamp_min(iload, 1e-9)
+    shed = load_pu * (frac @ sys.load_onehot)              # [B, nd]
+    served_bus = load_bus - shed @ sys.load_onehot.T
+    local_frac = torch.clamp_max(
+        served_bus / torch.clamp_min(cap_bus, 1e-9), 1.0)
+    disp = gen_cap * (local_frac @ sys.gen_bus_onehot)
+    disp = _island_rebalance(R, disp, gen_cap, served_bus,
+                             sys.gen_bus_onehot)
+
+    # 4. Reduced power flow, grounded by the island projector.
+    w = sys.b_susceptance[None, :] * br_up                 # [B, nl]
+    L = (minc.T[None] * w[:, None, :]) @ minc              # [B, nb, nb]
+    c_gauge = (torch.diagonal(L, dim1=1, dim2=2).sum(1) / nb
+               )[:, None, None] + 1e-3
+    Lg = L + c_gauge * (R / torch.clamp_min(size, 1.0)[:, :, None])
+    s = torch.rsqrt(torch.clamp_min(torch.diagonal(Lg, dim1=1, dim2=2),
+                                    1e-30))
+    chol, info = torch.linalg.cholesky_ex(Lg * s[:, :, None] * s[:, None, :])
+    chol = torch.where((info == 0)[:, None, None], chol, float("nan"))
+
+    def cs(rhs):                                           # s Lgs^-1 s rhs
+        y = torch.linalg.solve_triangular(chol, (s * rhs)[:, :, None],
+                                          upper=False)
+        return s * torch.linalg.solve_triangular(
+            chol.transpose(1, 2), y, upper=True)[:, :, 0]
+
+    def pf_solve(rhs):                                     # [B, nb]
+        th = cs(rhs)
+        for _ in range(2):
+            th = th + cs(rhs - _bmv(Lg, th))
+        return th
+
+    rate_ok = sys.br_rate[None, :] + 1e-4
+    inj_scale = torch.clamp_min(load_bus.abs().amax(1), 1.0)
+    # theta must fit the LP's angle boxes; it is gauge-free per island,
+    # so it is centred mid-range per island (masked max / min through R)
+    # before the check. A violation falls to the LP.
+    tb = torch.clamp_max(sys.theta_bound, theta_cap)[None, :]
+    neg_big = 1e30 * (1.0 - R)
+
+    def center_theta(theta):
+        imax = (theta[:, None, :] * R - neg_big).amax(2)
+        imin = -(-theta[:, None, :] * R - neg_big).amax(2)
+        return theta - 0.5 * (imax + imin)
+
+    def check(disp_c, shed_c):
+        inj = (disp_c @ sys.gen_bus_onehot.T + shed_c @ sys.load_onehot.T
+               - load_bus)
+        theta0 = pf_solve(inj)
+        # The residual of the raw solution: centring adds c * shift.
+        resid = (_bmv(Lg, theta0) - inj).abs().amax(1)
+        theta = center_theta(theta0)
+        f = w * (theta @ minc.T)
+        ok = ((f.abs() <= rate_ok).all(1)
+              & (resid <= 3e-5 * inj_scale)
+              & (theta.abs() <= tb).all(1)
+              & torch.isfinite(f).all(1))
+        return ok, f
+
+    best_ok, f = check(disp, shed)
+    best_shed, best_disp = shed, disp
+
+    # 5. Repair descent through the reduced network.
+    cur_shed, cur_disp, cur_f = shed, disp, f
+    for _ in range(_ISLAND_REPAIR_ITERS):
+        over = torch.clamp_min(cur_f.abs() - sys.br_rate[None, :], 0.0)
+        z = pf_solve((w * torch.sign(cur_f) * over) @ minc)    # [B, nb]
+        grad_g = z @ sys.gen_bus_onehot
+        grad_g = grad_g - grad_g.mean(1, keepdim=True)
+        step_g = (over.sum(1) / torch.clamp_min(grad_g.abs().amax(1), 1e-9)
+                  )[:, None]
+        disp_t = torch.minimum(
+            torch.clamp_min(cur_disp - step_g * grad_g, 0.0), gen_cap)
+        grad_d = z @ sys.load_onehot
+        grad_d = grad_d - grad_d.mean(1, keepdim=True)
+        step_d = (deficit / torch.clamp_min(grad_d.abs().amax(1), 1e-9)
+                  )[:, None]
+        shed_t = torch.minimum(
+            torch.clamp_min(cur_shed - step_d * grad_d, 0.0), load_pu)
+        shed_t = _island_rebalance(R, shed_t, load_pu, load_bus * frac,
+                                   sys.load_onehot)
+        disp_t = _island_rebalance(R, disp_t, gen_cap,
+                                   load_bus - shed_t @ sys.load_onehot.T,
+                                   sys.gen_bus_onehot)
+        ok_t, f_t = check(disp_t, shed_t)
+        newly = ~best_ok & ok_t
+        best_shed = torch.where(newly[:, None], shed_t, best_shed)
+        best_disp = torch.where(newly[:, None], disp_t, best_disp)
+        best_ok = best_ok | ok_t
+        cur_shed, cur_disp, cur_f = shed_t, disp_t, f_t
+
+    return Certificate(certified=best_ok, deficit=deficit, shed=best_shed,
+                       dispatch=best_disp)
+
+
 def calibrate_shed_hint(sys: System, batch: int = 8192, seed: int = 987,
                         margin_frac: float = 0.02) -> np.ndarray | None:
     """One-time static shed-direction calibration; mirrors reference
@@ -445,6 +640,19 @@ def default_finish_buffer(batch: int, hinted: bool = False) -> int:
     ``batch // 32`` with one. Lanes the buffer cannot hold stay
     uncertified and fall to the LP buffer's own overflow accounting."""
     return min(batch, max(1024, batch // (32 if hinted else 8)))
+
+
+def default_pf_buffer(sys: System, batch: int) -> int | None:
+    """Tier-1.5 (:func:`certify_island_pf`) buffer policy; mirrors
+    reference ``engines/dcopf.py::default_pf_buffer``: on only past the
+    mid-m LP path (m > 336), where one LP lane costs milliseconds and the
+    tier-1 misses are mostly deep multi-branch and islanding states that
+    the island certificate closes (84% of them at case300s,
+    results/r4_miss.json), with ``min(batch, 256)`` lanes. None below,
+    where a miss is cheap to solve."""
+    if sys.n_bus + sys.n_branch <= lp_ipm_batched._BLOCKED_MAX_M:
+        return None
+    return min(batch, 256)
 
 
 def certify_finish(sys: System, comp_down: torch.Tensor,
@@ -820,6 +1028,15 @@ def _scatter_valid(dst, idx, valid, src):
     return buf[:B]
 
 
+def _needs_lp(pre: Certificate, nodal_mode: str) -> torch.Tensor:
+    """[B] bool: the lanes the screened evaluator sends to the LP
+    ("proportional": uncertified lanes; "lp": every lane not certified at
+    zero deficit)."""
+    if nodal_mode == "proportional":
+        return ~pre.certified
+    return ~(pre.certified & (pre.deficit <= 0))
+
+
 def evaluate_states_screened(sys: System, comp_down: torch.Tensor,
                              load_pu: torch.Tensor, max_lp: int,
                              compat: CompatFlags = CompatFlags(),
@@ -827,10 +1044,10 @@ def evaluate_states_screened(sys: System, comp_down: torch.Tensor,
                              nodal_mode: str = "lp",
                              repair_buffer: int | None = None,
                              woodbury_k: int = 2, shed_hint=None,
-                             pre: Certificate | None = None):
+                             pre: Certificate | None = None,
+                             pf_buffer: int | None = None):
     """Screened evaluation: the LP only on lanes that need it; mirrors
-    reference ``engines/dcopf.py::evaluate_states_screened`` (without
-    ``pf_buffer``).
+    reference ``engines/dcopf.py::evaluate_states_screened``.
 
     Lanes certified at zero deficit are resolved by tier 1; the rest
     (``nodal_mode="lp"``: every uncertified or positive-deficit lane;
@@ -842,21 +1059,22 @@ def evaluate_states_screened(sys: System, comp_down: torch.Tensor,
     sampler-certificate path: ``ops/fused_sampler_cert.py`` then
     :func:`certify_finish`) replaces the internal tier-1 pass;
     ``shed_hint`` is then ignored (the kernel applied its own
-    candidate). Systems with m > 336, where the reference adds the
-    island-PF tier (``pf_buffer``, ``default_pf_buffer``), raise
-    NotImplementedError.
+    candidate).
 
-    Returns ``(EvalResult, n_overflow)``, both on the device; nothing in
-    here waits for the device when ``shed_hint`` is already a tensor on
-    it (a host array is copied, which synchronizes the stream).
+    ``pf_buffer``: tier 1.5. That many of the lanes tier 1 leaves for the
+    LP go through :func:`certify_island_pf` first; a lane it certifies
+    leaves the LP's queue, and on every valid buffer lane its deficit
+    (the larger of the two bounds), shed and dispatch replace tier 1's.
+    None (the default) skips it; ``default_pf_buffer`` sizes it.
+
+    Returns ``(EvalResult, n_overflow)``, both on the device. At m <= 336
+    nothing in here waits for the device when ``shed_hint`` is already a
+    tensor on it (a host array is copied, which synchronizes the
+    stream). At m > 336 the LP buffer's large-m solve reads on the host
+    (``lp_ipm_batched.solve_box_lp_ops``: each Schur inverse's probe and
+    the rescue ladder's gates), ~40 times a call on case300s.
     """
     _check_compat(compat)
-    if sys.n_bus + sys.n_branch > lp_ipm_batched._BLOCKED_MAX_M:
-        raise NotImplementedError(
-            "m > 336: the screened evaluator's island-PF tier 1.5 "
-            "(certify_island_pf, _island_rebalance, default_pf_buffer) is "
-            "not ported yet (ROADMAP.md Queue 1 item 6); evaluate_states "
-            "solves the LP on every lane at this size")
     B = comp_down.shape[0]
     if pre is None:
         hint_b = None
@@ -867,10 +1085,28 @@ def evaluate_states_screened(sys: System, comp_down: torch.Tensor,
         pre = certify_states(sys, comp_down, load_pu, shed_hint=hint_b,
                              repair_buffer=repair_buffer,
                              woodbury_k=woodbury_k)
-    if nodal_mode == "proportional":
-        need_lp = ~pre.certified
-    else:
-        need_lp = ~(pre.certified & (pre.deficit <= 0))
+    need_lp = _needs_lp(pre, nodal_mode)
+
+    if pf_buffer:
+        # Tier 1.5 on the compacted tier-1 misses (unique lanes, so plain
+        # index writes are exact).
+        kpf = min(int(pf_buffer), B)
+        pidx = _topk_lanes(need_lp, kpf)
+        pvalid = (torch.arange(kpf, device=pidx.device) < need_lp.sum()) \
+            & need_lp[pidx]
+        isl = certify_island_pf(sys, comp_down[pidx], load_pu[pidx],
+                                theta_cap=ipm.theta_max)
+        vc = pvalid[:, None]
+        certified, deficit = pre.certified.clone(), pre.deficit.clone()
+        shed, dispatch = pre.shed.clone(), pre.dispatch.clone()
+        certified[pidx] = certified[pidx] | (pvalid & isl.certified)
+        deficit[pidx] = torch.where(
+            pvalid, torch.maximum(isl.deficit, deficit[pidx]), deficit[pidx])
+        shed[pidx] = torch.where(vc, isl.shed, shed[pidx])
+        dispatch[pidx] = torch.where(vc, isl.dispatch, dispatch[pidx])
+        pre = Certificate(certified=certified, deficit=deficit, shed=shed,
+                          dispatch=dispatch)
+        need_lp = _needs_lp(pre, nodal_mode)
 
     idx = _topk_lanes(need_lp, min(max_lp, B))
     if idx.shape[0] < max_lp:

@@ -42,22 +42,43 @@ from powersystemsreliabilityassessment_tpu_torch.utils.config import (
     CompatFlags, IPMConfig, MCSConfig)
 
 
-def default_max_lp(batch_per_device: int, nodal_mode: str = "lp") -> int:
+# The LP buffer's cap where tier 1.5 is on (m > 336): the reference's
+# memory envelope of a large-m IPM buffer on a 15.75 GB chip (reference
+# ``studies/hl2_nsq.py::default_max_lp``), kept so that the study can be
+# compared with its artifact; not sized again for the H100's 80 GB yet
+# (ROADMAP.md Queue 1 item 7).
+PF_TIER_LP_CAP = 2048
+# The proportional-mode buffer with tier 1.5 on: its misses are ~0.1% of
+# lanes (results/r4_miss.json), and <= 128 lanes cost the large-m LP
+# about the same.
+PF_TIER_PROPORTIONAL_LP = 128
+
+
+def default_max_lp(batch_per_device: int, nodal_mode: str = "lp",
+                   pf_tier: bool = False) -> int:
     """Default LP-lane buffer per batch; mirrors reference
     ``studies/hl2_nsq.py::default_max_lp`` (plain MC): "lp" mode sends
     every positive-deficit state to the LP (~10% of RTS-24 peak states),
     so 25%; "proportional" mode only certificate failures (~0.04%), so
-    1.56%. Overflow self-corrects through grow-and-redo. These fractions
-    are TPU-era settings not yet measured again on the H100."""
+    1.56%. ``pf_tier`` (tier 1.5 on, m > 336) caps it at
+    ``PF_TIER_LP_CAP``, and in "proportional" mode at
+    ``PF_TIER_PROPORTIONAL_LP``. Overflow self-corrects through
+    grow-and-redo. These are TPU-era settings not yet measured again on
+    the H100."""
     frac = 64 if nodal_mode == "proportional" else 4
-    return max(batch_per_device // frac, 16)
+    lanes = max(batch_per_device // frac, 16)
+    if pf_tier:
+        lanes = min(lanes, PF_TIER_LP_CAP)
+        if nodal_mode == "proportional":
+            lanes = min(lanes, PF_TIER_PROPORTIONAL_LP)
+    return lanes
 
 
 def default_woodbury_k(sys: System) -> int:
     """Certificate rank: 2 unless >= 3 simultaneous branch outages have
     probability >= 1e-4 under the sampling measure (Poisson bound), then
     4. Mirrors reference ``studies/hl2_nsq.py::default_woodbury_k``
-    (plain MC). RTS-24 resolves to 2, RTS-96 to 4."""
+    (plain MC). RTS-24 resolves to 2, RTS-96 and case300s to 4."""
     q = sys.unavail.detach().cpu().numpy().astype(np.float64)[sys.n_gen:]
     lam = float(q.sum())
     p_ge3 = 1.0 - np.exp(-lam) * (1.0 + lam + lam * lam / 2.0)
@@ -87,8 +108,12 @@ def make_nsq_batch_step(sys: System, batch_per_device: int,
     """One-batch step ``generator -> (BatchMoments, n_overflow,
     n_infeasible)``, all device tensors; mirrors reference
     ``studies/hl2_nsq.py::make_nsq_batch_step`` (plain MC, one device).
-    The step only enqueues device work: nothing in it waits for the
-    device (``torch.cuda.set_sync_debug_mode("error")`` passes over it).
+    At m <= 336 the step only enqueues device work: nothing in it waits
+    for the device (``torch.cuda.set_sync_debug_mode("error")`` passes
+    over it). At m > 336 tier 1.5 is on (``dcopf.default_pf_buffer``)
+    and the LP buffer's large-m solve reads on the host (each Schur
+    inverse's probe and the rescue ladder's gates): ~40 syncs a step on
+    case300s.
 
     ``fused_tier1``: the K4 kernel draws and first-pass-certifies the
     batch (``fused_sampler_cert.sample_certify_quick``), then
@@ -96,8 +121,10 @@ def make_nsq_batch_step(sys: System, batch_per_device: int,
     buffer and hands it to the screened evaluator (``pre``). Unlike the
     reference, there is no fallback to the default path: a CPU system
     runs the kernel's plain version."""
+    pf_buffer = dcopf.default_pf_buffer(sys, batch_per_device)
     if max_lp is None:
-        max_lp = default_max_lp(batch_per_device, nodal_mode)
+        max_lp = default_max_lp(batch_per_device, nodal_mode,
+                                pf_tier=pf_buffer is not None)
     if woodbury_k is None:
         woodbury_k = default_woodbury_k(sys)
     if not 2 <= woodbury_k <= 4:
@@ -138,7 +165,7 @@ def make_nsq_batch_step(sys: System, batch_per_device: int,
         res, n_over = dcopf.evaluate_states_screened(
             sys, down, load, max_lp, compat, ipm, nodal_mode,
             repair_buffer=repair_buffer, woodbury_k=woodbury_k,
-            shed_hint=shed_hint, pre=pre)
+            shed_hint=shed_hint, pre=pre, pf_buffer=pf_buffer)
         m = accumulators.batch_moments(res.dns_mw, res.nodal_mw,
                                        res.failure, down)
         return m, n_over, res.infeasible.sum()
@@ -224,8 +251,12 @@ def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
     ``studies/hl2_nsq.py::run_nsq_study`` (plain MC).
 
     ``max_lp``: initial LP-lane buffer per batch (None = the default for
-    ``cfg.nodal_mode``); on overflow it doubles and the batch is redone
-    with the same generator, so the estimate does not depend on it.
+    ``cfg.nodal_mode`` and the system); on overflow it doubles and the
+    batch is redone with the same generator, so the estimate does not
+    depend on it. It grows up to the batch, or up to ``PF_TIER_LP_CAP``
+    where tier 1.5 is on (m > 336); past that, the lanes that did not
+    fit keep their certificate bounds and are counted in
+    ``overflow_states``.
 
     ``checkpointer``: every ``checkpoint_every`` folded batches the
     stats, histories, next batch index, overflow and infeasible counts
@@ -235,8 +266,10 @@ def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
     """
     sys = build_system(case, compat, device)
     bpd = max(cfg.batch_size, 1)
+    pf_tier = dcopf.default_pf_buffer(sys, bpd) is not None
     if max_lp is None:
-        max_lp = default_max_lp(bpd, cfg.nodal_mode)
+        max_lp = default_max_lp(bpd, cfg.nodal_mode, pf_tier=pf_tier)
+    lp_cap = min(bpd, PF_TIER_LP_CAP) if pf_tier else bpd
     stats = accumulators.RunningStats()
     histories = {"beta": [], "edns": [], "lole": [], "plc": []}
     batch_idx, overflow, infeasible = 0, 0, 0
@@ -267,14 +300,14 @@ def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
         moments, n_over, n_infeas = _unpack(fetched, sys.n_bus)
         if n_over > 0:
             grown = 2 * max_lp
-            if grown <= bpd:
+            if grown <= lp_cap:
                 max_lp = grown
                 print(f"LP buffer overflow ({n_over}); growing max_lp to "
                       f"{max_lp} and redoing batch")
                 step = make_nsq_batch_step(sys, bpd, compat, ipm,
                                            max_lp=max_lp, **step_kwargs)
                 return True
-            overflow += n_over   # buffer already at batch size
+            overflow += n_over   # buffer already at its cap
         infeasible += n_infeas
         stats.update(moments)
         histories["beta"].append(stats.beta)

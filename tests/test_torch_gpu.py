@@ -4,7 +4,8 @@ study's 4,096-lane LP buffer), the blocked Cholesky route on the
 kernels against the same route on the plain versions, the RTS-24 main
 path on the card against the same path on the CPU, an RTS-96 step that
 must launch K2 and K3, K2a and K3 at the case300s block-Schur shapes and
-the case300s LP path on eight deep contingencies, the fused sampler-certificate step and the SEQ
+the case300s LP path on eight deep contingencies, tier 1.5
+(``certify_island_pf``) on the card against the CPU, the fused sampler-certificate step and the SEQ
 step without a host sync, and the 98-state golden replay on the card
 (tests/test_torch_nsq.py runs it on the CPU through the same helper).
 
@@ -90,6 +91,19 @@ def concentrated_300(case, n):
         states[i, a * 33 + gs] = 1.0
         states[i, ng + a * 38 + np.array([3 + i, 17])] = 1.0
     return states
+
+
+def sampled_300(case, n, seed, branch_boost=1.0):
+    """[n, n_comp] float32 ``case300s`` outage states drawn with numpy
+    from the case's unavailabilities (the branches' times
+    ``branch_boost``), the synchronous condensers pinned up as the NSQ
+    sampler pins them. Shared with tests/test_torch_island_pf.py (CPU)."""
+    u = twostate.unavailability(case).copy()
+    u[case.n_gen:] = np.minimum(branch_boost * u[case.n_gen:], 0.5)
+    rng = np.random.default_rng(seed)
+    down = rng.uniform(size=(n, case.n_comp)) < u[None, :]
+    down[:, :case.n_gen] &= ~case.sync_cond_mask[None, :]
+    return down.astype(np.float32)
 
 
 def golden_states(case, sys_):
@@ -747,6 +761,35 @@ def test_case300_evaluate_states_on_card(cuda):
     assert float(res.dns_mw.min()) > 600.0     # transmission-limited shed
     for name, d in (("cholesky", bc.launches), ("trsm_fwd", bl.launches)):
         assert d[name] > before[name]
+
+
+@pytest.mark.gpu
+def test_island_pf_on_card_matches_cpu(cuda):
+    """Tier 1.5 (certify_island_pf) on the card against the same function
+    on CPU tensors, on the tier-1 misses of case300s lanes drawn at 8x
+    branch unavailability (islanding and deep multi-branch states): the
+    same certified mask, the bound within 1e-4 p.u., and no host sync."""
+    case = cases.case300s()
+    down = torch.as_tensor(sampled_300(case, 1024, seed=12, branch_boost=8.0))
+    sys_cpu, sys_gpu = (build_system(case, device=d) for d in ("cpu", cuda))
+    load = sys_cpu.load_pd[None, :].expand(down.shape[0], sys_cpu.n_load)
+    miss = ~dcopf.certify_states(sys_cpu, down, load, woodbury_k=4).certified
+    d = down[miss][:256]
+    assert d.shape[0] >= 64
+    want = dcopf.certify_island_pf(sys_cpu, d, load[:d.shape[0]])
+    d_gpu = d.to(cuda)
+    load_gpu = sys_gpu.load_pd[None, :].expand(d.shape[0], sys_gpu.n_load)
+    dcopf.certify_island_pf(sys_gpu, d_gpu, load_gpu)     # first call: warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = dcopf.certify_island_pf(sys_gpu, d_gpu, load_gpu)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(want.certified.sum()) >= 32
+    np.testing.assert_array_equal(got.certified.cpu().numpy(),
+                                  want.certified.numpy())
+    assert float((got.deficit.cpu() - want.deficit).abs().max()) <= 1e-4
 
 
 @pytest.mark.gpu

@@ -12,8 +12,9 @@ against the JAX package on the CPU.
 * A small ``run_nsq_study`` on RTS-96 within 4 combined standard errors of
   results/study_sweep.json["rts96"] (different random streams: the
   estimators are compared, not bits).
-* The routing: the screened evaluator raises NotImplementedError at
-  m > 336, and the entry points default to the card.
+* The screened evaluator at m > 336 (rts24 x 6, m = 384) with tier 1.5
+  against ``evaluate_states`` on every lane, and the entry points
+  default to the card.
 """
 import dataclasses
 import inspect
@@ -206,17 +207,48 @@ def test_screened_rts96_matches_reference(rts96):
 
 
 def test_large_m_is_not_ported(rts96):
-    # rts24 x 6: m = 144 buses + 240 branches = 384 > 336. The screened
-    # evaluator's island-PF tier is not ported yet at this size; the LP
-    # path is (tests/test_torch_case300.py): intact states shed nothing.
+    # The name predates tier 1.5; the large-m screened path is ported
+    # now. rts24 x 6: m = 144 buses + 240 branches = 384 > 336, where
+    # default_pf_buffer turns tier 1.5 on. The screened evaluator with
+    # it matches evaluate_states (the LP on every lane) on every lane,
+    # and tier 1.5 certifies lanes tier 1 leaves.
     sys_ = build_system(cases.replicate_case(cases.rts24(), 6), device="cpu")
     assert sys_.n_bus + sys_.n_branch == 384
-    down = torch.zeros((4, sys_.n_comp), dtype=torch.bool)
-    load = sys_.load_pd[None, :].expand(4, sys_.n_load)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        dcopf.evaluate_states_screened(sys_, down, load, 4)
-    res = dcopf.evaluate_states(sys_, down, load)
-    assert (res.dns_mw == 0).all() and not res.failure.any()
+    ng, nl = sys_.n_gen, sys_.n_branch
+    inc = sys_.incidence.numpy()
+    fr, to = np.argmax(inc > 0, axis=1), np.argmax(inc < 0, axis=1)
+
+    def cut(buses):         # the branches leaving a set of buses
+        inside = np.isin(np.arange(sys_.n_bus), buses)
+        return np.nonzero(inside[fr] != inside[to])[0]
+
+    rng = np.random.default_rng(384)
+    down = np.zeros((8, sys_.n_comp), bool)
+    down[1, ng + cut([6, 7])] = True                 # a two-bus island
+    down[2, ng + cut([6, 7])] = True                 # ... short of units
+    down[2, np.nonzero(sys_.gen_bus_onehot.numpy()[6])[0][:2]] = True
+    down[3, ng + cut(np.arange(48, 58))] = True      # area 2's south
+    down[4, ng + rng.choice(nl, 6, replace=False)] = True
+    down[5, rng.choice(ng, 8, replace=False)] = True
+    down[5, ng + rng.choice(nl, 3, replace=False)] = True
+    down[6:, :] = rng.uniform(size=(2, sys_.n_comp)) < 0.05
+    down[:, :ng] &= sys_.gen_pmax.numpy() > 0        # condensers stay up
+    d = torch.as_tensor(down)
+    load = sys_.load_pd[None, :].expand(8, sys_.n_load)
+    pf_buffer = dcopf.default_pf_buffer(sys_, 8)
+    assert pf_buffer == 8
+    tier1 = dcopf.certify_states(sys_, d, load, woodbury_k=4).certified
+    tier15 = dcopf.certify_island_pf(sys_, d, load).certified
+    assert int((~tier1 & tier15).sum()) >= 3
+    full = dcopf.evaluate_states(sys_, d, load, woodbury_k=4)
+    got, over = dcopf.evaluate_states_screened(
+        sys_, d, load, 8, nodal_mode="proportional", woodbury_k=4,
+        pf_buffer=pf_buffer)
+    assert int(over) == 0
+    np.testing.assert_allclose(got.dns_mw.numpy(), full.dns_mw.numpy(),
+                               rtol=0, atol=ORACLE_TOL_MW)
+    np.testing.assert_array_equal(got.failure.numpy(), full.failure.numpy())
+    assert (full.dns_mw > 1.0).sum() >= 2            # two islands shed
 
 
 def test_small_rts96_study_matches_committed_results():
