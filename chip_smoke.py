@@ -114,6 +114,28 @@ Phases, one line each (any failure raises, so the exit code is not 0):
               and 0 alone at max_lp 128, and batch 0's host syncs, device
               ms and launches; evaluate_states' wall and peak memory at
               the 2,048-lane cap
+ 17. anti     run_nsq_study(rts24(), MCSConfig(batch_size=2048,
+              max_samples=40960, beta_limit=0, antithetic=True)) held
+              against results/study_sweep.json["antithetic"]
+ 18. is24     run_nsq_study(rts24(), MCSConfig(batch_size=8192,
+              max_samples=16384, beta_limit=0, seed=3, is_boost=2.0))
+              held against results/enum_hybrid.json["study_ab"]["boost2"];
+              then one step of it under set_sync_debug_mode("error"): wall
+              and device ms, launches, busy share and LP lanes
+ 19. mix300   make_nsq_batch_step(mix=(gen_area_masks(case300s()), 2.0,
+              0.5)), proportional mode, batch 8,192, seed 7, for ~90 s,
+              held against results/mixture_ab.json["arms"]["mix_b2"];
+              the largest weight within 1 / alpha0
+ 20. ce300    run_nsq_study(case300s(), MCSConfig(is_ce=True,
+              batch_size=8192, max_samples=262144, seed=7,
+              nodal_mode="proportional"), max_lp=256): the CE pilot
+              (32,768 samples, 2 rounds, seed 7 + 90210; its rounds
+              beside results/ce_sparse.json's) and sparsify_ce_proposal
+              (8, 0.05) inside it, held against its sparse_k8_c05 arm
+              Phases 17-20 print the estimate, its standard error, the
+              record's and the z-score against the two combined (fail
+              above 4 or on any overflow), samples/s, wall time and the
+              card's name and power limit.
 The bench phase also times the fused step (fused_tier1) at its shape,
 under the same sync check, and prints it on a line of its own.
 Then one JSON line of per-kernel results and, last, the device line
@@ -141,7 +163,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PKG = "powersystemsreliabilityassessment_tpu_torch"
 ALL_PHASES = ("build", "k2", "k1", "bench", "study", "k3", "study96", "k6",
-              "k4", "k5", "studyfused", "seq", "lp300", "pf300", "study300")
+              "k4", "k5", "studyfused", "seq", "lp300", "pf300", "study300",
+              "anti", "is24", "mix300", "ce300")
 # Not run by default: a per-layer and per-kernel breakdown of the
 # bench-shaped step and of the RTS-96 step (for PERF.md), not part of
 # the smoke contract.
@@ -213,6 +236,8 @@ K6_MAX_Z = 5.0
 # held to its plain version there too, with a floor on the routed share.
 K4_WIDE_EPS = 2.0 ** -14
 K4_WIDE_MIN_ROUTED = 0.01
+# The card's name and power limit (nvidia-smi), set by the device phase.
+CARD = {"smi": None}
 
 
 def _line(phase: str, **kv) -> None:
@@ -2578,6 +2603,313 @@ def phase_study300(results):
         results.setdefault(name, {})["launches_study300"] = counts[key]
 
 
+# The samplers' phases: a record's estimate and standard error, held
+# within RARE_MAX_Z combined standard errors.
+RARE_MAX_Z = 4.0
+# mix300 runs batches for about this long (at least two), and at most
+# the record's sample count.
+RARE300_SECONDS = 90.0
+RARE300_BATCH = 8192
+RARE300_SEED = 7
+RARE300_MAX_BATCHES = 32
+
+
+def _z_line(tag, res_edns, res_se, ref_edns, ref_se, **kv):
+    """Print the estimate beside the record's; fail above RARE_MAX_Z."""
+    import math
+    z = abs(res_edns - ref_edns) / math.hypot(res_se, ref_se)
+    _line(tag, edns_mw=f"{res_edns:.5f}", edns_se_mw=f"{res_se:.5f}",
+          record_edns_mw=ref_edns, record_se_mw=f"{ref_se:.5f}",
+          edns_z=f"{z:.2f}<={RARE_MAX_Z:g}", card=repr(CARD["smi"]), **kv)
+    if not z <= RARE_MAX_Z:
+        raise RuntimeError(f"{tag}: EDNS {res_edns:.5f} MW is {z:.2f} "
+                           "combined standard errors from its record")
+
+
+def _rare_study(tag, cfg, ref_edns, ref_beta, results, **kv):
+    """An RTS-24 study through run_nsq_study with ``cfg``, held against a
+    record's EDNS and beta; K1 and K2 must launch. Returns the result."""
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.core import cases
+    from powersystemsreliabilityassessment_tpu_torch.studies import hl2_nsq
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = hl2_nsq.run_nsq_study(cases.rts24(), cfg, device="cuda",
+                                log_every=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    _z_line(tag, res.edns_mw, res.beta * res.edns_mw, ref_edns,
+            ref_beta * ref_edns, beta=f"{res.beta:.5f}",
+            record_beta=ref_beta, lole_hr_yr=f"{res.lole_hr_yr:.2f}",
+            samples=res.samples, overflow=res.overflow_states,
+            wall_s=f"{wall:.2f}", samples_per_s=f"{res.samples / wall:.0f}",
+            launches=json.dumps(counts).replace(" ", ""), **kv)
+    _check_launched(tag, counts, RTS24_KERNELS)
+    if res.overflow_states:
+        raise RuntimeError(f"{tag}: {res.overflow_states} overflow states")
+    for name in RTS24_KERNELS:
+        results.setdefault(name, {})[f"launches_{tag}"] = counts[name]
+    return res
+
+
+def phase_anti(results):
+    """RTS-24 antithetic study (batch 2,048, 40,960 samples) against
+    results/study_sweep.json["antithetic"]."""
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        MCSConfig)
+    ref = json.loads((ROOT / "results" / "study_sweep.json").read_text())
+    rec = ref["antithetic"]["antithetic"]
+    _rare_study("anti", MCSConfig(batch_size=2048, max_samples=40960,
+                                  beta_limit=0.0, antithetic=True),
+                rec["edns"], rec["beta"], results)
+
+
+def phase_is24(sys_, results):
+    """RTS-24 importance-sampled study (boost 2 on every component, "lp"
+    mode, batch 8,192, 16,384 samples, seed 3) against
+    results/enum_hybrid.json["study_ab"]["boost2"]; then one step of it
+    under set_sync_debug_mode("error"): wall and device ms, launches,
+    busy share and the lanes it sends to the LP."""
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
+    from powersystemsreliabilityassessment_tpu_torch.studies import hl2_nsq
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        CompatFlags, IPMConfig, MCSConfig)
+    ref = json.loads((ROOT / "results" / "enum_hybrid.json").read_text())
+    rec = ref["study_ab"]["boost2"]
+    cfg = MCSConfig(batch_size=8192, max_samples=16384, beta_limit=0.0,
+                    seed=3, is_boost=2.0)
+    _rare_study("is24", cfg, rec["edns"], rec["beta"], results,
+                record_lole_hr_yr=rec["lole"])
+    step = hl2_nsq.make_nsq_batch_step(
+        sys_, cfg.batch_size, CompatFlags(), IPMConfig(),
+        is_boost=cfg.is_boost, shed_hint=dcopf.calibrate_shed_hint(sys_))
+    gen = lambda: hl2_nsq.batch_generator(cfg.seed, 0, "cuda")
+    need, orig = [], dcopf._needs_lp
+
+    def needs_lp(pre, mode):
+        lanes = orig(pre, mode)
+        need.append(lanes.sum())
+        return lanes
+
+    dcopf._needs_lp = needs_lp
+    try:
+        out = step(gen())
+    finally:
+        dcopf._needs_lp = orig
+    lp_lanes = int(need[-1])
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = step(gen())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = _counts()
+    dev_ms, n_kernels, _ = _device_once(lambda: step(gen()))
+    max_lp = hl2_nsq.default_max_lp(cfg.batch_size, "lp", cfg.is_boost)
+    _line("is24", step_batch=cfg.batch_size, step_wall_ms=f"{wall_ms:.2f}",
+          step_device_ms=f"{dev_ms:.2f}", step_kernels=n_kernels,
+          step_device_busy_share=f"{dev_ms / wall_ms:.3f}",
+          lp_lanes=lp_lanes, max_lp=max_lp, overflow=int(out[1]),
+          sync_check="error", card=repr(CARD["smi"]),
+          launches=json.dumps(counts).replace(" ", ""))
+    _check_launched("is24 step", counts, RTS24_KERNELS)
+
+
+def _weighted_run(tag, make_step, max_lp):
+    """Batches of a case300s step ``make_step(max_lp)`` on the study's
+    generators (seed RARE300_SEED) for about RARE300_SECONDS (at least
+    two, at most RARE300_MAX_BATCHES); an overflow doubles the buffer up
+    to the study's cap and redoes the batch, as run_nsq_study does.
+    Returns (RunningStats, batches, redos, overflow, wall s, max_lp)."""
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.parallel import (
+        accumulators)
+    from powersystemsreliabilityassessment_tpu_torch.studies import hl2_nsq
+    stats = accumulators.RunningStats()
+    step = make_step(max_lp)
+    i = redos = overflow = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while i < RARE300_MAX_BATCHES and (
+            i < 2 or time.perf_counter() - t0 < RARE300_SECONDS):
+        m, n_over, _ = step(hl2_nsq.batch_generator(RARE300_SEED, i, "cuda"))
+        n_over = int(n_over)
+        if n_over and 2 * max_lp <= min(RARE300_BATCH,
+                                        hl2_nsq.PF_TIER_LP_CAP):
+            max_lp *= 2
+            redos += 1
+            step = make_step(max_lp)
+            print(f"  {tag}: overflow {n_over}, max_lp {max_lp}, redo "
+                  f"batch {i}", flush=True)
+            continue
+        overflow += n_over
+        stats.update(m)
+        i += 1
+    torch.cuda.synchronize()
+    return stats, i, redos, overflow, time.perf_counter() - t0, max_lp
+
+
+@contextlib.contextmanager
+def _max_weight(name, store):
+    """Record the largest weight of each call of hl2_nsq's sampler
+    ``name`` (a device tensor, so no host sync)."""
+    from powersystemsreliabilityassessment_tpu_torch.studies import hl2_nsq
+    orig = getattr(hl2_nsq, name)
+
+    def sampler(*a, **kw):
+        down, w = orig(*a, **kw)
+        store.append(w.max())
+        return down, w
+
+    setattr(hl2_nsq, name, sampler)
+    try:
+        yield
+    finally:
+        setattr(hl2_nsq, name, orig)
+
+
+def _rare300_line(tag, rec, edns, beta, samples, plc, overflow, wall,
+                  counts, w_max, **kv):
+    """The case300s phases' line: the weighted estimate against the
+    record's; K2a and K3 must launch, and no lane may overflow."""
+    _z_line(tag, edns, beta * edns, rec["edns_mw"], rec["edns_se_mw"],
+            samples=samples, record_samples=rec["n"],
+            beta=f"{beta:.5f}", plc=f"{plc:.7f}",
+            record_plc=rec["plc_weighted"], max_weight=f"{w_max:.5f}",
+            overflow=overflow, wall_s=f"{wall:.2f}",
+            samples_per_s=f"{samples / wall:.0f}",
+            record_tpu_samples_per_s=rec["warm_samples_per_s"],
+            launches=json.dumps(counts).replace(" ", ""), **kv)
+    if samples < rec["n"]:
+        print(f"  {tag}: {samples} samples of the record's {rec['n']}: "
+              "the standard error is the wider for it", flush=True)
+    _check_launched(tag, counts, ("cholesky", "trsm_fwd"))
+    if overflow:
+        raise RuntimeError(f"{tag}: {overflow} overflow states")
+
+
+def phase_mix300(results):
+    """case300s defensive mixture over its 12 areas' generators (boost 2,
+    alpha0 0.5, proportional mode, batch 8,192, seed 7, the calibrated
+    shed hint) against results/mixture_ab.json["arms"]["mix_b2"]; the
+    largest weight must stay within 1 / alpha0."""
+    from powersystemsreliabilityassessment_tpu_torch.core import cases
+    from powersystemsreliabilityassessment_tpu_torch.core.system import (
+        build_system)
+    from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
+    from powersystemsreliabilityassessment_tpu_torch.studies import hl2_nsq
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        CompatFlags, IPMConfig)
+    ref = json.loads((ROOT / "results" / "mixture_ab.json").read_text())
+    rec = ref["arms"]["mix_b2"]
+    case = cases.case300s()
+    sys_ = build_system(case, device="cuda")
+    masks = hl2_nsq.gen_area_masks(case)
+    alpha0 = 0.5
+    mix = (masks, 2.0, alpha0)
+    hint = dcopf.calibrate_shed_hint(sys_)
+    make = lambda lp: hl2_nsq.make_nsq_batch_step(
+        sys_, RARE300_BATCH, CompatFlags(), IPMConfig(), max_lp=lp,
+        nodal_mode="proportional", shed_hint=hint, mix=mix)
+    weights = []
+    _reset_counts()
+    with _max_weight("sample_states_mixture", weights):
+        out = _weighted_run("mix300", make,
+                            min(max(RARE300_BATCH // 16, 128), 2048))
+    counts = _counts()
+    w_max = max(float(w) for w in weights)
+    stats, n_batches, redos, overflow, wall, max_lp = out
+    _rare300_line("mix300", rec, stats.edns, stats.beta, int(stats.n),
+                  stats.plc, overflow, wall, counts, w_max,
+                  weight_bound=1 / alpha0, batches=n_batches, redos=redos,
+                  max_lp=max_lp, areas=masks.shape[0])
+    if not w_max <= (1 / alpha0) * (1 + 1e-6):
+        raise RuntimeError(f"mix300: weight {w_max} above 1 / alpha0")
+    for name in ("cholesky", "trsm_fwd"):
+        results.setdefault(name, {})["launches_mix300"] = counts[name]
+
+
+def phase_ce300(results):
+    """run_nsq_study(case300s(), MCSConfig(is_ce=True, batch_size=8192,
+    max_samples=262144, seed=7, proportional mode), max_lp=256): the CE
+    pilot (32,768 samples, 2 rounds, seed 7 + 90210) and
+    sparsify_ce_proposal(q, sys, 8, 0.05) inside it, held against
+    results/ce_sparse.json["arms"]["sparse_k8_c05"]; the pilot's rounds
+    beside the record's."""
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.core import cases
+    from powersystemsreliabilityassessment_tpu_torch.core.system import (
+        build_system)
+    from powersystemsreliabilityassessment_tpu_torch.studies import hl2_nsq
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        MCSConfig)
+    ref = json.loads((ROOT / "results" / "ce_sparse.json").read_text())
+    rec = ref["arms"]["sparse_k8_c05"]
+    cfg = MCSConfig(batch_size=RARE300_BATCH, max_samples=rec["n"],
+                    beta_limit=0.0, seed=RARE300_SEED,
+                    nodal_mode="proportional", is_ce=True)
+    seen = {}
+    orig = hl2_nsq.calibrate_ce_proposal, hl2_nsq.sparsify_ce_proposal
+
+    def calibrate(*a, **kw):
+        t0 = time.perf_counter()
+        seen["q"], seen["diag"] = orig[0](*a, **kw)
+        torch.cuda.synchronize()
+        seen["pilot_s"] = time.perf_counter() - t0
+        return seen["q"], seen["diag"]
+
+    def sparsify(*a, **kw):
+        seen["sparse"] = orig[1](*a, **kw)
+        return seen["sparse"]
+
+    weights = []
+    hl2_nsq.calibrate_ce_proposal = calibrate
+    hl2_nsq.sparsify_ce_proposal = sparsify
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with _max_weight("sample_states_importance", weights):
+            res = hl2_nsq.run_nsq_study(cases.case300s(), cfg, device="cuda",
+                                        log_every=0, max_lp=256)
+    finally:
+        hl2_nsq.calibrate_ce_proposal, hl2_nsq.sparsify_ce_proposal = orig
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    for r, r_ref in zip(seen["diag"]["rounds"], ref["ce_diag"]["rounds"]):
+        _line("ce300", pilot_round=r["round"], events=r["events"],
+              record_events=r_ref["events"], rel_var_wf=r["rel_var_wf"],
+              record_rel_var_wf=r_ref["rel_var_wf"],
+              sum_q_branches=r["sum_q_branches"],
+              record_sum_q_branches=r_ref["sum_q_branches"],
+              overflow=r["overflow"])
+    if seen["q"] is None:
+        raise RuntimeError("ce300: the pilot saw fewer than 8 deficit events")
+    q = seen["sparse"]
+    u = build_system(cases.case300s(), device="cpu").unavail.numpy()
+    # The pilot's draws are weighted too: the largest weight of the
+    # study's own batches is the last res.samples / batch of them.
+    w_study = weights[-(res.samples // cfg.batch_size):]
+    _rare300_line("ce300", rec, res.edns_mw, res.beta, res.samples, res.plc,
+                  res.overflow_states, wall - seen["pilot_s"], counts,
+                  max(float(w) for w in w_study),
+                  pilot_s=f"{seen['pilot_s']:.2f}",
+                  record_pilot_tpu_s=ref["pilot_wall_s"],
+                  tilted_components=int((q != u).sum()),
+                  sum_q_minus_u=f"{float((q - u).sum()):.4f}",
+                  record_sum_q_minus_u=rec["sum_q_minus_u"],
+                  max_lp=256, lole_hr_yr=f"{res.lole_hr_yr:.3f}")
+    for name in ("cholesky", "trsm_fwd"):
+        results.setdefault(name, {})["launches_ce300"] = counts[name]
+
 def phase_studyfused(results):
     counts = phase_study("studyfused", fused=True, kernels=FUSED_KERNELS)
     results.setdefault("sample_certify_quick", {})["launches"] = \
@@ -2834,7 +3166,7 @@ def main() -> int:
     unknown = set(phases) - set(ALL_PHASES + EXTRA_PHASES)
     if unknown:
         raise SystemExit(f"chip_smoke: unknown phases {sorted(unknown)}")
-    phase_device()
+    CARD["smi"] = phase_device()
     sys.path.insert(0, str(ROOT))
     import torch
     from powersystemsreliabilityassessment_tpu_torch.core import cases
@@ -2872,6 +3204,14 @@ def main() -> int:
         phase_pf300()
     if "study300" in phases:
         phase_study300(results)
+    if "anti" in phases:
+        phase_anti(results)
+    if "is24" in phases:
+        phase_is24(sys_, results)
+    if "mix300" in phases:
+        phase_mix300(results)
+    if "ce300" in phases:
+        phase_ce300(results)
     if "profile" in phases:
         phase_profile(sys_)
         phase_profile96(sys96)

@@ -30,24 +30,38 @@ class BatchMoments(NamedTuple):
     sum_flag_raw: object  # raw failure count (importance denominator)
 
 
-def batch_moments(dns_mw, nodal_mw, failure, comp_down,
+def batch_moments(dns_mw, nodal_mw, failure, comp_down, weight=None,
                   cv=None) -> BatchMoments:
     """Partial sums of one batch; mirrors reference
-    ``parallel/accumulators.py::batch_moments`` (unweighted).
+    ``parallel/accumulators.py::batch_moments``.
+
+    ``weight`` [B] (importance sampling): DNS, nodal shed and failure
+    flags are weighted while ``n`` stays the sample count, so the host's
+    mean and beta are the importance-sampling estimator and its CoV;
+    ``sum_flag_raw`` is the weighted (non-residual) flag sum, the
+    denominator of component importance.
 
     ``cv = (c_mw, c_flag)``: the DNS/flag sums and second moment track
-    the RESIDUALS dns - c / flag - c_flag, and ``RunningStats.mu_dns`` /
-    ``mu_flag`` add the exact means back on the host. Keeping the device
-    sums residual-only matters: float32 accumulation of sum((r + mu)^2)
-    loses the whole residual variance to cancellation (the reference's
-    silent early stop, NEXT.md #11).
+    the RESIDUALS ``w (dns - c)`` / ``w (flag - c_flag)`` (w = 1 without
+    a weight), and ``RunningStats.mu_dns`` / ``mu_flag`` add the exact
+    means back on the host. Keeping the device sums residual-only
+    matters: float32 accumulation of sum((r + mu)^2) loses the whole
+    residual variance to cancellation (the reference's silent early
+    stop, NEXT.md #11).
     """
     f = failure.to(dns_mw.dtype)
+    if weight is not None:
+        dns_mw = dns_mw * weight
+        nodal_mw = nodal_mw * weight[:, None]
+        f = f * weight
     v, vf = dns_mw, f
     if cv is not None:
         c_mw, c_flag = cv
+        c_flag = c_flag.to(dns_mw.dtype)
+        if weight is not None:
+            c_mw, c_flag = c_mw * weight, c_flag * weight
         v = dns_mw - c_mw
-        vf = f - c_flag.to(dns_mw.dtype)
+        vf = f - c_flag
     return BatchMoments(
         n=dns_mw.new_full((), float(dns_mw.shape[0])),
         sum_dns=v.sum(), sum_dns_sq=(v * v).sum(), sum_flag=vf.sum(),

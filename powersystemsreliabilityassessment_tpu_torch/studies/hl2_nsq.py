@@ -1,12 +1,15 @@
 """HL2 non-sequential Monte Carlo study (the ``nsqMain.m`` path).
 
-Port of ``powersystemsreliabilityassessment_tpu/studies/hl2_nsq.py``,
-plain Monte Carlo on one device. Per batch, on the device: sample
-Bernoulli component states at fixed peak load, evaluate them with the
+Port of ``powersystemsreliabilityassessment_tpu/studies/hl2_nsq.py`` on
+one device. Per batch, on the device: sample Bernoulli component states
+at fixed peak load (plain, antithetic, importance-sampled with its
+scopes or a cross-entropy proposal, or a defensive mixture over
+component groups), evaluate them with the
 two-tier DC-OPF evaluator (``engines/dcopf.py``), and reduce the index
 partial sums. The host folds the partial sums into float64 running
 statistics and applies the beta stopping rule (beta < ``beta_limit`` or
-``max_samples``, nsqMain.m:60-61).
+``max_samples``, nsqMain.m:60-61). The weighted samplers' moments are
+importance-sampling estimates (``accumulators.batch_moments(weight=)``).
 
 Threefry keys become one ``torch.Generator`` per batch, seeded from
 (study seed, batch index): a batch is reproducible from its index, which
@@ -15,8 +18,7 @@ and first-pass-certifies each batch in the K4 kernel
 (``ops/fused_sampler_cert.py``). A ``runtime.checkpoint.Checkpointer``
 saves the host state every few batches, and a study given one resumes
 from it. Not ported yet (ROADMAP.md Queue 1): the mesh and ``psum``,
-antithetic / importance / CE / mixture sampling, the control variate,
-enumeration.
+the control variate, enumeration.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ from powersystemsreliabilityassessment_tpu_torch.runtime.checkpoint import (
 from powersystemsreliabilityassessment_tpu_torch.runtime.host_loop import (
     double_buffered_loop)
 from powersystemsreliabilityassessment_tpu_torch.sampling.state import (
-    sample_states)
+    sample_states, sample_states_importance, sample_states_mixture)
 from powersystemsreliabilityassessment_tpu_torch.utils.config import (
     CompatFlags, IPMConfig, MCSConfig)
 
@@ -55,34 +57,76 @@ PF_TIER_PROPORTIONAL_LP = 128
 
 
 def default_max_lp(batch_per_device: int, nodal_mode: str = "lp",
+                   is_boost: float = 0.0, is_boost_scope: str = "all",
                    pf_tier: bool = False) -> int:
     """Default LP-lane buffer per batch; mirrors reference
-    ``studies/hl2_nsq.py::default_max_lp`` (plain MC): "lp" mode sends
-    every positive-deficit state to the LP (~10% of RTS-24 peak states),
-    so 25%; "proportional" mode only certificate failures (~0.04%), so
-    1.56%. ``pf_tier`` (tier 1.5 on, m > 336) caps it at
-    ``PF_TIER_LP_CAP``, and in "proportional" mode at
-    ``PF_TIER_PROPORTIONAL_LP``. Overflow self-corrects through
+    ``studies/hl2_nsq.py::default_max_lp``: "lp" mode sends every
+    positive-deficit state to the LP (~10% of RTS-24 peak states), so
+    25%; "proportional" mode only certificate failures (~0.04%), so
+    1.56%. Importance sampling that boosts branches (scope "all" or
+    "branches") multiplies the certificate's misses, and any boost in
+    "lp" mode the deficit states: 50%. ``pf_tier`` (tier 1.5 on, m > 336)
+    caps it at ``PF_TIER_LP_CAP``, and unboosted in "proportional" mode
+    at ``PF_TIER_PROPORTIONAL_LP``. Overflow self-corrects through
     grow-and-redo. These are TPU-era settings not yet measured again on
     the H100."""
-    frac = 64 if nodal_mode == "proportional" else 4
+    if is_boost > 1.0 and (is_boost_scope in ("all", "branches")
+                           or nodal_mode == "lp"):
+        frac = 2
+    elif nodal_mode == "proportional":
+        frac = 64
+    else:
+        frac = 4
     lanes = max(batch_per_device // frac, 16)
     if pf_tier:
         lanes = min(lanes, PF_TIER_LP_CAP)
-        if nodal_mode == "proportional":
+        if nodal_mode == "proportional" and is_boost <= 1.0:
             lanes = min(lanes, PF_TIER_PROPORTIONAL_LP)
     return lanes
 
 
-def default_woodbury_k(sys: System) -> int:
+def default_woodbury_k(sys: System, is_boost: float = 0.0,
+                       is_boost_scope: str = "all",
+                       q_vec: np.ndarray | None = None) -> int:
     """Certificate rank: 2 unless >= 3 simultaneous branch outages have
     probability >= 1e-4 under the sampling measure (Poisson bound), then
-    4. Mirrors reference ``studies/hl2_nsq.py::default_woodbury_k``
-    (plain MC). RTS-24 resolves to 2, RTS-96 and case300s to 4."""
-    q = sys.unavail.detach().cpu().numpy().astype(np.float64)[sys.n_gen:]
+    4. The measure includes the boost where its scope covers branches;
+    ``q_vec`` gives the cross-entropy proposal's rates directly. Mirrors
+    reference ``studies/hl2_nsq.py::default_woodbury_k``. Plain MC
+    resolves RTS-24 to 2, RTS-96 and case300s to 4."""
+    if q_vec is not None:
+        q = np.asarray(q_vec, np.float64)[sys.n_gen:]
+    else:
+        q = sys.unavail.detach().cpu().numpy().astype(np.float64)[sys.n_gen:]
+        if is_boost > 1.0 and is_boost_scope in ("all", "branches"):
+            q = np.minimum(is_boost * q, 0.5)
     lam = float(q.sum())
     p_ge3 = 1.0 - np.exp(-lam) * (1.0 + lam + lam * lam / 2.0)
     return 2 if p_ge3 < 1e-4 else 4
+
+
+def gen_area_masks(case: CaseData) -> np.ndarray | None:
+    """[K, n_comp] bool: one row per area's generators, the groups of
+    :func:`sampling.state.sample_states_mixture`; None without
+    ``case.bus_area`` or with one area. Mirrors reference
+    ``studies/hl2_nsq.py::gen_area_masks``."""
+    if case.bus_area is None:
+        return None
+    areas = np.unique(case.bus_area)
+    if areas.size < 2:
+        return None
+    gen_area = np.asarray(case.bus_area)[np.asarray(case.gen_bus)]
+    masks = np.zeros((areas.size, case.n_comp), bool)
+    for i, a in enumerate(areas):
+        masks[i, :case.n_gen] = gen_area == a
+    return masks[masks.any(axis=1)]
+
+
+def _generator(entropy: tuple, device) -> torch.Generator:
+    words = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(words.view(np.uint64)[0]))
+    return gen
 
 
 def batch_generator(seed: int, batch_idx: int,
@@ -92,11 +136,133 @@ def batch_generator(seed: int, batch_idx: int,
     ``jax.random.fold_in(root, i)`` (``studies/hl2_nsq.py::run_nsq_study``).
     Deterministic in (seed, batch_idx), so a redo of a batch draws the
     same states."""
-    words = np.random.SeedSequence((seed, batch_idx)).generate_state(
-        2, np.uint32)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(words.view(np.uint64)[0]))
-    return gen
+    return _generator((seed, batch_idx), device)
+
+
+def pilot_generator(seed: int, round_idx: int, chunk_idx: int,
+                    device: torch.device | str) -> torch.Generator:
+    """The generator of chunk ``chunk_idx`` of round ``round_idx`` of a
+    cross-entropy pilot seeded ``seed``, derived as
+    :func:`batch_generator` derives a batch's; takes the place of the
+    reference's ``fold_in(fold_in(key(seed), r), j)``
+    (``studies/hl2_nsq.py::calibrate_ce_proposal``)."""
+    return _generator((seed, round_idx, chunk_idx), device)
+
+
+def calibrate_ce_proposal(sys: System, compat: CompatFlags, ipm: IPMConfig,
+                          batch: int = 32768, rounds: int = 2,
+                          boost0: float = 4.0, smoothing: float = 0.7,
+                          seed: int = 1717,
+                          shed_hint: np.ndarray | None = None,
+                          log_every: int = 1):
+    """Cross-entropy calibration of a per-component importance proposal
+    from pilot batches; mirrors reference
+    ``studies/hl2_nsq.py::calibrate_ce_proposal``.
+
+    The CE-optimal product-form proposal for E[f] (f = DNS) has marginals
+    q_k* = E_p[f 1(k down)] / E_p[f], estimated self-normalized under the
+    current proposal. Round 0 starts from a uniform branch boost
+    ``boost0``; each round replaces q by ``smoothing`` q_CE + (1 -
+    ``smoothing``) q, clamped to [U, 0.5], 0 on pinned components. The
+    pilot runs in chunks of min(batch, 8192) samples with an LP buffer of
+    min(chunk, 1024) lanes and tier 1.5 where the system takes it, one
+    generator per (seed, round, chunk) (:func:`pilot_generator`); each
+    chunk's sums are read on the host once. An overflow only blunts the
+    learned tilt: the study's weights are exact for any q.
+
+    Returns (q float32 [n_comp], diagnostics), or (None, diagnostics)
+    when a round sees fewer than 8 deficit events.
+    """
+    ng = sys.n_gen
+    U = sys.unavail.detach().cpu().numpy().astype(np.float64)
+    always = sys.always_up_nsq.detach().cpu().numpy()
+    q = U.copy()
+    q[ng:] = np.minimum(boost0 * np.maximum(U[ng:], 1e-9), 0.5)
+    q = np.where(always, 0.0, q)
+
+    chunk = min(batch, 8192)
+    n_chunks = (batch + chunk - 1) // chunk
+    load = sys.load_pd[None, :].expand(chunk, sys.n_load)
+    hint = (None if shed_hint is None else torch.as_tensor(
+        shed_hint, dtype=sys.load_pd.dtype, device=sys.device))
+    max_lp = min(chunk, 1024)
+    wk = default_woodbury_k(sys, q_vec=q)
+    pf_buffer = dcopf.default_pf_buffer(sys, chunk)
+
+    def pilot(gen, qv):
+        down, w = sample_states_importance(gen, sys.unavail,
+                                           sys.always_up_nsq, chunk, 0.0,
+                                           q_override=qv)
+        res, n_over = dcopf.evaluate_states_screened(
+            sys, down, load, max_lp, compat, ipm, "proportional",
+            repair_buffer=None, woodbury_k=wk, shed_hint=hint,
+            pf_buffer=pf_buffer)
+        f = res.dns_mw
+        wf = w * f
+        sums = torch.stack([wf.sum(), (wf * wf).sum(),
+                            (f > 0).sum().to(f.dtype), n_over.to(f.dtype)])
+        return torch.cat([wf @ down.to(f.dtype), sums])
+
+    # The pilot draws n_chunks * chunk samples (>= batch when batch is
+    # not a chunk multiple); the rel-var diagnostic uses that count.
+    n_total = n_chunks * chunk
+    diag = {"rounds": [], "batch": batch, "n_pilot": n_total,
+            "boost0": boost0, "chunk": chunk}
+    for r in range(rounds):
+        qv = torch.as_tensor(q, dtype=sys.unavail.dtype, device=sys.device)
+        acc = np.zeros(sys.n_comp + 4)
+        for j in range(n_chunks):
+            acc += pilot(pilot_generator(seed, r, j, sys.device),
+                         qv).cpu().numpy().astype(np.float64)
+        swfx = acc[:sys.n_comp]
+        swf, swf2, n_events, n_over = acc[sys.n_comp:]
+        rvar = float(n_total * swf2 / max(swf * swf, 1e-30) - 1.0)
+        diag["rounds"].append({
+            "round": r, "events": int(n_events), "overflow": int(n_over),
+            "rel_var_wf": round(rvar, 3),
+            "sum_q_branches": round(float(q[ng:].sum()), 4)})
+        if log_every:
+            print(f"CE round {r}: {int(n_events)} deficit events, "
+                  f"rel-var(wf) {rvar:.1f}, sum q_br {q[ng:].sum():.3f}, "
+                  f"overflow {int(n_over)}")
+        if swf <= 0.0 or n_events < 8:
+            return None, diag
+        q_ce = np.clip(swfx / swf, 0.0, 1.0)
+        q = smoothing * q_ce + (1.0 - smoothing) * q
+        q = np.clip(q, U, 0.5)
+        q = np.where(always, 0.0, q)
+    return q.astype(np.float32), diag
+
+
+def sparsify_ce_proposal(q: np.ndarray, sys: System, top_k: int = 8,
+                         q_cap: float = 0.05,
+                         branches_only: bool = True) -> np.ndarray:
+    """Keep a CE-learned tilt on its ``top_k`` components by q / U
+    (branches only by default), at max(U, min(q, ``q_cap``)); U
+    everywhere else, 0 on pinned components. Every likelihood weight is
+    then bounded by ~exp(top_k q_cap). Float64 numpy; mirrors reference
+    ``studies/hl2_nsq.py::sparsify_ce_proposal``, except that a
+    component whose ratio is 0 is never kept (the reference keeps some
+    when fewer than ``top_k`` ratios are positive)."""
+    ng = sys.n_gen
+    U = sys.unavail.detach().cpu().numpy().astype(np.float64)
+    always = sys.always_up_nsq.detach().cpu().numpy()
+    ratio = np.asarray(q, np.float64) / np.maximum(U, 1e-9)
+    if branches_only:
+        ratio[:ng] = 0.0
+    ratio[always] = 0.0
+    keep = np.argsort(ratio)[::-1][:top_k]
+    # Only components with a positive ratio: the reference pads the keep
+    # set with zero-ratio ones, which tilts generators under
+    # branches_only (ROADMAP.md Queue 3, faults in the reference).
+    keep = keep[ratio[keep] > 0.0]
+    out = U.copy()
+    # max(U, min(q, cap)): a capped up-tilt, never below the true rate.
+    out[keep] = np.maximum(U[keep],
+                           np.minimum(np.asarray(q, np.float64)[keep],
+                                      q_cap))
+    out[always] = 0.0
+    return out.astype(np.float32)
 
 
 def make_nsq_batch_step(sys: System, batch_per_device: int,
@@ -104,44 +270,90 @@ def make_nsq_batch_step(sys: System, batch_per_device: int,
                         max_lp: int | None = None, nodal_mode: str = "lp",
                         woodbury_k: int | None = None,
                         shed_hint: np.ndarray | None = None,
-                        fused_tier1: bool = False):
+                        fused_tier1: bool = False, antithetic: bool = False,
+                        is_boost: float = 0.0, is_boost_scope: str = "all",
+                        is_q: np.ndarray | None = None,
+                        mix: tuple | None = None):
     """One-batch step ``generator -> (BatchMoments, n_overflow,
     n_infeasible)``, all device tensors; mirrors reference
-    ``studies/hl2_nsq.py::make_nsq_batch_step`` (plain MC, one device).
-    At m <= 336 the step only enqueues device work: nothing in it waits
-    for the device (``torch.cuda.set_sync_debug_mode("error")`` passes
-    over it). At m > 336 tier 1.5 is on (``dcopf.default_pf_buffer``)
-    and the LP buffer's large-m solve reads on the host (each Schur
-    inverse's probe and the rescue ladder's gates): ~40 syncs a step on
-    case300s.
+    ``studies/hl2_nsq.py::make_nsq_batch_step`` on one device. At m <= 336
+    the step only enqueues device work: nothing in it waits for the
+    device (``torch.cuda.set_sync_debug_mode("error")`` passes over it).
+    At m > 336 tier 1.5 is on (``dcopf.default_pf_buffer``) and the LP
+    buffer's large-m solve reads on the host (each Schur inverse's probe
+    and the rescue ladder's gates): ~40 syncs a step on case300s.
 
-    ``fused_tier1``: the K4 kernel draws and first-pass-certifies the
-    batch (``fused_sampler_cert.sample_certify_quick``), then
-    ``dcopf.certify_finish`` completes the certificate on a compacted
-    buffer and hands it to the screened evaluator (``pre``). Unlike the
-    reference, there is no fallback to the default path: a CPU system
-    runs the kernel's plain version."""
+    The sampler, in the reference's order of precedence: ``fused_tier1``
+    (the K4 kernel draws and first-pass-certifies the batch, then
+    ``dcopf.certify_finish`` completes the certificate; plain MC only,
+    and unlike the reference no fallback to the default path: a CPU
+    system runs the kernel's plain version); ``is_q`` (the cross-entropy
+    proposal's rates [n_comp]); ``mix = (group_masks [K, n_comp], boost,
+    alpha0)`` (the defensive mixture); ``is_boost > 0`` (importance
+    sampling on ``is_boost_scope``'s components: "all", "gens" or
+    "branches"); else plain MC, ``antithetic`` pairing if asked. The
+    weighted samplers' weights enter the moments. Combinations the
+    reference asserts against raise ValueError.
+
+    ``max_lp`` None takes ``batch // 8`` under ``is_q``, ``min(max(batch
+    // 16, 128), 2048)`` under ``mix``, else :func:`default_max_lp`.
+    ``woodbury_k`` None takes :func:`default_woodbury_k` under the
+    sampling measure."""
+    if antithetic and (is_boost > 0 or is_q is not None):
+        raise ValueError("antithetic and importance sampling are mutually "
+                         "exclusive")
+    if is_q is not None and (is_boost > 0 or fused_tier1):
+        raise ValueError("is_q (the CE proposal) replaces is_boost; "
+                         "fused_tier1 is plain MC only")
+    if mix is not None and (is_boost > 0 or is_q is not None or antithetic
+                            or fused_tier1):
+        raise ValueError("mix (defensive mixture sampling) excludes every "
+                         "other sampler option")
+    if fused_tier1 and (antithetic or is_boost > 0):
+        raise ValueError("fused_tier1 supports plain MC only")
+    if is_boost_scope not in ("all", "gens", "branches"):
+        raise ValueError(f"unknown is_boost_scope {is_boost_scope!r}; "
+                         "expected 'all', 'gens' or 'branches'")
     pf_buffer = dcopf.default_pf_buffer(sys, batch_per_device)
     if max_lp is None:
-        max_lp = default_max_lp(batch_per_device, nodal_mode,
-                                pf_tier=pf_buffer is not None)
+        if is_q is not None:
+            max_lp = max(batch_per_device // 8, 16)
+        elif mix is not None:
+            max_lp = min(max(batch_per_device // 16, 128), 2048)
+        else:
+            max_lp = default_max_lp(batch_per_device, nodal_mode, is_boost,
+                                    is_boost_scope,
+                                    pf_tier=pf_buffer is not None)
     if woodbury_k is None:
-        woodbury_k = default_woodbury_k(sys)
+        woodbury_k = default_woodbury_k(sys, is_boost, is_boost_scope,
+                                        q_vec=is_q)
     if not 2 <= woodbury_k <= 4:
         # The unrolled Cramer solves are characterized for k <= 4 only.
         raise ValueError(f"woodbury_k must be in [2, 4], got {woodbury_k}")
-    repair_buffer = dcopf.default_repair_buffer(
-        batch_per_device, hinted=shed_hint is not None)
-    load = sys.load_pd[None, :].expand(batch_per_device, sys.n_load)
     hinted = shed_hint is not None
+    repair_buffer = dcopf.default_repair_buffer(
+        batch_per_device,
+        max(is_boost, 2.0 if (is_q is not None or mix is not None) else 1.0),
+        hinted=hinted)
+    load = sys.load_pd[None, :].expand(batch_per_device, sys.n_load)
+    # The sampler's operands go to the device once here: a host-to-device
+    # copy inside the step would synchronize the stream every batch.
     if hinted:
-        # Copied to the device once here: a host-to-device copy inside
-        # the step would synchronize the stream every batch.
         shed_hint = torch.as_tensor(shed_hint, dtype=sys.load_pd.dtype,
                                     device=sys.device)
+    boost_mask = None
+    if is_boost > 0 and is_boost_scope != "all":
+        gens = torch.arange(sys.n_comp, device=sys.device) < sys.n_gen
+        boost_mask = gens if is_boost_scope == "gens" else ~gens
+    if is_q is not None:
+        q_dev = torch.as_tensor(np.asarray(is_q), dtype=sys.unavail.dtype,
+                                device=sys.device)
+    if mix is not None:
+        mix_masks = torch.as_tensor(np.asarray(mix[0], bool),
+                                    device=sys.device)
+        mix_boost, mix_alpha0 = float(mix[1]), float(mix[2])
     if fused_tier1:
-        # Plain MC is the only sampler here; island_blackout raises in the
-        # screened evaluator.
+        # island_blackout raises in the screened evaluator.
         fused_sampler_cert.check_supported(sys)
         finish_buffer = dcopf.default_finish_buffer(batch_per_device,
                                                     hinted=hinted)
@@ -151,7 +363,8 @@ def make_nsq_batch_step(sys: System, batch_per_device: int,
             sys, fused_sampler_cert.hint_row(sys, shed_hint))
 
     def step(generator: torch.Generator):
-        pre = None
+        pre, weight = None, None
+        unavail, up = sys.unavail, sys.always_up_nsq
         if fused_tier1:
             down, ok1, deficit, shed = \
                 fused_sampler_cert.sample_certify_quick(
@@ -159,15 +372,29 @@ def make_nsq_batch_step(sys: System, batch_per_device: int,
                     operands=quick_ops)
             pre = dcopf.certify_finish(sys, down, load, deficit, shed, ok1,
                                        finish_buffer, woodbury_k=woodbury_k)
+        elif is_q is not None:
+            down, weight = sample_states_importance(
+                generator, unavail, up, batch_per_device, 0.0,
+                q_override=q_dev)
+        elif mix is not None:
+            down, weight = sample_states_mixture(
+                generator, unavail, up, batch_per_device, mix_masks,
+                mix_boost, mix_alpha0)
+        elif is_boost > 0:
+            down, weight = sample_states_importance(
+                generator, unavail, up, batch_per_device, is_boost,
+                boost_mask=boost_mask)
+        elif antithetic:
+            down = sample_states(generator, unavail, up, batch_per_device,
+                                 antithetic=True)
         else:
-            down = sample_states(generator, sys.unavail, sys.always_up_nsq,
-                                 batch_per_device)
+            down = sample_states(generator, unavail, up, batch_per_device)
         res, n_over = dcopf.evaluate_states_screened(
             sys, down, load, max_lp, compat, ipm, nodal_mode,
             repair_buffer=repair_buffer, woodbury_k=woodbury_k,
             shed_hint=shed_hint, pre=pre, pf_buffer=pf_buffer)
         m = accumulators.batch_moments(res.dns_mw, res.nodal_mw,
-                                       res.failure, down)
+                                       res.failure, down, weight)
         return m, n_over, res.infeasible.sum()
 
     return step
@@ -248,27 +475,38 @@ def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
                   checkpoint_every: int = 50) -> NSQResult:
     """HL2 NSQ study on one device (the card unless the caller passes
     ``device="cpu"``); mirrors reference
-    ``studies/hl2_nsq.py::run_nsq_study`` (plain MC).
+    ``studies/hl2_nsq.py::run_nsq_study`` without its control variate and
+    enumeration hybrid (ROADMAP.md Queue 1 item 8).
+
+    The sampler comes from ``cfg``: ``antithetic``, ``is_boost`` on
+    ``is_boost_scope``, ``fused_tier1``, or ``is_ce``: before the loop a
+    cross-entropy pilot (:func:`calibrate_ce_proposal`, seed ``cfg.seed +
+    90210``) learns the proposal, sparsified by
+    :func:`sparsify_ce_proposal` when ``cfg.ce_top_k`` is set; a pilot
+    that sees fewer than 8 events leaves the configured sampler.
 
     ``max_lp``: initial LP-lane buffer per batch (None = the default for
-    ``cfg.nodal_mode`` and the system); on overflow it doubles and the
-    batch is redone with the same generator, so the estimate does not
-    depend on it. It grows up to the batch, or up to ``PF_TIER_LP_CAP``
-    where tier 1.5 is on (m > 336); past that, the lanes that did not
-    fit keep their certificate bounds and are counted in
-    ``overflow_states``.
+    the sampler, ``cfg.nodal_mode`` and the system; under CE, 1.5 x the
+    pilot's last deficit fraction of the batch + 64, rounded up to 128);
+    on overflow it doubles and the batch is redone with the same
+    generator, so the estimate does not depend on it. It grows up to the
+    batch, or up to ``PF_TIER_LP_CAP`` where tier 1.5 is on (m > 336);
+    past that, the lanes that did not fit keep their certificate bounds
+    and are counted in ``overflow_states``.
 
     ``checkpointer``: every ``checkpoint_every`` folded batches the
-    stats, histories, next batch index, overflow and infeasible counts
-    and the grown ``max_lp`` are saved; a study whose checkpointer holds
-    a state starts from it. A batch's draws depend only on (seed, batch
+    stats, histories, next batch index, overflow and infeasible counts,
+    the grown ``max_lp`` and the CE proposal are saved; a study whose
+    checkpointer holds a state starts from it, with the saved proposal
+    in place of a new pilot. A batch's draws depend only on (seed, batch
     index), so the resumed study equals an uninterrupted one.
     """
     sys = build_system(case, compat, device)
     bpd = max(cfg.batch_size, 1)
     pf_tier = dcopf.default_pf_buffer(sys, bpd) is not None
-    if max_lp is None:
-        max_lp = default_max_lp(bpd, cfg.nodal_mode, pf_tier=pf_tier)
+    if max_lp is None and not cfg.is_ce:
+        max_lp = default_max_lp(bpd, cfg.nodal_mode, cfg.is_boost,
+                                cfg.is_boost_scope, pf_tier=pf_tier)
     lp_cap = min(bpd, PF_TIER_LP_CAP) if pf_tier else bpd
     stats = accumulators.RunningStats()
     histories = {"beta": [], "edns": [], "lole": [], "plc": []}
@@ -287,8 +525,39 @@ def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
     if log_every and shed_hint is None:
         print("shed-hint calibration: too few repairable lanes; keeping "
               "the load-proportional candidate")
-    step_kwargs = dict(nodal_mode=cfg.nodal_mode, woodbury_k=cfg.woodbury_k,
-                       shed_hint=shed_hint, fused_tier1=cfg.fused_tier1)
+    is_q = None
+    if cfg.is_ce and restored is not None and "is_q" in restored:
+        # The pilot's proposal as the interrupted study ran it.
+        if restored["is_q"] is not None:
+            is_q = np.asarray(restored["is_q"], np.float32)
+    elif cfg.is_ce:
+        is_q, ce_diag = calibrate_ce_proposal(
+            sys, compat, ipm, batch=cfg.ce_batch, rounds=cfg.ce_rounds,
+            boost0=cfg.ce_boost0, smoothing=cfg.ce_smoothing,
+            seed=cfg.seed + 90210, shed_hint=shed_hint,
+            log_every=log_every)
+        if is_q is not None and cfg.ce_top_k is not None:
+            is_q = sparsify_ce_proposal(is_q, sys, top_k=cfg.ce_top_k,
+                                        q_cap=cfg.ce_q_cap)
+        if log_every and is_q is None:
+            print("CE calibration saw too few deficit events; keeping the "
+                  "configured sampler")
+        if max_lp is None and is_q is not None:
+            frac = ce_diag["rounds"][-1]["events"] / cfg.ce_batch
+            need = int(1.5 * frac * bpd) + 64
+            max_lp = min(bpd, ((need + 127) // 128) * 128)
+            if log_every:
+                print(f"CE max_lp: {max_lp} (pilot deficit frac "
+                      f"{frac:.3f})")
+    if max_lp is None:
+        max_lp = default_max_lp(bpd, cfg.nodal_mode, cfg.is_boost,
+                                cfg.is_boost_scope, pf_tier=pf_tier)
+    step_kwargs = dict(
+        nodal_mode=cfg.nodal_mode, woodbury_k=cfg.woodbury_k,
+        shed_hint=shed_hint, fused_tier1=cfg.fused_tier1,
+        antithetic=cfg.antithetic,
+        is_boost=0.0 if is_q is not None else cfg.is_boost,
+        is_boost_scope=cfg.is_boost_scope, is_q=is_q)
     step = make_nsq_batch_step(sys, bpd, compat, ipm, max_lp=max_lp,
                                **step_kwargs)
 
@@ -323,7 +592,8 @@ def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
             checkpointer.save({"stats": stats.state(),
                                "histories": histories,
                                "batch_idx": next_idx, "overflow": overflow,
-                               "infeasible": infeasible, "max_lp": max_lp})
+                               "infeasible": infeasible, "max_lp": max_lp,
+                               **({"is_q": is_q} if cfg.is_ce else {})})
         return False
 
     double_buffered_loop(

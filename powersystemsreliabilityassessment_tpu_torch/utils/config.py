@@ -2,11 +2,11 @@
 
 Port of ``powersystemsreliabilityassessment_tpu/utils/config.py``
 (``CompatFlags``, ``IPMConfig``, ``MCSConfig``). Field names, defaults and
-meanings are the reference's. The port carries only the fields its
-ported code (the NSQ and SEQ studies, the large-m LP solver) reads; the
-reference's options for paths not ported yet (antithetic and importance
-sampling, cross-entropy proposals) arrive with those paths (ROADMAP.md
-Queue 1).
+meanings are the reference's. The port carries the fields its ported
+code reads: the NSQ and SEQ studies with the NSQ samplers (antithetic,
+importance with its scopes, the cross-entropy proposal) and the large-m
+LP solver. The reference's ``island_blackout`` is carried but raises
+(ROADMAP.md Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -53,6 +53,34 @@ class MCSConfig:
     beta_limit: float = 0.0017      # NSQ convergence target (nsqMain.m:60)
     max_years: int = 4000           # SEQ cap (seqMain.m:39)
     cov_threshold: float = 0.05     # SEQ convergence target (seqMain.m:40)
+    # NSQ: the second half of each batch takes 1 - u of the first half's
+    # uniforms (sampling/state.py::sample_states). Mutually exclusive with
+    # importance sampling.
+    antithetic: bool = False
+    # Importance sampling: > 1 draws failures from q = min(is_boost * U,
+    # 0.5) with exact likelihood-ratio weights
+    # (sampling/state.py::sample_states_importance); 0 disables.
+    is_boost: float = 0.0
+    # The components the boost applies to: "all" (every non-pinned
+    # component), "gens" (generators only) or "branches" (branches only);
+    # the others keep their true rates, likelihood-ratio factor 1.
+    is_boost_scope: str = "all"
+    # Cross-entropy adaptive importance sampling: a pilot of ce_rounds
+    # rounds of ce_batch samples learns per-component proposal rates
+    # (studies.hl2_nsq.calibrate_ce_proposal), starting from a uniform
+    # branch boost ce_boost0 and smoothing each round's marginals as
+    # q <- ce_smoothing q_CE + (1 - ce_smoothing) q. Overrides is_boost
+    # when the pilot sees enough events.
+    is_ce: bool = False
+    ce_rounds: int = 2
+    ce_batch: int = 32768
+    ce_boost0: float = 4.0
+    ce_smoothing: float = 0.7
+    # Keep the learned tilt on its top ce_top_k components by q / U,
+    # capped at ce_q_cap, U elsewhere (studies.hl2_nsq.
+    # sparsify_ce_proposal); None keeps the dense proposal.
+    ce_top_k: int | None = 8
+    ce_q_cap: float = 0.05
     # Certificate multi-branch-outage rank; None = auto per system
     # (studies.hl2_nsq.default_woodbury_k).
     woodbury_k: int | None = None

@@ -13,14 +13,21 @@ Two modes:
 
   JAX_PLATFORMS=cpu python3 scripts/torch_case300_guard_lanes.py compare IN.npz
       On the CPU: float64 HiGHS, the reference's ``evaluate_states`` and
-      the port's on each batch's dumped lanes; prints every lane past the
+      the port's on each batch's dumped lanes (padded with intact states
+      to a multiple of PAD_LANES lanes); prints every lane past the
       guard or more than 1.5 MW off on either side, and per batch the
       lanes past the guard and the summed DNS of each.
 
-``--batches`` (dump) picks the study batches (default: those with a lane
-past the guard on an NVIDIA H100, 1, 4, 5, 7, 15). ``--threads`` sets
-the port's intra-op CPU threads (compare): these lanes' outcome
-moves with the summation order, so the CPU counts move with it.
+``--batches`` (dump) picks the study batches: ``all`` (the default) is
+every batch of the 262,144-sample study, 0-15, chosen by neither side's
+outcome; a comma list picks some. ``--seed`` (dump) is the study's seed:
+3 is ``chip_smoke.py`` study300's, 4 the replicate's in
+results/case300_scaleup.json. ``--threads`` sets the port's intra-op
+CPU threads (compare): these lanes' outcome moves with the summation
+order, so the CPU counts move with it. compare ends with the totals
+over every file it is given: the lanes past the guard on each side,
+and the float64 HiGHS shed of those lanes, which the evaluator then
+takes from the certificate's bound instead.
 """
 from __future__ import annotations
 
@@ -33,12 +40,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np  # noqa: E402
 
 BATCH = 16384
-SEED = 3
+STUDY_SAMPLES = 262144
 GUARD = 5e-3
 ORACLE_TOL_MW = 1.5
+# compare: the LP lanes of a batch (at most 25 in the study's 32
+# batches at seeds 3 and 4) are padded with intact states to a multiple
+# of this.
+PAD_LANES = 32
 
 
-def dump(out: str, batches) -> None:
+def dump(out: str, batches, seed: int) -> None:
     import torch
     from powersystemsreliabilityassessment_tpu_torch.core import cases
     from powersystemsreliabilityassessment_tpu_torch.core.system import (
@@ -72,7 +83,7 @@ def dump(out: str, batches) -> None:
     dcopf.certify_island_pf = certify_island_pf
     out_arrays = {}
     for i in batches:
-        down = sample_states(hl2_nsq.batch_generator(SEED, i, "cuda"),
+        down = sample_states(hl2_nsq.batch_generator(seed, i, "cuda"),
                              sys_.unavail, sys_.always_up_nsq, BATCH)
         n1 = int((~dcopf.certify_states(sys_, down, load, repair_buffer=rbuf,
                                         woodbury_k=4).certified).sum())
@@ -86,8 +97,8 @@ def dump(out: str, batches) -> None:
         out_arrays[f"b{i}_states"] = d_sub[:left]
         out_arrays[f"b{i}_dns"] = r.dns_mw.cpu().numpy()[:left]
         out_arrays[f"b{i}_q"] = q[:left]
-        print(f"batch {i}: tier-1 misses {n1}, LP lanes {left}, past the "
-              f"guard {int((q[:left] > GUARD).sum())} (buffer "
+        print(f"seed {seed} batch {i}: tier-1 misses {n1}, LP lanes {left}, "
+              f"past the guard {int((q[:left] > GUARD).sum())} (buffer "
               f"{int((q > GUARD).sum())}), overflow {int(over)}", flush=True)
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
     np.savez_compressed(out, **out_arrays)
@@ -129,12 +140,17 @@ def _highs(sys_, states):
 
 
 def _both(ref_sys, sys_, states):
-    """(DNS, quality) of the reference's and the port's evaluate_states."""
+    """(DNS, quality) of the reference's and the port's evaluate_states.
+    Both take the lanes padded with intact states to a multiple of
+    PAD_LANES, so the reference compiles one shape for every batch."""
     import jax.numpy as jnp
     import torch
     from powersystemsreliabilityassessment_tpu.engines import dcopf as rd
     from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
-    n = len(states)
+    k = len(states)
+    n = -(-k // PAD_LANES) * PAD_LANES
+    states = np.concatenate([states, np.zeros((n - k, states.shape[1]),
+                                              states.dtype)])
     ref = rd.evaluate_states(
         ref_sys, jnp.asarray(states),
         jnp.asarray(np.tile(np.asarray(ref_sys.load_pd)[None], (n, 1))),
@@ -142,19 +158,27 @@ def _both(ref_sys, sys_, states):
     got = dcopf.evaluate_states(sys_, torch.as_tensor(states),
                                 sys_.load_pd[None].expand(n, sys_.n_load),
                                 woodbury_k=4)
-    return ((np.asarray(ref.dns_mw), np.asarray(ref.primal_residual)),
-            (got.dns_mw.numpy(), got.primal_residual.numpy()))
+    return ((np.asarray(ref.dns_mw)[:k], np.asarray(ref.primal_residual)[:k]),
+            (got.dns_mw.numpy()[:k], got.primal_residual.numpy()[:k]))
 
 
-def compare(path: str) -> None:
-    z = np.load(path)
+def compare(paths) -> None:
     ref_sys, sys_ = _systems()
     total = dict(oracle=0.0, card=0.0, reference=0.0, port_cpu=0.0)
-    for key in sorted((k for k in z.files if k.endswith("_states")),
-                      key=lambda k: int(k[1:].split("_")[0])):
-        bi = key.split("_")[0]
-        states = z[key].astype(np.float32)
-        card, q = z[f"{bi}_dns"], z[f"{bi}_q"]
+    sides = ("card", "reference", "port_cpu")
+    past = dict.fromkeys(sides, 0)
+    lost = dict.fromkeys(sides, 0.0)
+    n_lanes = 0
+    batches = []
+    for path in paths:
+        z = np.load(path)
+        for key in sorted((k[:-len("_states")] for k in z.files
+                           if k.endswith("_states")),
+                          key=lambda k: int(k[1:])):
+            batches.append((f"{os.path.basename(path)}:{key}", z, key))
+    for bi, z, key in batches:
+        states = z[f"{key}_states"].astype(np.float32)
+        card, q = z[f"{key}_dns"], z[f"{key}_q"]
         oracle = _highs(sys_, states)
         (rdns, rq), (cdns, cq) = _both(ref_sys, sys_, states)
         for j in np.nonzero((q > GUARD) | (rq > GUARD) | (cq > GUARD)
@@ -173,14 +197,24 @@ def compare(path: str) -> None:
         for name, v in (("oracle", oracle), ("card", card),
                         ("reference", rdns), ("port_cpu", cdns)):
             total[name] += float(v.sum())
+        n_lanes += len(states)
+        for name, score in (("card", q), ("reference", rq),
+                            ("port_cpu", cq)):
+            past[name] += int((score > GUARD).sum())
+            lost[name] += float(oracle[score > GUARD].sum())
     print("totals (MW):", {k: round(v, 1) for k, v in total.items()})
+    print(f"over {n_lanes} LP lanes: past the guard {past}; float64 HiGHS "
+          f"shed of those lanes (MW) "
+          f"{ {k: round(v, 3) for k, v in lost.items()} }")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("mode", choices=("dump", "compare"))
-    ap.add_argument("path", help="the .npz file dump writes, compare reads")
-    ap.add_argument("--batches", default="1,4,5,7,15")
+    ap.add_argument("path", nargs="+",
+                    help="the .npz file dump writes, or those compare reads")
+    ap.add_argument("--batches", default="all")
+    ap.add_argument("--seed", type=int, default=3)
     ap.add_argument("--threads", type=int, default=None)
     args = ap.parse_args()
     if args.mode != "dump":
@@ -189,7 +223,9 @@ def main() -> None:
             torch.set_num_threads(args.threads)
         print(f"port on the CPU: {torch.get_num_threads()} threads")
     if args.mode == "dump":
-        dump(args.path, [int(b) for b in args.batches.split(",")])
+        batches = (range(STUDY_SAMPLES // BATCH) if args.batches == "all"
+                   else [int(b) for b in args.batches.split(",")])
+        dump(args.path[0], batches, args.seed)
     else:
         compare(args.path)
 

@@ -6,8 +6,11 @@ path on the card against the same path on the CPU, an RTS-96 step that
 must launch K2 and K3, K2a and K3 at the case300s block-Schur shapes and
 the case300s LP path on eight deep contingencies, tier 1.5
 (``certify_island_pf``) on the card against the CPU, the fused sampler-certificate step and the SEQ
-step without a host sync, and the 98-state golden replay on the card
-(tests/test_torch_nsq.py runs it on the CPU through the same helper).
+step without a host sync, the 98-state golden replay on the card
+(tests/test_torch_nsq.py runs it on the CPU through the same helper),
+and the NSQ samplers (antithetic, importance, mixture) on the card
+against their marginals on the CPU, with each sampler's RTS-24 step
+without a host sync.
 
 Tests that need a card carry the ``gpu`` marker and skip without one.
 The file imports neither JAX nor the JAX package, so it also runs where
@@ -1428,3 +1431,80 @@ def test_seq_step_never_waits_for_the_device(cuda):
         before["fused_ipm_iterations"] + 1
     assert bc.launches["cholesky"] == before["cholesky"] + 2
     assert bc.launches["cho_solve"] == before["cho_solve"] + 3
+
+
+def _sampler_draws(kind, sys_, masks, gen, batch):
+    """(down, weight or None) of one NSQ sampler option on ``sys_``."""
+    from powersystemsreliabilityassessment_tpu_torch.sampling import state
+    u, up = sys_.unavail, sys_.always_up_nsq
+    comp = torch.arange(sys_.n_comp, device=sys_.device)
+    if kind == "antithetic":
+        return state.sample_states(gen, u, up, batch, antithetic=True), None
+    if kind == "mixture":
+        return state.sample_states_mixture(
+            gen, u, up, batch, torch.as_tensor(masks, device=sys_.device),
+            2.0, 0.5)
+    mask = {"gens": comp < sys_.n_gen, "branches": comp >= sys_.n_gen}
+    q = None
+    if kind == "override":
+        q = torch.clamp(u * 8.0, max=0.3)
+    return state.sample_states_importance(gen, u, up, batch, 3.0,
+                                          boost_mask=mask.get(kind),
+                                          q_override=q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["antithetic", "all", "gens", "branches",
+                                  "override", "mixture"])
+def test_samplers_on_card_match_cpu_marginals(cuda, kind):
+    # The card's and the CPU's generators draw different streams, so the
+    # samplers are held to their law: each component's failure share
+    # within 4 combined standard errors of the CPU's, finite weights of
+    # mean 1 (E_q[w] = 1) within 4 standard errors on both devices, and
+    # the mixture's weights within 1 / alpha0.
+    case = cases.rts96() if kind == "mixture" else cases.rts24()
+    masks = hl2_nsq.gen_area_masks(case)
+    B = 1 << 18
+    freq = []
+    for dev in (cuda, torch.device("cpu")):
+        sys_ = build_system(case, device=dev)
+        down, w = _sampler_draws(kind, sys_, masks,
+                                 hl2_nsq.batch_generator(3, 1, dev), B)
+        assert down.shape == (B, sys_.n_comp) and down.device.type == dev.type
+        freq.append(down.double().mean(0).cpu().numpy())
+        if w is not None:
+            w = w.double().cpu().numpy()
+            assert np.all(np.isfinite(w)) and np.all(w > 0)
+            assert abs(w.mean() - 1.0) <= 4 * w.std() / math.sqrt(B) + 1e-12
+            if kind == "mixture":
+                assert w.max() <= 2.0 * (1 + 1e-6)
+    p = (freq[0] + freq[1]) / 2
+    se = np.sqrt(2 * p * (1 - p) / B)
+    assert np.all(np.abs(freq[0] - freq[1]) <= 4 * se + 1e-12)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("option", ["boost", "antithetic", "is_q", "mix"])
+def test_sampler_step_never_waits_for_the_device(cuda, option):
+    # RTS-24 "lp" mode, batch 8,192: the boosted step's default buffer is
+    # 4,096 LP lanes, the shape K1 runs at in the SEQ study.
+    sys_ = build_system(cases.rts24(), device=cuda)
+    kw = {"boost": dict(is_boost=2.0), "antithetic": dict(antithetic=True),
+          "is_q": dict(is_q=np.where(np.arange(sys_.n_comp) >= sys_.n_gen,
+                                     4.0, 1.0) * sys_.unavail.cpu().numpy()),
+          "mix": dict(mix=(np.arange(sys_.n_comp)[None, :]
+                           % 2 == np.array([[0], [1]]), 2.0, 0.5))}[option]
+    step = hl2_nsq.make_nsq_batch_step(
+        sys_, 8192, CompatFlags(), IPMConfig(), max_lp=4096,
+        shed_hint=dcopf.calibrate_shed_hint(sys_), **kw)
+    step(hl2_nsq.batch_generator(0, 0, cuda))      # builds the kernels
+    torch.cuda.synchronize()
+    before = ipm_fused.launches["fused_ipm_iterations"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m, n_over, _ = step(hl2_nsq.batch_generator(0, 1, cuda))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ipm_fused.launches["fused_ipm_iterations"] > before
+    assert float(m.n) == 8192 and int(n_over) == 0
+    assert math.isfinite(float(m.sum_dns)) and float(m.sum_dns) > 0
