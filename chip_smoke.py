@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's HL2 NSQ and SEQ paths on one CUDA card.
+"""Smoke run of the PyTorch port's HL2 NSQ and SEQ paths and its HL1 study
+on one CUDA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -136,6 +137,51 @@ Phases, one line each (any failure raises, so the exit code is not 0):
               record's and the z-score against the two combined (fail
               above 4 or on any overflow), samples/s, wall time and the
               card's name and power limit.
+ 21. enum24   sampling.enumeration.enumerate_exact(rts24, order=5) at a
+              chunk of 65,536 against results/enum_hybrid.json
+              ["exact_order5"] (13,077,135 states exactly, mass within
+              1e-9, exact EDNS within 0.1%, PLC within 0.5%): wall,
+              states/s and K1 launches; on 65,536 real order-5 LP
+              lanes (the pass's grown buffer) K1 against its plain
+              version (guarded as in seq; on kept lanes best scores
+              within 2.5e-3, objectives too or else within the guard of
+              the float64 optimum; K1's lanes off it flagged), K2a against
+              the float64 factor (per lane within max(1e-4, twice the
+              plain version's error)), K2b against its plain version,
+              with times and bounds; then
+              run_nsq_study(rts24,
+              batch 8,192, 16,384 samples, seed 3, enum_order=4) against
+              ["study_ab"]["enum4"] (974,121 states, mass within 1e-6,
+              exact part within 0.1%, EDNS within 4 combined standard
+              errors)
+ 22. cv24     run_nsq_study(rts24) at 106,496 samples, plain and
+              control_variate=True, at seed 0: the copper means equal
+              14.693678 MW and 0.0845781 to 1e-6, beta_cv below half the
+              plain beta, EDNS_cv within 4 combined standard errors of
+              results/nsq_results.json; the control-variate step under
+              set_sync_debug_mode("error")
+ 23. cvseq    run_seq_study(rts24, 512 years, load_scale 0.8, seed 7),
+              stationary plain and control_variate=True, each arm's EENS
+              within 4 combined standard errors of its arm of
+              results/cv_rare_event.json; the same two arms at seeds
+              8-14, and the per-year variance ratio of plain over CV
+              over the 4,096 years of seeds 7-14 at least 10 (one arm's
+              ratio is printed per seed; seed 7's alone, 6.72 on an
+              NVIDIA H100, misses 10: PERF.md §6)
+ 24. seqib    run_seq_study(rts24, CompatFlags(island_blackout=True),
+              seed 0) to CoV 0.05 against results/seq_compat_parity.json
+              ["island_blackout"] (EENS within 4 combined standard errors;
+              the CoV at most 0.05 at the last batch or the one before,
+              the batch then in flight; LOLE, LOLF z and the years
+              printed); one blackout SEQ step
+              under set_sync_debug_mode("error")
+ 25. hl1      hl1_rts24.run() at 20,000 samples and 2,000 years against
+              results/study_sweep.json["hl1_rts24"] (analytical within
+              1e-4; each Monte Carlo pair within 4 combined standard
+              errors, taken from the port's own batch means), then a
+              2,000,000-sample NSQ Monte Carlo against the analytical
+              value (within 4 of its standard error), and the float32
+              COPT on the card against the float64 host table
 The bench phase also times the fused step (fused_tier1) at its shape,
 under the same sync check, and prints it on a line of its own.
 Then one JSON line of per-kernel results and, last, the device line
@@ -164,7 +210,8 @@ ROOT = Path(__file__).resolve().parent
 PKG = "powersystemsreliabilityassessment_tpu_torch"
 ALL_PHASES = ("build", "k2", "k1", "bench", "study", "k3", "study96", "k6",
               "k4", "k5", "studyfused", "seq", "lp300", "pf300", "study300",
-              "anti", "is24", "mix300", "ce300")
+              "anti", "is24", "mix300", "ce300", "enum24", "cv24", "cvseq",
+              "seqib", "hl1")
 # Not run by default: a per-layer and per-kernel breakdown of the
 # bench-shaped step and of the RTS-96 step (for PERF.md), not part of
 # the smoke contract.
@@ -191,6 +238,19 @@ K2_X_BOUND = 1e-3       # max |x_kernel - x_plain| / max(1, |x|) per lane
 # IPM paths (1e-3 p.u. = 0.1 MW, the reference's DNS noise floor).
 K1_OBJ_BOUND = 1e-3
 K1_SCORE_BOUND = 1e-3   # best_score = mu + max|rp|, absolute
+# Deep multi-branch lanes (the enumeration's order-5 states, up to 5
+# branches out): K1 and its plain version run the same Mehrotra steps in
+# another float32 summation order, and on ill-conditioned normal
+# matrices the two part further (ROADMAP.md Queue 3 A). Where both pass
+# the guard, best scores are held to 2.5e-3 (1.95e-3 measured on 65,536
+# such lanes, NVIDIA H100, PERF.md §6), and objectives too, but a lane
+# past it is judged by the float64 optimum instead of by the plain
+# version: there both float32 ends measured up to 4.3e-3 (K1) and
+# 3.6e-3 (plain) off it, each the closer on half the lanes. Every lane
+# K1 leaves more than the guard off the optimum must be flagged by the
+# guard (the evaluator then takes the certificate's bound), so a kept
+# lane judged so must be within the guard of it.
+K1_DEEP_BOUND = 2.5e-3
 # The screened evaluator keeps an LP lane's answer only where its quality
 # (primal residual + 2 n duality gap) is within this (engines/dcopf.py
 # _finalize); elsewhere it takes the certificate's bound. Of 4,096 SEQ LP
@@ -593,11 +653,12 @@ def _k2_work(kind, args):
     return _solve_work(*args[1].shape)
 
 
-def _k2_row(tag, name, kind, args, checked):
+def _k2_row(tag, name, kind, args, checked, tol=None):
     """One K2 path shape: the kernel against its plain version on
     ``checked``, and on ``args`` its device time in a CUDA graph, wrapper,
     plain and library times, bound and bound share, K2a's launch shape
-    and the inputs' asymmetry; printed as one ``tag`` line."""
+    and the inputs' asymmetry; printed as one ``tag`` line beside ``tol``
+    (None: the kind's bound against the plain version)."""
     import torch
     from powersystemsreliabilityassessment_tpu_torch.ops import (
         batched_chol as bc)
@@ -620,7 +681,8 @@ def _k2_row(tag, name, kind, args, checked):
         row["launch_shape"] = dict(zip(
             ("warps_per_lane", "lanes_per_block", "smem_bytes"),
             bc.launch_shape(args[0].shape[0], args[0].shape[-1], sms)))
-    tol = K2_L_BOUND if kind == "cholesky" else K2_X_BOUND
+    if tol is None:
+        tol = K2_L_BOUND if kind == "cholesky" else K2_X_BOUND
     _line(tag, path_shape=name, **{
         k: (f"{v:.3e}<={tol}" if k == "rel_err" else
             f"{v:.4f}" if isinstance(v, float) and k.endswith("ms")
@@ -628,6 +690,32 @@ def _k2_row(tag, name, kind, args, checked):
             else json.dumps(v).replace(" ", "") if isinstance(v, dict)
             else v) for k, v in row.items()})
     return row
+
+
+def _k2_vs_float64(tag, M) -> dict:
+    """K2a on ill-conditioned matrices ``M`` against the float64 factor:
+    per lane e = max|L - L64| / max(1, max|L64|), the kernel's within
+    max(K2_L_BOUND, 2 e_plain). Each float32 factor stands about cond(M)
+    eps from the exact one (ROADMAP.md Queue 3 D), so there the kernel is
+    held to the plain version's accuracy rather than to its rounding.
+    Returns the errors and the lanes past the bound."""
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.ops import (
+        batched_chol as bc)
+    L64 = torch.linalg.cholesky_ex(M.double())[0]
+    lane = lambda t: t.abs().flatten(1).amax(1)
+    scale = lane(L64).clamp_min(1.0)
+    err_k = lane(bc.cholesky(M).double() - L64) / scale
+    err_p = lane(bc.cholesky_plain(M).double() - L64) / scale
+    over = int((~(err_k <= torch.clamp_min(2 * err_p, K2_L_BOUND))).sum())
+    out = dict(kernel_vs_float64=float(err_k.max()),
+               plain_vs_float64=float(err_p.max()),
+               lanes_past_float64_bound=over)
+    _line(tag, k2a_vs_float64=f"{out['kernel_vs_float64']:.3e}",
+          plain_vs_float64=f"{out['plain_vs_float64']:.3e}",
+          lanes_past_bound=f"{over}<=0",
+          bound=f"max({K2_L_BOUND},2*plain_vs_float64)_a_lane")
+    return out
 
 
 def _check_k2_rows(tag, rows):
@@ -712,7 +800,8 @@ def _lp_oracle(st, args, lanes) -> list:
     return np.asarray(out)
 
 
-def _k1_guarded_check(st, args, pol_k, pol_p, ker_score, pla_score):
+def _k1_guarded_check(st, args, pol_k, pol_p, ker_score, pla_score,
+                      deep=False):
     """K1 against its plain version where the screened evaluator keeps
     both answers (lane quality, primal residual + 2 n gap, within the
     evaluator's LP_QUALITY_GUARD on both sides), and against the float64
@@ -720,13 +809,19 @@ def _k1_guarded_check(st, args, pol_k, pol_p, ker_score, pla_score):
     by more than K1_OBJ_BOUND: there the kernel must be within
     LP_QUALITY_GUARD of the optimum, or no farther from it than the plain
     version. Returns the objective and best_score errors on the kept
-    lanes and the counts."""
+    lanes and the counts. ``deep``: kept lanes whose objectives differ
+    by more than K1_DEEP_BOUND go to the float64 optimum too, and the
+    counts add K1's lanes off it by more than the guard, flagged by the
+    guard and not."""
     import numpy as np
     import torch
     q = lambda sol: sol.primal_residual + 2 * st.n * sol.duality_gap
     kept = (q(pol_k) <= LP_QUALITY_GUARD) & (q(pol_p) <= LP_QUALITY_GUARD)
     diff = (pol_k.objective - pol_p.objective).abs()
-    lanes = torch.nonzero(~kept & (diff > K1_OBJ_BOUND)).flatten().tolist()
+    judged = ~kept & (diff > K1_OBJ_BOUND)
+    if deep:
+        judged |= kept & (diff > K1_DEEP_BOUND)
+    lanes = torch.nonzero(judged).flatten().tolist()
     opt = _lp_oracle(st, args, lanes)
     err_k = np.abs(pol_k.objective[lanes].double().cpu().numpy() - opt)
     err_p = np.abs(pol_p.objective[lanes].double().cpu().numpy() - opt)
@@ -742,16 +837,27 @@ def _k1_guarded_check(st, args, pol_k, pol_p, ker_score, pla_score):
         oracle_plain_closer=int((err_k > err_p + K1_OBJ_BOUND).sum()),
         oracle_kernel_off=int((err_k > np.maximum(err_p, LP_QUALITY_GUARD))
                               .sum() + np.isnan(opt).sum()))
+    if deep:
+        flagged_k = (q(pol_k)[lanes] > LP_QUALITY_GUARD).cpu().numpy()
+        off_k = ~(err_k <= LP_QUALITY_GUARD)
+        info.update(kept_lanes_past_deep_bound=int(
+                        (kept & (diff > K1_DEEP_BOUND)).sum()),
+                    oracle_kernel_off_flagged=int((off_k & flagged_k).sum()),
+                    oracle_kernel_off_unflagged=int((off_k & ~flagged_k)
+                                                    .sum()))
     return (float(diff[kept].max()),
             float((ker_score - pla_score).abs()[kept].max()), info)
 
 
-def _k1_shape(sys_, st, n_lanes, cfg, args=None, tag="k1", guarded=False):
+def _k1_shape(sys_, st, n_lanes, cfg, args=None, tag="k1", guarded=False,
+              deep=False):
     """K1 against its plain version on ``n_lanes`` real RTS-24 LP lanes
     (``args``, or :func:`_lp_lanes`' peak-load lanes): errors, times,
     launch shape and the work this run's lanes need. ``guarded``: the
     errors are taken where the evaluator keeps both answers, and the
-    float64 optimum judges the other lanes (:func:`_k1_guarded_check`)."""
+    float64 optimum judges the other lanes (:func:`_k1_guarded_check`).
+    ``deep`` (guarded, deep multi-branch lanes): K1_DEEP_BOUND bounds
+    the kept lanes, and K1's off lanes must be flagged."""
     import ctypes
     import torch
     from powersystemsreliabilityassessment_tpu_torch.engines.lp_ipm_structured import (
@@ -772,7 +878,7 @@ def _k1_shape(sys_, st, n_lanes, cfg, args=None, tag="k1", guarded=False):
     guard = {}
     if guarded:
         obj_err, score_err, guard = _k1_guarded_check(
-            st, args, pol_k, pol_p, ker[4], pla[4])
+            st, args, pol_k, pol_p, ker[4], pla[4], deep)
     else:
         obj_err = float((obj_k - obj_p).abs().max())
         score_err = float((ker[4] - pla[4]).abs().max())
@@ -809,9 +915,13 @@ def _k1_shape(sys_, st, n_lanes, cfg, args=None, tag="k1", guarded=False):
                resident_lanes_per_sm=blocks.value * lpb,
                shed_lanes=int((obj_p > 1e-3).sum()), **bound,
                bound_share=bound["bound_ms"] / ms, **guard)
+    obj_bound, score_bound = ((K1_DEEP_BOUND, K1_DEEP_BOUND) if deep
+                              else (K1_OBJ_BOUND, K1_SCORE_BOUND))
+    obj_text = (f"<={obj_bound}_or_float64_judged" if deep
+                else f"<={obj_bound}")
     _line(tag, lanes=B, finite=finite,
-          objective_err_pu=f"{obj_err:.3e}<={K1_OBJ_BOUND}",
-          best_score_err=f"{score_err:.3e}<={K1_SCORE_BOUND}",
+          objective_err_pu=f"{obj_err:.3e}{obj_text}",
+          best_score_err=f"{score_err:.3e}<={score_bound}",
           best_x_err=f"{x_err:.3e}", kernel_ms=f"{ms:.4f}",
           plain_ms=f"{plain_ms:.4f}", shed_lanes=row["shed_lanes"],
           active_lane_iterations=active, lanes_per_block=lpb,
@@ -820,9 +930,16 @@ def _k1_shape(sys_, st, n_lanes, cfg, args=None, tag="k1", guarded=False):
           bound_share=f"{row['bound_share']:.4f}",
           **{k: (f"{v:.3e}" if isinstance(v, float) else v)
              for k, v in guard.items()})
-    if not (finite and obj_err <= K1_OBJ_BOUND
-            and score_err <= K1_SCORE_BOUND
-            and guard.get("oracle_kernel_off", 0) == 0):
+    if deep:
+        # Judged lanes (kept ones past K1_DEEP_BOUND among them): every
+        # lane K1 leaves more than the guard off the float64 optimum is
+        # flagged by the guard, so a kept lane must be within it.
+        ok = guard["oracle_kernel_off_unflagged"] == 0
+        obj_bound = float("inf")
+    else:
+        ok = guard.get("oracle_kernel_off", 0) == 0
+    if not (finite and ok and obj_err <= obj_bound
+            and score_err <= score_bound):
         raise RuntimeError(f"{tag}: K1 disagrees with the plain version at "
                            f"{B} lanes")
     return row
@@ -1835,37 +1952,23 @@ def phase_seq(sys_, results):
     from powersystemsreliabilityassessment_tpu_torch.utils.config import (
         IPMConfig, MCSConfig)
     ref = json.loads((ROOT / "results" / "seq_results.json").read_text())
-    # The study keeps its per-year values in AnnualStats; this subclass
-    # only keeps a handle on the instance, for the standard errors.
-    seen = []
-
-    class _Seen(hl2_seq.AnnualStats):
-        def __init__(self, *a, **k):
-            super().__init__(*a, **k)
-            seen.append(self)
-
     years_per_step = 16
-    annual_stats, hl2_seq.AnnualStats = hl2_seq.AnnualStats, _Seen
-    try:
-        torch.cuda.reset_peak_memory_stats()
-        _reset_counts()
-        t0 = time.perf_counter()
-        res = hl2_seq.run_seq_study(cases.rts24(), MCSConfig(seed=1),
-                                    device="cuda", log_every=0,
-                                    years_per_device=years_per_step)
-        wall = time.perf_counter() - t0
-        counts = _counts()
-    finally:
-        hl2_seq.AnnualStats = annual_stats
-    stats = seen[-1]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = hl2_seq.run_seq_study(cases.rts24(), MCSConfig(seed=1),
+                                device="cuda", log_every=0,
+                                years_per_device=years_per_step)
+    wall = time.perf_counter() - t0
+    counts = _counts()
     steps = res.years // years_per_step
     se = lambda v: float(np.std(v, ddof=1) / math.sqrt(len(v)))
     z = {"eens": abs(res.eens_mwh_yr - ref["eens_mwh_yr"]) / math.hypot(
-        se(ref["annual_ens"]), se(stats.ens))}
+        se(ref["annual_ens"]), se(res.annual_ens))}
     # results/seq_results.json keeps no per-year DLC or NLC: their
     # reference standard error is taken equal to the port's.
-    for key, field, per_year in (("lole", "lole_hr_yr", stats.dlc),
-                                 ("lolf", "lolf_occ_yr", stats.nlc)):
+    for key, field, per_year in (("lole", "lole_hr_yr", res.annual_dlc),
+                                 ("lolf", "lolf_occ_yr", res.annual_nlc)):
         z[key] = abs(getattr(res, field) - ref[field]) / (
             math.sqrt(2.0) * se(per_year))
     _line("seq", study_years=res.years, steps=steps,
@@ -2910,6 +3013,504 @@ def phase_ce300(results):
     for name in ("cholesky", "trsm_fwd"):
         results.setdefault(name, {})["launches_ce300"] = counts[name]
 
+# The enumeration phase's record and bounds (results/enum_hybrid.json).
+ENUM_ORDER5_STATES = 13077135
+ENUM_MASS_TOL = 1e-9
+ENUM_EDNS_RTOL = 1e-3
+ENUM_PFAIL_RTOL = 5e-3
+ENUM_STUDY_MASS_TOL = 1e-6
+# cvseq: the per-year variance ratio of plain over control variate, over
+# CVSEQ_SEEDS arms of 512 years each (seed 7, the record's, first). The
+# plain arm's per-year variance is set by a few rare years (the copper
+# deficit's variance over 512-year blocks of one stream ranges 299 to
+# 220,362 MWh^2, median 7,841), so one arm's ratio is not a measurement:
+# over the seeds 7-14 it ranged 2.9-40.3 (NVIDIA H100, PERF.md §6),
+# 18.7 over their 4,096 years.
+CVSEQ_MIN_RATIO = 10.0
+CVSEQ_SEEDS = tuple(range(7, 15))
+# The NSQ control variate's exact copper means at RTS-24's peak (the
+# reference's copt.copper_cv_means) and their tolerance.
+CV24_MU = (14.693678, 0.0845781)
+CV24_MU_RTOL = 1e-6
+HL1_ANALYTICAL_RTOL = 1e-4
+HL1_BIG_SAMPLES = 2_000_000
+HL1_BIG_BATCH = 100_000
+
+
+def _nsq_run(tag, case, cfg, **kw):
+    """run_nsq_study on the card with the launch counts reset; returns
+    (result, wall s, launch counts)."""
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.studies import hl2_nsq
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = hl2_nsq.run_nsq_study(case, cfg, device="cuda", log_every=0, **kw)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, _counts()
+
+
+def _record_launches(results, tag, counts):
+    for name in RTS24_KERNELS:
+        results.setdefault(name, {})[f"launches_{tag}"] = counts[name]
+
+
+def _sync_checked(step, gen):
+    """One warm call of ``step(gen(0))``, then one under
+    set_sync_debug_mode("error"); returns the second call's output and its
+    wall ms."""
+    import torch
+    step(gen(0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = step(gen(1))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _enum_lp_lanes(sys_, n_lanes: int, order: int = 5, chunk: int = 65536):
+    """Structured LP inputs (colscale, br_up, c, b, l, u) of ``n_lanes``
+    real order-``order`` LP lanes of RTS-24 at its peak: the enumeration's
+    chunks of that order from its last colex rank down, and of each the
+    states the certificate leaves uncertified or with a deficit, the
+    lanes the screened evaluator sends to the LP in "lp" nodal mode."""
+    from math import comb
+    import numpy as np
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
+    from powersystemsreliabilityassessment_tpu_torch.sampling import (
+        enumeration)
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        CompatFlags, IPMConfig)
+    free = enumeration.free_components(
+        sys_.unavail.cpu().numpy().astype(np.float64),
+        sys_.always_up_nsq.cpu().numpy().astype(bool))
+    free_d = torch.as_tensor(free.astype(np.int64), device="cuda")
+    downs, got, end = [], 0, comb(len(free), order)
+    while got < n_lanes:
+        start = max(end - chunk, 0)
+        combos = enumeration.unrank_combinations(
+            np.arange(start, end, dtype=np.int64), order, len(free))
+        down = torch.zeros((end - start, sys_.n_comp), dtype=torch.bool,
+                           device="cuda")
+        down.scatter_(1, free_d[torch.as_tensor(combos.astype(np.int64),
+                                                device="cuda")], True)
+        cert = dcopf.certify_states(
+            sys_, down, sys_.load_pd[None, :].expand(down.shape[0], -1))
+        idx = torch.nonzero((~cert.certified) | (cert.deficit > 0)).flatten()
+        downs.append(down[idx])
+        got += idx.numel()
+        end = start
+    up = 1.0 - torch.cat(downs)[:n_lanes].float()
+    gen_up, br_up = up[:, :sys_.n_gen], up[:, sys_.n_gen:].contiguous()
+    c, b, l, u, colscale = dcopf.build_state_lp_vectors(
+        sys_, gen_up, br_up, sys_.load_pd[None, :].expand(n_lanes, -1),
+        CompatFlags(), IPMConfig().theta_max)
+    return colscale, br_up, c, b, l, u
+
+
+def phase_enum24(results):
+    """The exact order-5 enumeration of RTS-24, then the order-4 hybrid
+    study, against results/enum_hybrid.json; K1, K2a and K2b on the
+    order-5 pass's LP buffer of real order-5 lanes."""
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.core import cases
+    from powersystemsreliabilityassessment_tpu_torch.core.system import (
+        build_system)
+    from powersystemsreliabilityassessment_tpu_torch.ops import (
+        batched_chol as bc, ipm_fused)
+    from powersystemsreliabilityassessment_tpu_torch.sampling import (
+        enumeration)
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        CompatFlags, IPMConfig, MCSConfig)
+    ref = json.loads((ROOT / "results" / "enum_hybrid.json").read_text())
+    rec5, rec4 = ref["exact_order5"], ref["study_ab"]["enum4"]
+    sys_ = build_system(cases.rts24(), device="cuda")
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ex = enumeration.enumerate_exact(sys_, CompatFlags(), IPMConfig(), "lp",
+                                     5)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    bad = []
+    if ex.n_states != ENUM_ORDER5_STATES:
+        bad.append(f"states {ex.n_states}")
+    if not abs(ex.mass - rec5["mass"]) <= ENUM_MASS_TOL:
+        bad.append(f"mass {ex.mass!r}")
+    if not abs(ex.edns_mw / rec5["edns_exact_mw"] - 1) <= ENUM_EDNS_RTOL:
+        bad.append(f"EDNS {ex.edns_mw}")
+    if not abs(ex.pfail / rec5["pfail_exact"] - 1) <= ENUM_PFAIL_RTOL:
+        bad.append(f"pfail {ex.pfail}")
+    _line("enum24", order=5, states=ex.n_states,
+          record_states=rec5["n_states"], mass=repr(ex.mass),
+          record_mass=rec5["mass"], edns_exact_mw=f"{ex.edns_mw:.5f}",
+          record_edns_exact_mw=rec5["edns_exact_mw"],
+          pfail_exact=f"{ex.pfail:.7f}", record_pfail=rec5["pfail_exact"],
+          infeasible=ex.infeasible, wall_s=f"{wall:.2f}",
+          states_per_s=f"{ex.n_states / wall:.0f}",
+          record_tpu_prepass_wall_s=ref["prepass_k5"]["wall_s"],
+          card=repr(CARD["smi"]),
+          launches=json.dumps(counts).replace(" ", ""))
+    _check_launched("enum24", counts, RTS24_KERNELS)
+    _record_launches(results, "enum24_order5", counts)
+    if bad:
+        raise RuntimeError(f"enum24: order 5 off its record: {bad}")
+    # K1, K2a and K2b at the pass's grown LP buffer (the chunk size), on
+    # real order-5 LP lanes.
+    args = _enum_lp_lanes(sys_, 65536)
+    st = ipm_fused.build_structure(sys_)
+    k1 = _k1_shape(sys_, st, 65536, IPMConfig(), args=args, tag="enum24",
+                   guarded=True, deep=True)
+    M = _polish_factor_inputs(st, args)
+    solve_args = (bc.cholesky_plain(M), torch.randn(
+        M.shape[:2], generator=torch.Generator(device="cuda").manual_seed(
+            14), device="cuda"))
+    rows = {"chol_enum": _k2_row("enum24", "chol_enum", "cholesky", (M,),
+                                 (M,), tol="float64_check_below"),
+            "solve_enum": _k2_row("enum24", "solve_enum", "cho_solve",
+                                  solve_args, solve_args)}
+    # The deep lanes' polish matrices are ill-conditioned: K2a is held to
+    # the float64 factor there (_k2_vs_float64), K2b to its plain version.
+    f64 = _k2_vs_float64("enum24", M)
+    rows["chol_enum"].update(
+        f64, tolerance=f"max({K2_L_BOUND}, 2 plain_vs_float64) a lane, "
+        "against float64")
+    rows["solve_enum"]["tolerance"] = K2_X_BOUND
+    _check_k2_rows("enum24", {"solve_enum": rows["solve_enum"]})
+    if not rows["chol_enum"]["finite"] or f64["lanes_past_float64_bound"]:
+        raise RuntimeError("enum24: K2a farther from the float64 factor "
+                           "than twice the plain version's error")
+    # Folded into the kernels' top-level errors as the seq shapes are,
+    # with their own tolerances beside them.
+    entry = results.setdefault("fused_ipm_iterations", {})
+    tol = (f"{K1_DEEP_BOUND}; objectives past it within "
+           f"{LP_QUALITY_GUARD} of the float64 optimum")
+    entry["enum_shape"] = dict(k1, tolerance=tol)
+    entry["max_abs_err"] = max(entry.get("max_abs_err", 0.0),
+                               k1["objective_err_pu"], k1["best_score_err"])
+    entry.setdefault("shape_tolerances", {})["enum_shape"] = tol
+    for kind, name in (("cholesky", "chol_enum"), ("cho_solve",
+                                                   "solve_enum")):
+        entry = results.setdefault(kind, {})
+        entry.setdefault("path_shapes", {})[name] = rows[name]
+        entry["max_abs_err"] = max(entry.get("max_abs_err", 0.0),
+                                   rows[name]["abs_err"])
+        entry["max_rel_err"] = max(entry.get("max_rel_err", 0.0),
+                                   rows[name]["rel_err"])
+        entry.setdefault("shape_tolerances", {})[name] = \
+            rows[name]["tolerance"]
+    cfg = MCSConfig(batch_size=8192, max_samples=16384, beta_limit=0.0,
+                    seed=3)
+    res, wall, counts = _nsq_run("enum24", cases.rts24(), cfg, enum_order=4)
+    _z_line("enum24", res.edns_mw, res.beta * res.edns_mw, rec4["edns"],
+            rec4["beta"] * rec4["edns"], order=4, states=res.enum_states,
+            record_states=rec4["enum_states"],
+            mass=f"{res.enum_mass:.7f}", record_mass=rec4["enum_mass"],
+            exact_part_mw=f"{res.enum_edns_exact_mw:.5f}",
+            record_exact_part_mw=rec4["enum_edns_exact"],
+            beta=f"{res.beta:.6f}", record_beta=rec4["beta"],
+            samples=res.samples, overflow=res.overflow_states,
+            wall_s=f"{wall:.2f}",
+            launches=json.dumps(counts).replace(" ", ""))
+    _check_launched("enum24 study", counts, RTS24_KERNELS)
+    _record_launches(results, "enum24_study", counts)
+    if (res.enum_states != rec4["enum_states"]
+            or not abs(res.enum_mass - rec4["enum_mass"])
+            <= ENUM_STUDY_MASS_TOL
+            or not abs(res.enum_edns_exact_mw / rec4["enum_edns_exact"] - 1)
+            <= ENUM_EDNS_RTOL or res.overflow_states):
+        raise RuntimeError("enum24: the order-4 study is off its record")
+
+
+def phase_cv24(results):
+    """RTS-24 NSQ at 106,496 samples, plain and with the control variate,
+    against results/nsq_results.json; the control-variate step under the
+    sync check."""
+    import math
+    import numpy as np
+    from powersystemsreliabilityassessment_tpu_torch.core import cases
+    from powersystemsreliabilityassessment_tpu_torch.core.system import (
+        build_system)
+    from powersystemsreliabilityassessment_tpu_torch.engines import (
+        copt, dcopf)
+    from powersystemsreliabilityassessment_tpu_torch.models import twostate
+    from powersystemsreliabilityassessment_tpu_torch.studies import hl2_nsq
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        CompatFlags, IPMConfig, MCSConfig)
+    ref = json.loads((ROOT / "results" / "nsq_results.json").read_text())
+    cfg = MCSConfig(max_samples=106496, beta_limit=0.0)
+    plain, wall_p, _ = _nsq_run("cv24", cases.rts24(), cfg)
+    cv, wall, counts = _nsq_run("cv24", cases.rts24(), cfg,
+                                control_variate=True)
+    # The exact copper means, from the study's own inputs (the units'
+    # float32 capacities, the float32 total peak load).
+    case = cases.rts24()
+    total = np.float32(np.sum(np.asarray(case.bus_pd, np.float64)))
+    mu_e, mu_l, _, _ = copt.copper_cv_means(
+        np.asarray(case.gen_pmax, np.float32).astype(np.float64),
+        twostate.unavailability(case)[:case.n_gen],
+        np.asarray([total], np.float64),
+        thresh_mw=CompatFlags().nsq_fail_flag_threshold_mw)
+    _z_line("cv24", cv.edns_mw, cv.beta * cv.edns_mw, ref["edns_mw"],
+            ref["beta"] * ref["edns_mw"], beta_cv=f"{cv.beta:.6f}",
+            beta_plain=f"{plain.beta:.6f}",
+            beta_ratio=f"{plain.beta / cv.beta:.2f}",
+            plain_edns_mw=f"{plain.edns_mw:.5f}", mu_edns_mw=f"{mu_e:.7f}",
+            mu_plc=f"{mu_l:.8f}", plc_cv=f"{cv.plc:.6f}",
+            samples=cv.samples, overflow=cv.overflow_states,
+            wall_s=f"{wall:.2f}", plain_wall_s=f"{wall_p:.2f}",
+            launches=json.dumps(counts).replace(" ", ""))
+    _check_launched("cv24", counts, RTS24_KERNELS)
+    _record_launches(results, "cv24", counts)
+    bad = [k for k, v, want in (("mu_EDNS", mu_e, CV24_MU[0]),
+                                ("mu_PLC", mu_l, CV24_MU[1]))
+           if not math.isclose(v, want, rel_tol=CV24_MU_RTOL)]
+    if bad or not cv.beta < 0.5 * plain.beta or cv.overflow_states:
+        raise RuntimeError(f"cv24: means off {bad}, or beta_cv {cv.beta} "
+                           f"not below half of {plain.beta}")
+    sys_ = build_system(case, device="cuda")
+    step = hl2_nsq.make_nsq_batch_step(
+        sys_, cfg.batch_size, CompatFlags(), IPMConfig(),
+        shed_hint=dcopf.calibrate_shed_hint(sys_),
+        cv_arrays=(np.asarray(case.gen_pmax, np.float32), float(total),
+                   mu_e, mu_l))
+    out, wall_ms = _sync_checked(
+        step, lambda i: hl2_nsq.batch_generator(0, i, "cuda"))
+    _line("cv24", step_batch=cfg.batch_size, step_wall_ms=f"{wall_ms:.2f}",
+          sync_check="error", residual_sum_mw=f"{float(out[0].sum_dns):.4f}")
+
+
+def _seq_se(values) -> float:
+    import math
+    import numpy as np
+    return float(np.std(values, ddof=1) / math.sqrt(len(values)))
+
+
+def phase_cvseq(results):
+    """The RTS-24 SEQ study at load_scale 0.8, 512 years an arm at seed 7,
+    stationary plain and with the control variate, against
+    results/cv_rare_event.json; the per-year variance ratio over the
+    years of seeds CVSEQ_SEEDS (the same paths in both arms)."""
+    import math
+    import numpy as np
+    from powersystemsreliabilityassessment_tpu_torch.core import cases
+    from powersystemsreliabilityassessment_tpu_torch.studies import hl2_seq
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        MCSConfig)
+    ref = json.loads((ROOT / "results" / "cv_rare_event.json").read_text())
+    years = {"plain": [], "cv": []}
+    bad = []
+    t_all = time.perf_counter()
+    for seed in CVSEQ_SEEDS:
+        cfg = MCSConfig(seed=seed, max_years=ref["years_per_arm"],
+                        cov_threshold=0.0)
+        for arm, kw in (("plain", dict(sampling="stationary")),
+                        ("cv", dict(control_variate=True))):
+            _reset_counts()
+            t0 = time.perf_counter()
+            res = hl2_seq.run_seq_study(cases.rts24(), cfg, device="cuda",
+                                        log_every=0,
+                                        load_scale=ref["load_scale"], **kw)
+            wall = time.perf_counter() - t0
+            counts = _counts()
+            years[arm].append(np.asarray(res.annual_ens))
+            if res.overflow_hours:
+                bad.append(f"{arm} seed {seed} overflow")
+            if seed != ref["seed"]:
+                continue
+            rec = ref[arm]
+            var = float(np.var(res.annual_ens, ddof=1))
+            z = abs(res.eens_mwh_yr - rec["eens_mwh_yr"]) / math.hypot(
+                _seq_se(res.annual_ens), rec["cov"] * rec["eens_mwh_yr"])
+            _line("cvseq", arm=arm, seed=seed, years=res.years,
+                  eens_mwh_yr=f"{res.eens_mwh_yr:.4f}",
+                  eens_se=f"{_seq_se(res.annual_ens):.4f}",
+                  record_eens_mwh_yr=rec["eens_mwh_yr"],
+                  record_se=f"{rec['cov'] * rec['eens_mwh_yr']:.4f}",
+                  eens_z=f"{z:.2f}<={RARE_MAX_Z:g}",
+                  per_year_var=f"{var:.1f}",
+                  record_per_year_var=rec["per_year_var"],
+                  lole_hr_yr=f"{res.lole_hr_yr:.4f}",
+                  overflow_hours=res.overflow_hours, wall_s=f"{wall:.2f}",
+                  record_tpu_wall_s=rec["wall_s"], card=repr(CARD["smi"]),
+                  launches=json.dumps(counts).replace(" ", ""))
+            _check_launched(f"cvseq {arm}", counts, RTS24_KERNELS)
+            _record_launches(results, f"cvseq_{arm}", counts)
+            if not z <= RARE_MAX_Z:
+                bad.append(f"{arm} z {z:.2f}")
+    var = {arm: [float(np.var(v, ddof=1)) for v in vs]
+           for arm, vs in years.items()}
+    per_seed = [p / c for p, c in zip(var["plain"], var["cv"])]
+    pooled = {arm: np.concatenate(vs) for arm, vs in years.items()}
+    ratio = float(np.var(pooled["plain"], ddof=1)
+                  / np.var(pooled["cv"], ddof=1))
+    _line("cvseq", seeds=f"{CVSEQ_SEEDS[0]}-{CVSEQ_SEEDS[-1]}",
+          years_per_arm=pooled["cv"].size,
+          plain_eens_mwh_yr=f"{pooled['plain'].mean():.4f}",
+          cv_eens_mwh_yr=f"{pooled['cv'].mean():.4f}",
+          variance_ratio=f"{ratio:.2f}>={CVSEQ_MIN_RATIO:g}",
+          record_seed_ratio=f"{per_seed[0]:.2f}",
+          per_seed_ratios=json.dumps([round(r, 2) for r in per_seed]
+                                     ).replace(" ", ""),
+          record_variance_ratio=ref["variance_reduction"],
+          wall_s=f"{time.perf_counter() - t_all:.2f}")
+    if bad or not ratio >= CVSEQ_MIN_RATIO:
+        raise RuntimeError(f"cvseq: {bad}, or the variance ratio "
+                           f"{ratio:.2f} below {CVSEQ_MIN_RATIO}")
+
+
+def phase_seqib(results):
+    """The RTS-24 SEQ study with island_blackout to CoV 0.05 at seed 0
+    against results/seq_compat_parity.json["island_blackout"]; one
+    blackout SEQ step under the sync check."""
+    import math
+    from powersystemsreliabilityassessment_tpu_torch.core import (
+        cases, load_profile)
+    from powersystemsreliabilityassessment_tpu_torch.core.system import (
+        build_system)
+    from powersystemsreliabilityassessment_tpu_torch.models import twostate
+    from powersystemsreliabilityassessment_tpu_torch.sampling import (
+        chronological)
+    from powersystemsreliabilityassessment_tpu_torch.studies import (
+        hl2_nsq, hl2_seq)
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        CompatFlags, IPMConfig, MCSConfig)
+    ref = json.loads((ROOT / "results" / "seq_compat_parity.json")
+                     .read_text())
+    rec = ref["island_blackout"]
+    compat = CompatFlags(island_blackout=True)
+    cfg = MCSConfig(seed=ref["seed"], cov_threshold=ref["cov"])
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = hl2_seq.run_seq_study(cases.rts24(), cfg, compat=compat,
+                                device="cuda", log_every=0)
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    z = {"eens": abs(res.eens_mwh_yr - rec["eens_mwh_yr"]) / math.hypot(
+        _seq_se(res.annual_ens), rec["cov"] * rec["eens_mwh_yr"])}
+    # The record keeps no per-year DLC or NLC: their standard error is
+    # taken equal to the port's.
+    for key, field, per_year in (("lole", "lole_hr_yr", res.annual_dlc),
+                                 ("lolf", "lolf_occ_yr", res.annual_nlc)):
+        z[key] = abs(getattr(res, field) - rec[field]) / (
+            math.sqrt(2.0) * _seq_se(per_year))
+    _line("seqib", years=res.years, record_years=rec["years"],
+          cov=f"{res.cov:.5f}",
+          cov_before_last_batch=f"{res.cov_history[-2]:.5f}",
+          eens_mwh_yr=f"{res.eens_mwh_yr:.3f}",
+          record_eens_mwh_yr=f"{rec['eens_mwh_yr']:.3f}",
+          eens_z=f"{z['eens']:.2f}<={RARE_MAX_Z:g}",
+          lole_hr_yr=f"{res.lole_hr_yr:.4f}",
+          record_lole_hr_yr=f"{rec['lole_hr_yr']:.4f}",
+          lole_z=f"{z['lole']:.2f}", lolf_occ_yr=f"{res.lolf_occ_yr:.4f}",
+          record_lolf_occ_yr=f"{rec['lolf_occ_yr']:.4f}",
+          lolf_z=f"{z['lolf']:.2f}", overflow_hours=res.overflow_hours,
+          wall_s=f"{wall:.2f}", record_tpu_wall_s=rec["wall_s"],
+          card=repr(CARD["smi"]),
+          launches=json.dumps(counts).replace(" ", ""))
+    _check_launched("seqib", counts, RTS24_KERNELS)
+    _record_launches(results, "seqib", counts)
+    # The CoV reached the limit: the batch in flight when it did is still
+    # folded, so the limit holds at the last batch or the one before.
+    reached = min(res.cov_history[-2:]) <= cfg.cov_threshold
+    if not z["eens"] <= RARE_MAX_Z or not reached:
+        raise RuntimeError(f"seqib: EENS z {z['eens']:.2f}, or the CoV "
+                           f"{res.cov_history[-2:]} never reached "
+                           f"{cfg.cov_threshold}")
+    hours = compat.hours_per_year_seq
+    mt = twostate.mean_times(cases.rts24())
+    k = chronological.default_num_draws(mt[:, 0], mt[:, 1], hours)
+    step = hl2_seq.make_seq_batch_step(
+        build_system(cases.rts24(), compat, device="cuda"), 16, compat,
+        IPMConfig(), hours, k, 256, load_profile.load_factors(hours))
+    out, wall_ms = _sync_checked(
+        step, lambda i: hl2_nsq.batch_generator(0, i, "cuda"))
+    _line("seqib", step_years=16, step_wall_ms=f"{wall_ms:.2f}",
+          sync_check="error", step_overflow=int(out[8]))
+
+
+def phase_hl1(results):
+    """HL1 on RTS-24 (hl1_rts24.run) at the record's sizes against
+    results/study_sweep.json["hl1_rts24"], a 2,000,000-sample NSQ Monte
+    Carlo against the analytical value, and the float32 COPT on the card
+    against the float64 host table. The standard errors come from the
+    Monte Carlo methods' batch means."""
+    import math
+    import numpy as np
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.engines import copt
+    from powersystemsreliabilityassessment_tpu_torch.studies import (
+        hl1_comparison, hl1_rts24)
+    rec = json.loads((ROOT / "results" / "study_sweep.json")
+                     .read_text())["hl1_rts24"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = hl1_rts24.run(device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    nsq_se = got["Non-Sequential MC"]["se"]
+    seq_se = got["Sequential MC"]["se"]
+    gens, load = hl1_rts24.rts24_fleet(), hl1_rts24.rts24_load()
+    t1 = time.perf_counter()
+    big = hl1_comparison.run_non_sequential_mc(
+        gens, load, HL1_BIG_SAMPLES, seed=5, batch=HL1_BIG_BATCH,
+        device="cuda")
+    big_wall = time.perf_counter() - t1
+    big_se = big.standard_errors()
+    big_m = (big.lole_hours_yr, big.eue_mwh_yr)
+    ana = got["Analytical"]
+    bad = [k for k in ("lole", "eue")
+           if not math.isclose(ana[k], rec["Analytical"][k],
+                               rel_tol=HL1_ANALYTICAL_RTOL)]
+    zs = {}
+    for tag, method, se in (("nsq", "Non-Sequential MC", nsq_se),
+                            ("seq", "Sequential MC", seq_se)):
+        for i, k in enumerate(("lole", "eue")):
+            zs[f"{tag}_{k}"] = abs(got[method][k] - rec[method][k]) / (
+                math.sqrt(2.0) * se[i])
+    z_big = [abs(big_m[i] - ana[k]) / big_se[i]
+             for i, k in enumerate(("lole", "eue"))]
+    caps = np.asarray([g.capacity for g in gens], np.float32)
+    fors = np.asarray([g.for_rate for g in gens], np.float32)
+    table = copt.build_copt(torch.as_tensor(caps), torch.as_tensor(fors),
+                            1.0, copt.grid_points_for(float(caps.sum()), 1.0),
+                            device="cuda")
+    host = copt.build_copt_np(caps.astype(np.float64),
+                              fors.astype(np.float64), 1.0)
+    copt_diff = float(np.abs(table.cpu().numpy() - host).max())
+    _line("hl1", analytical_lole=f"{ana['lole']:.6f}",
+          record_lole=rec["Analytical"]["lole"],
+          analytical_eue=f"{ana['eue']:.3f}",
+          record_eue=rec["Analytical"]["eue"],
+          nsq_lole=f"{got['Non-Sequential MC']['lole']:.4f}",
+          nsq_eue=f"{got['Non-Sequential MC']['eue']:.2f}",
+          nsq_se=f"{nsq_se[0]:.4f}/{nsq_se[1]:.2f}",
+          seq_lole=f"{got['Sequential MC']['lole']:.4f}",
+          seq_eue=f"{got['Sequential MC']['eue']:.2f}",
+          seq_se=f"{seq_se[0]:.4f}/{seq_se[1]:.2f}",
+          z=json.dumps({k: round(v, 2) for k, v in zs.items()}
+                       ).replace(" ", ""),
+          wall_s=f"{wall:.2f}", record_tpu_wall_s=rec["wall_s"],
+          card=repr(CARD["smi"]))
+    _line("hl1", big_samples=HL1_BIG_SAMPLES,
+          big_lole=f"{big.lole_hours_yr:.5f}",
+          big_lole_se=f"{big_se[0]:.5f}", big_eue=f"{big.eue_mwh_yr:.3f}",
+          big_eue_se=f"{big_se[1]:.3f}",
+          big_z=f"{z_big[0]:.2f}/{z_big[1]:.2f}<={RARE_MAX_Z:g}",
+          big_wall_s=f"{big_wall:.2f}",
+          samples_per_s=f"{HL1_BIG_SAMPLES / big_wall:.0f}",
+          copt_f32_vs_f64_max_abs=f"{copt_diff:.3e}")
+    if bad or not all(z <= RARE_MAX_Z for z in (*zs.values(), *z_big)):
+        raise RuntimeError(f"hl1: analytical off {bad}, or a Monte Carlo "
+                           f"estimate past {RARE_MAX_Z} standard errors")
+
+
 def phase_studyfused(results):
     counts = phase_study("studyfused", fused=True, kernels=FUSED_KERNELS)
     results.setdefault("sample_certify_quick", {})["launches"] = \
@@ -3212,6 +3813,16 @@ def main() -> int:
         phase_mix300(results)
     if "ce300" in phases:
         phase_ce300(results)
+    if "enum24" in phases:
+        phase_enum24(results)
+    if "cv24" in phases:
+        phase_cv24(results)
+    if "cvseq" in phases:
+        phase_cvseq(results)
+    if "seqib" in phases:
+        phase_seqib(results)
+    if "hl1" in phases:
+        phase_hl1(results)
     if "profile" in phases:
         phase_profile(sys_)
         phase_profile96(sys96)

@@ -44,7 +44,9 @@ whole of ``certify_states`` as one kernel.
 the studies print before their loop, and ``copper_sheet_bound`` the
 network-free DNS lower bound.
 
-Not ported yet (ROADMAP.md Queue 1 item 8): ``island_blackout``.
+``CompatFlags(island_blackout=True)`` sheds every load cut off from bus
+0 outright and takes its island's generators out
+(``apply_island_blackout``) before either evaluator certifies or solves.
 """
 from __future__ import annotations
 
@@ -419,6 +421,57 @@ def _island_rebalance(R: torch.Tensor, x: torch.Tensor, caps: torch.Tensor,
 _ISLAND_REPAIR_ITERS = 2
 
 
+def island_matrix(sys: System, br_up: torch.Tensor) -> torch.Tensor:
+    """[B, nb, nb] 0/1 float: 1 where two buses are connected through the
+    in-service branches ``br_up`` [B, nl] (1 = up), by ``ceil(log2 nb)``
+    boolean squarings of the adjacency with self-loops, which cover every
+    path of up to nb - 1 hops (exact for any diameter). The entries are
+    0/1 and the sums at most nb, so float32 products are exact while TF32
+    is off (the package's ``__init__`` turns it off). The adjacency is
+    one product of the branch-weighted from-bus and to-bus incidences,
+    not the reference's dense [nl, nb, nb] pair tensor."""
+    nb, dt = sys.n_bus, _fdt(sys)
+    e_from = (sys.incidence > 0).to(dt)                    # [nl, nb]
+    e_to = (sys.incidence < 0).to(dt)
+    adj = (e_from.T[None] * br_up[:, None, :]) @ e_to     # [B, nb, nb]
+    adj = adj + adj.transpose(1, 2) + torch.eye(nb, dtype=dt,
+                                                device=sys.device)
+    R = torch.clamp_max(adj, 1.0)
+    for _ in range(int(np.ceil(np.log2(max(nb, 2))))):
+        R = torch.clamp_max(R @ R, 1.0)
+    return R
+
+
+def connected_to_ref(sys: System, br_up: torch.Tensor) -> torch.Tensor:
+    """[B, nb] bool: the bus lies in the island of the reference bus (bus
+    0) under the in-service branches ``br_up`` [B, nl]. Mirrors reference
+    ``engines/dcopf.py::connected_to_ref`` with the exact squaring count
+    of :func:`island_matrix`: the reference's fixed 5 squarings cover
+    paths of at most 32 hops, and report buses farther from bus 0 as cut
+    off (ROADMAP.md, faults in the reference)."""
+    return island_matrix(sys, br_up)[:, 0, :] > 0.5
+
+
+def apply_island_blackout(sys: System, comp_down: torch.Tensor,
+                          load_pu: torch.Tensor):
+    """The ``island_blackout`` transform: loads cut off from bus 0 are
+    shed outright, and generators cut off from it become unavailable.
+    Returns ``(comp_down', load_pu', islanded_nodal_mw [B, nb])``.
+    Mirrors reference ``engines/dcopf.py::apply_island_blackout``; a
+    load's and a generator's bus are read through ``load_onehot`` and
+    ``gen_bus_onehot`` (0/1 products, exact), not gathered."""
+    ng, dt = sys.n_gen, _fdt(sys)
+    br_up = 1.0 - comp_down[:, ng:].to(dt)
+    reach = connected_to_ref(sys, br_up).to(dt)            # [B, nb]
+    load_reach = (reach @ sys.load_onehot) > 0.5           # [B, nd]
+    gen_reach = (reach @ sys.gen_bus_onehot) > 0.5         # [B, ng]
+    comp_down = torch.cat([comp_down[:, :ng] | ~gen_reach,
+                           comp_down[:, ng:]], dim=1)
+    shed_pu = torch.where(load_reach, 0.0, load_pu)
+    nodal = (shed_pu * sys.base_mva) @ sys.load_onehot.T
+    return comp_down, torch.where(load_reach, load_pu, 0.0), nodal
+
+
 def certify_island_pf(sys: System, comp_down: torch.Tensor,
                       load_pu: torch.Tensor,
                       theta_cap: float = 6.0) -> Certificate:
@@ -429,11 +482,9 @@ def certify_island_pf(sys: System, comp_down: torch.Tensor,
     Runs on the compacted buffer of tier-1 misses (deep multi-branch and
     islanding states). Per lane, batched and without gathers:
 
-    1. **Islands.** R = 1 where two buses are connected, by
-       ``ceil(log2 nb)`` boolean squarings of the [B, nb, nb] adjacency
-       (exact for any diameter). The entries are 0/1 and the sums at most
-       nb, so float32 products are exact while TF32 is off (the
-       package's ``__init__`` turns it off).
+    1. **Islands.** R = 1 where two buses are connected
+       (:func:`island_matrix`: ``ceil(log2 nb)`` exact boolean
+       squarings).
     2. **Per-island copper bound.** The deficit is the sum over islands
        of max(0, island load - island capacity): a proven lower bound on
        the lane's DNS, at least Tier 1's.
@@ -458,19 +509,13 @@ def certify_island_pf(sys: System, comp_down: torch.Tensor,
     uncertified lanes too. Nothing here reads the device on the host.
     """
     ng, nl, nb = sys.n_gen, sys.n_branch, sys.n_bus
-    dt, dev = _fdt(sys), sys.device
+    dt = _fdt(sys)
     gen_up = 1.0 - comp_down[:, :ng].to(dt)
     br_up = 1.0 - comp_down[:, ng:ng + nl].to(dt)
     minc = sys.incidence                                   # [nl, nb]
-    e_from = (minc > 0).to(dt)
-    e_to = (minc < 0).to(dt)
 
     # 1. Island matrix by exact boolean squaring.
-    adj = (e_from.T[None] * br_up[:, None, :]) @ e_to     # [B, nb, nb]
-    adj = adj + adj.transpose(1, 2) + torch.eye(nb, dtype=dt, device=dev)
-    R = torch.clamp_max(adj, 1.0)
-    for _ in range(int(np.ceil(np.log2(max(nb, 2))))):
-        R = torch.clamp_max(R @ R, 1.0)
+    R = island_matrix(sys, br_up)                          # [B, nb, nb]
     size = R.sum(2)                                        # [B, nb]
 
     # 2. Per-island copper bound.
@@ -993,13 +1038,6 @@ def _finalize(sys: System, compat: CompatFlags, shed, pg, res, comp_down,
                                                     compat))
 
 
-def _check_compat(compat: CompatFlags) -> None:
-    if compat.island_blackout:
-        raise NotImplementedError(
-            "compat.island_blackout is not ported yet (ROADMAP.md Queue 1 "
-            "item 8)")
-
-
 def evaluate_states(sys: System, comp_down: torch.Tensor,
                     load_pu: torch.Tensor,
                     compat: CompatFlags = CompatFlags(),
@@ -1010,11 +1048,23 @@ def evaluate_states(sys: System, comp_down: torch.Tensor,
     ``engines/dcopf.py::evaluate_states``.
 
     ``comp_down`` [B, n_comp] bool (True = failed); ``load_pu`` [B, n_load].
+    With ``compat.island_blackout`` the states first go through
+    :func:`apply_island_blackout`, and the islanded loads are added to
+    DNS and nodal shed.
     """
-    _check_compat(compat)
+    extra_nodal = None
+    if compat.island_blackout:
+        comp_down, load_pu, extra_nodal = apply_island_blackout(
+            sys, comp_down, load_pu)
     shed, pg, res = _solve_batch(sys, comp_down, load_pu, compat, ipm)
-    return _finalize(sys, compat, shed, pg, res, comp_down, load_pu,
-                     woodbury_k)
+    out = _finalize(sys, compat, shed, pg, res, comp_down, load_pu,
+                    woodbury_k)
+    if extra_nodal is not None:
+        dns = out.dns_mw + extra_nodal.sum(1)
+        dns = torch.where(dns < compat.dns_noise_floor_mw, 0.0, dns)
+        out = out._replace(dns_mw=dns, nodal_mw=out.nodal_mw + extra_nodal,
+                           failure=dns > compat.nsq_fail_flag_threshold_mw)
+    return out
 
 
 def _scatter_valid(dst, idx, valid, src):
@@ -1073,9 +1123,23 @@ def evaluate_states_screened(sys: System, comp_down: torch.Tensor,
     stream). At m > 336 the LP buffer's large-m solve reads on the host
     (``lp_ipm_batched.solve_box_lp_ops``: each Schur inverse's probe and
     the rescue ladder's gates), ~40 times a call on case300s.
+
+    ``compat.island_blackout``: the states go through
+    :func:`apply_island_blackout` before certification, and the islanded
+    loads are added to DNS and nodal shed before the noise floors; with
+    ``pre`` it raises ValueError (the certificate must see the changed
+    states).
     """
-    _check_compat(compat)
     B = comp_down.shape[0]
+    extra_nodal = None
+    if compat.island_blackout:
+        if pre is not None:
+            raise ValueError(
+                "island_blackout changes the states before certification; "
+                "compute the certificate inside (pre=None)")
+        comp_down, load_pu, extra_nodal = apply_island_blackout(
+            sys, comp_down, load_pu)
+        compat = dataclasses.replace(compat, island_blackout=False)
     if pre is None:
         hint_b = None
         if shed_hint is not None:
@@ -1126,6 +1190,9 @@ def evaluate_states_screened(sys: System, comp_down: torch.Tensor,
     pg = _scatter_valid(pre.dispatch, idx, valid, sub.gen_dispatch)
     res = _scatter_valid(torch.zeros_like(dns), idx, valid,
                          sub.primal_residual)
+    if extra_nodal is not None:
+        dns = dns + extra_nodal.sum(1)
+        nodal = nodal + extra_nodal
 
     dns = torch.where(dns < compat.dns_noise_floor_mw, 0.0, dns)
     nodal = torch.where((nodal > compat.nodal_noise_threshold_mw)

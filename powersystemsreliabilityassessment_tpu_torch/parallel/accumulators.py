@@ -83,9 +83,10 @@ class RunningStats:
 
     Under a control variate the dns/flag sums hold residuals and
     ``mu_dns`` / ``mu_flag`` carry the exact means added back when
-    reporting; both default to 0 (plain Monte Carlo). The reference's
-    enumeration-hybrid offsets (``mu_nodal``, ``mu_comp_fail``,
-    ``mu_flag_raw``) come with the enumeration hybrid.
+    reporting. Under the enumeration hybrid the device sums hold
+    tail-masked values and the ``mu_*`` fields carry the exact enumerated
+    parts, ``mu_nodal`` / ``mu_comp_fail`` / ``mu_flag_raw`` included.
+    All default to 0 or None (plain Monte Carlo).
     """
 
     n: float = 0.0
@@ -97,6 +98,9 @@ class RunningStats:
     mu_dns: float = 0.0
     mu_flag: float = 0.0
     sum_flag_raw: float = 0.0
+    mu_nodal: np.ndarray | None = None
+    mu_comp_fail: np.ndarray | None = None
+    mu_flag_raw: float = 0.0
 
     def update(self, m: BatchMoments) -> None:
         m = BatchMoments(*(_f64(a) for a in m))
@@ -138,18 +142,27 @@ class RunningStats:
         return float(np.sqrt(ss) / (self.n * mean))
 
     def nodal_eens(self, hours_per_year: float = 8760.0) -> np.ndarray:
-        """Per-bus EENS MWh/yr (nsqMain.m:345-358)."""
-        return self.sum_nodal / max(self.n, 1.0) * hours_per_year
+        """Per-bus EENS MWh/yr (nsqMain.m:345-358), the exact enumerated
+        part included."""
+        mean = self.sum_nodal / max(self.n, 1.0)
+        if self.mu_nodal is not None:
+            mean = mean + self.mu_nodal
+        return mean * hours_per_year
 
     def component_importance(self) -> np.ndarray:
         """P(component down | system failure) (nsqMain.m:360-376), from
-        the raw failure count."""
+        the raw failure count: a ratio of means, each the MC mean plus its
+        exact enumerated part (the ratio of counts without one)."""
         if self.sum_comp_fail is None:
             return np.zeros(0)
-        den = self.sum_flag_raw or self.sum_flag
+        n = max(self.n, 1.0)
+        num = self.sum_comp_fail / n
+        if self.mu_comp_fail is not None:
+            num = num + self.mu_comp_fail
+        den = (self.sum_flag_raw or self.sum_flag) / n + self.mu_flag_raw
         if den == 0:
             return np.zeros(0)
-        return self.sum_comp_fail / den
+        return num / den
 
     def state(self) -> dict:
         """The fields as a dict, for a checkpoint."""
@@ -162,7 +175,7 @@ class RunningStats:
         properties work even when a restored study stops before folding
         another batch."""
         d = dict(d)
-        for k in ("sum_nodal", "sum_comp_fail"):
+        for k in ("sum_nodal", "sum_comp_fail", "mu_nodal", "mu_comp_fail"):
             if d.get(k) is not None:
                 d[k] = np.asarray(d[k], np.float64)
         return cls(**d)

@@ -10,6 +10,12 @@ partial sums. The host folds the partial sums into float64 running
 statistics and applies the beta stopping rule (beta < ``beta_limit`` or
 ``max_samples``, nsqMain.m:60-61). The weighted samplers' moments are
 importance-sampling estimates (``accumulators.batch_moments(weight=)``).
+Two options carry exact means on the host: the copper-sheet control
+variate (``control_variate``: the moments track DNS minus the state's
+copper deficit, whose exact mean comes from a float64 COPT) and the
+enumeration hybrid (``enum_order``: every state with at most that many
+outages is evaluated once, exactly, by ``sampling/enumeration.py``, and
+the Monte Carlo counts only the deeper tail).
 
 Threefry keys become one ``torch.Generator`` per batch, seeded from
 (study seed, batch index): a batch is reproducible from its index, which
@@ -17,8 +23,8 @@ the grow-and-redo protocol relies on. ``MCSConfig.fused_tier1`` samples
 and first-pass-certifies each batch in the K4 kernel
 (``ops/fused_sampler_cert.py``). A ``runtime.checkpoint.Checkpointer``
 saves the host state every few batches, and a study given one resumes
-from it. Not ported yet (ROADMAP.md Queue 1): the mesh and ``psum``,
-the control variate, enumeration.
+from it. Not ported yet (ROADMAP.md Queue 1 item 12): the mesh and
+``psum``.
 """
 from __future__ import annotations
 
@@ -31,13 +37,15 @@ import torch
 from powersystemsreliabilityassessment_tpu_torch.core.cases import CaseData
 from powersystemsreliabilityassessment_tpu_torch.core.system import (
     System, build_system)
-from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
+from powersystemsreliabilityassessment_tpu_torch.engines import copt, dcopf
+from powersystemsreliabilityassessment_tpu_torch.models import twostate
 from powersystemsreliabilityassessment_tpu_torch.ops import fused_sampler_cert
 from powersystemsreliabilityassessment_tpu_torch.parallel import accumulators
 from powersystemsreliabilityassessment_tpu_torch.runtime.checkpoint import (
     Checkpointer)
 from powersystemsreliabilityassessment_tpu_torch.runtime.host_loop import (
     double_buffered_loop)
+from powersystemsreliabilityassessment_tpu_torch.sampling import enumeration
 from powersystemsreliabilityassessment_tpu_torch.sampling.state import (
     sample_states, sample_states_importance, sample_states_mixture)
 from powersystemsreliabilityassessment_tpu_torch.utils.config import (
@@ -273,7 +281,9 @@ def make_nsq_batch_step(sys: System, batch_per_device: int,
                         fused_tier1: bool = False, antithetic: bool = False,
                         is_boost: float = 0.0, is_boost_scope: str = "all",
                         is_q: np.ndarray | None = None,
-                        mix: tuple | None = None):
+                        mix: tuple | None = None,
+                        cv_arrays: tuple | None = None,
+                        enum_order: int = 0):
     """One-batch step ``generator -> (BatchMoments, n_overflow,
     n_infeasible)``, all device tensors; mirrors reference
     ``studies/hl2_nsq.py::make_nsq_batch_step`` on one device. At m <= 336
@@ -298,7 +308,17 @@ def make_nsq_batch_step(sys: System, batch_per_device: int,
     ``max_lp`` None takes ``batch // 8`` under ``is_q``, ``min(max(batch
     // 16, 128), 2048)`` under ``mix``, else :func:`default_max_lp`.
     ``woodbury_k`` None takes :func:`default_woodbury_k` under the
-    sampling measure."""
+    sampling measure.
+
+    ``cv_arrays = (gen_cap_mw [ng], total_load_mw, mu_e, mu_l)`` turns on
+    the copper-sheet control variate: each state's copper deficit c =
+    max(total load - up capacity, 0) MW and its flag c > the failure
+    threshold go to ``batch_moments(cv=...)``, which keeps the residuals
+    (the exact means live on the host, :func:`run_nsq_study`).
+    ``enum_order > 0`` masks every state with at most that many
+    components down out of the moments (``n`` still counts it): the
+    enumeration pre-pass carries those states exactly. The two exclude
+    each other, as in the reference."""
     if antithetic and (is_boost > 0 or is_q is not None):
         raise ValueError("antithetic and importance sampling are mutually "
                          "exclusive")
@@ -309,8 +329,13 @@ def make_nsq_batch_step(sys: System, batch_per_device: int,
                             or fused_tier1):
         raise ValueError("mix (defensive mixture sampling) excludes every "
                          "other sampler option")
-    if fused_tier1 and (antithetic or is_boost > 0):
-        raise ValueError("fused_tier1 supports plain MC only")
+    if fused_tier1 and (antithetic or is_boost > 0 or enum_order > 0
+                        or compat.island_blackout):
+        raise ValueError("fused_tier1 supports plain MC only (no pairing, "
+                         "weights, enumeration tail mask or blackout)")
+    if enum_order > 0 and (cv_arrays is not None or mix is not None):
+        raise ValueError("enum_order excludes the control variate (both "
+                         "carry exact-mean offsets) and the mixture")
     if is_boost_scope not in ("all", "gens", "branches"):
         raise ValueError(f"unknown is_boost_scope {is_boost_scope!r}; "
                          "expected 'all', 'gens' or 'branches'")
@@ -352,8 +377,11 @@ def make_nsq_batch_step(sys: System, batch_per_device: int,
         mix_masks = torch.as_tensor(np.asarray(mix[0], bool),
                                     device=sys.device)
         mix_boost, mix_alpha0 = float(mix[1]), float(mix[2])
+    if cv_arrays is not None:
+        gen_cap_mw = torch.as_tensor(np.asarray(cv_arrays[0], np.float32),
+                                     device=sys.device)
+        total_load_mw = float(np.float32(cv_arrays[1]))
     if fused_tier1:
-        # island_blackout raises in the screened evaluator.
         fused_sampler_cert.check_supported(sys)
         finish_buffer = dcopf.default_finish_buffer(batch_per_device,
                                                     hinted=hinted)
@@ -393,8 +421,19 @@ def make_nsq_batch_step(sys: System, batch_per_device: int,
             sys, down, load, max_lp, compat, ipm, nodal_mode,
             repair_buffer=repair_buffer, woodbury_k=woodbury_k,
             shed_hint=shed_hint, pre=pre, pf_buffer=pf_buffer)
-        m = accumulators.batch_moments(res.dns_mw, res.nodal_mw,
-                                       res.failure, down, weight)
+        dns, nodal, failure = res.dns_mw, res.nodal_mw, res.failure
+        if enum_order > 0:
+            tail = down.sum(1) > enum_order
+            dns, nodal = dns * tail, nodal * tail[:, None]
+            failure = failure & tail
+        cv = None
+        if cv_arrays is not None:
+            # Integer-valued float32 unit capacities: the capacity sum is
+            # exact, and the host's exact means saw the same f32 load.
+            gen_up = 1.0 - down[:, :sys.n_gen].to(dns.dtype)
+            c_mw = torch.clamp_min(total_load_mw - gen_up @ gen_cap_mw, 0.0)
+            cv = (c_mw, c_mw > compat.nsq_fail_flag_threshold_mw)
+        m = accumulators.batch_moments(dns, nodal, failure, down, weight, cv)
         return m, n_over, res.infeasible.sum()
 
     return step
@@ -441,8 +480,7 @@ def _unpack(fetched, nb: int):
 
 @dataclasses.dataclass
 class NSQResult:
-    """Mirrors reference ``studies/hl2_nsq.py::NSQResult`` (without the
-    enumeration fields)."""
+    """Mirrors reference ``studies/hl2_nsq.py::NSQResult``."""
     edns_mw: float
     lole_hr_yr: float
     plc: float
@@ -457,6 +495,13 @@ class NSQResult:
     plc_history: list
     overflow_states: int
     infeasible_states: int = 0
+    # The enumeration hybrid (enum_order > 0): states enumerated, their
+    # exact probability mass and the exact EDNS part (the Monte Carlo's
+    # is edns_mw - enum_edns_exact_mw).
+    enum_order: int = 0
+    enum_states: int = 0
+    enum_mass: float = 0.0
+    enum_edns_exact_mw: float = 0.0
 
     def to_dict(self) -> dict[str, Any]:
         d = dataclasses.asdict(self)
@@ -472,11 +517,12 @@ def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
                   log_every: int = 10,
                   max_lp: int | None = None,
                   checkpointer: Checkpointer | None = None,
-                  checkpoint_every: int = 50) -> NSQResult:
+                  checkpoint_every: int = 50,
+                  control_variate: bool = False,
+                  enum_order: int = 0) -> NSQResult:
     """HL2 NSQ study on one device (the card unless the caller passes
     ``device="cpu"``); mirrors reference
-    ``studies/hl2_nsq.py::run_nsq_study`` without its control variate and
-    enumeration hybrid (ROADMAP.md Queue 1 item 8).
+    ``studies/hl2_nsq.py::run_nsq_study``.
 
     The sampler comes from ``cfg``: ``antithetic``, ``is_boost`` on
     ``is_boost_scope``, ``fused_tier1``, or ``is_ce``: before the loop a
@@ -500,7 +546,25 @@ def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
     checkpointer holds a state starts from it, with the saved proposal
     in place of a new pilot. A batch's draws depend only on (seed, batch
     index), so the resumed study equals an uninterrupted one.
+
+    ``control_variate``: each state's copper-sheet deficit is subtracted
+    and its exact expectation at the peak load, from a float64 COPT
+    (``copt.copper_cv_means``), added back: EDNS_cv = mu_C + mean(DNS -
+    C), and PLC likewise with the copper flag. NSQ states are i.i.d.
+    Bernoulli(U), the COPT's own law, and E_q[w C] = mu_C under every
+    sampler, so the estimate stays unbiased while beta collapses.
+
+    ``enum_order = k > 0``: the enumeration hybrid. Before the loop,
+    every state with <= k outages is evaluated once
+    (``enumeration.enumerate_exact``; skipped on resume, where the
+    checkpoint's offsets carry it); its float64 parts become the
+    ``RunningStats`` offsets, and the Monte Carlo estimates only the
+    #down > k tail. Excludes ``control_variate``, ``fused_tier1`` and the
+    mixture (ValueError).
     """
+    if enum_order > 0 and (control_variate or cfg.fused_tier1):
+        raise ValueError("enum_order excludes control_variate (both carry "
+                         "exact-mean offsets) and fused_tier1")
     sys = build_system(case, compat, device)
     bpd = max(cfg.batch_size, 1)
     pf_tier = dcopf.default_pf_buffer(sys, bpd) is not None
@@ -508,9 +572,24 @@ def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
         max_lp = default_max_lp(bpd, cfg.nodal_mode, cfg.is_boost,
                                 cfg.is_boost_scope, pf_tier=pf_tier)
     lp_cap = min(bpd, PF_TIER_LP_CAP) if pf_tier else bpd
+    cv_arrays = None
     stats = accumulators.RunningStats()
+    if control_variate:
+        gen_cap_mw = np.asarray(case.gen_pmax, np.float32)
+        total_load_mw = np.float32(np.sum(np.asarray(case.bus_pd,
+                                                     np.float64)))
+        mu_e, mu_l, _, _ = copt.copper_cv_means(
+            gen_cap_mw.astype(np.float64),
+            twostate.unavailability(case)[:case.n_gen],
+            np.asarray([total_load_mw], np.float64),
+            thresh_mw=compat.nsq_fail_flag_threshold_mw)
+        cv_arrays = (gen_cap_mw, total_load_mw, mu_e, mu_l)
+        stats.mu_dns, stats.mu_flag = float(mu_e), float(mu_l)
+        if log_every:
+            print(f"control variate: mu_EDNS {mu_e:.4f} MW, "
+                  f"mu_PLC {mu_l:.6f} (exact f64 COPT)")
     histories = {"beta": [], "edns": [], "lole": [], "plc": []}
-    batch_idx, overflow, infeasible = 0, 0, 0
+    batch_idx, overflow, infeasible, enum_info = 0, 0, 0, None
     restored = checkpointer.restore() if checkpointer is not None else None
     if restored is not None:
         stats = accumulators.RunningStats.from_state(restored["stats"])
@@ -519,6 +598,22 @@ def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
         overflow = int(restored.get("overflow", 0))
         infeasible = int(restored.get("infeasible", 0))
         max_lp = int(restored.get("max_lp", max_lp))
+        enum_info = restored.get("enum")
+    elif enum_order > 0:
+        exact = enumeration.enumerate_exact(sys, compat, ipm,
+                                            cfg.nodal_mode, enum_order,
+                                            log_every=log_every)
+        stats.mu_dns, stats.mu_flag = exact.edns_mw, exact.pfail
+        stats.mu_flag_raw = exact.pfail
+        stats.mu_nodal, stats.mu_comp_fail = exact.nodal_mw, exact.comp_fail
+        enum_info = {"order": enum_order, "n_states": exact.n_states,
+                     "mass": exact.mass, "edns_exact": exact.edns_mw}
+        if log_every:
+            print(f"enumeration order {enum_order}: {exact.n_states:,} "
+                  f"states, mass {exact.mass:.6f} (tail "
+                  f"{exact.tail_mass:.2e}), exact EDNS part "
+                  f"{exact.edns_mw:.4f} MW, exact PLC part "
+                  f"{exact.pfail:.6f}")
     # Static shed-direction calibration: the first certificate pass then
     # closes ~99.96% of lanes. Correctness never depends on the hint.
     shed_hint = dcopf.calibrate_shed_hint(sys)
@@ -557,7 +652,8 @@ def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
         shed_hint=shed_hint, fused_tier1=cfg.fused_tier1,
         antithetic=cfg.antithetic,
         is_boost=0.0 if is_q is not None else cfg.is_boost,
-        is_boost_scope=cfg.is_boost_scope, is_q=is_q)
+        is_boost_scope=cfg.is_boost_scope, is_q=is_q, cv_arrays=cv_arrays,
+        enum_order=enum_order)
     step = make_nsq_batch_step(sys, bpd, compat, ipm, max_lp=max_lp,
                                **step_kwargs)
 
@@ -593,6 +689,7 @@ def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
                                "histories": histories,
                                "batch_idx": next_idx, "overflow": overflow,
                                "infeasible": infeasible, "max_lp": max_lp,
+                               "enum": enum_info,
                                **({"is_q": is_q} if cfg.is_ce else {})})
         return False
 
@@ -612,4 +709,8 @@ def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
         comp_importance=stats.component_importance(),
         beta_history=histories["beta"], edns_history=histories["edns"],
         lole_history=histories["lole"], plc_history=histories["plc"],
-        overflow_states=overflow, infeasible_states=infeasible)
+        overflow_states=overflow, infeasible_states=infeasible,
+        enum_order=enum_order,
+        enum_states=(enum_info or {}).get("n_states", 0),
+        enum_mass=(enum_info or {}).get("mass", 0.0),
+        enum_edns_exact_mw=(enum_info or {}).get("edns_exact", 0.0))

@@ -21,8 +21,9 @@ the CoV std / (mean sqrt(N)) falls below ``cov_threshold`` or at
 ``max_years`` (seqMain.m:178-198). A batch whose LP buffer overflows is
 redone at twice the size (the same draws, so the estimate does not
 depend on the buffer); three redone batches in a row promote the size.
-Not ported yet (ROADMAP.md Queue 1): the mesh (item 12), the
-copper-sheet control variate (item 8), scheduled maintenance (item 9).
+``control_variate`` adjusts each year by its copper-sheet deficit and
+that deficit's exact stationary mean (a float64 COPT). Not ported yet
+(ROADMAP.md Queue 1): the mesh (item 12), scheduled maintenance (item 9).
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ from powersystemsreliabilityassessment_tpu_torch.core.cases import CaseData
 from powersystemsreliabilityassessment_tpu_torch.core.system import (
     System, build_system)
 from powersystemsreliabilityassessment_tpu_torch.engines import (
-    copper_sheet, dcopf)
+    copper_sheet, copt, dcopf)
 from powersystemsreliabilityassessment_tpu_torch.models import twostate
 from powersystemsreliabilityassessment_tpu_torch.parallel.accumulators import (
     AnnualStats)
@@ -79,7 +80,7 @@ def year_block_load(sys: System, factors, years: int) -> torch.Tensor:
 
 def evaluate_years(sys: System, compat: CompatFlags, ipm: IPMConfig,
                    load: torch.Tensor, down: torch.Tensor, max_lp: int,
-                   nodal_mode: str = "lp"):
+                   nodal_mode: str = "lp", cv_arrays: tuple | None = None):
     """Annual indices of a given year block ``down`` ``[Y, n_comp, H]``
     evaluated as ONE flat batch of ``Y * H`` hour-states (``load`` from
     :func:`year_block_load`, ``max_lp`` the whole block's LP buffer).
@@ -87,7 +88,12 @@ def evaluate_years(sys: System, compat: CompatFlags, ipm: IPMConfig,
 
     Returns device tensors ``(ens [Y] MWh, plc [Y], nlc [Y], dlc [Y],
     edns [Y] MW, nodal [Y, nb] MWh, comp_fail [Y, n_comp] h, loss_hours
-    [Y], n_over, n_infeasible)``.
+    [Y], n_over, n_infeasible)``. With ``cv_arrays = (loads_mw [H],
+    gen_cap_mw [ng])`` (device tensors: the float32-rounded hourly system
+    load and the unit capacities) two more follow, the copper-sheet
+    control variates ``c_ens [Y]`` (MWh of max(load - up capacity, 0))
+    and ``c_dlc [Y]`` (hours that deficit exceeds the curtailment
+    threshold).
     """
     Y, _, H = down.shape
     down_h = down.transpose(1, 2)                           # [Y, H, n_comp]
@@ -109,61 +115,80 @@ def evaluate_years(sys: System, compat: CompatFlags, ipm: IPMConfig,
     # 0/1 sums below 2^24: exact in float32 (TF32 is off package-wide).
     comp_fail = torch.einsum("yh,yhc->yc", flag_f, down_h.to(dns.dtype))
     # PLC as the reference's mean computes it (XLA: the sum times 1 / H).
-    return (ens, dlc * (1.0 / H), nlc, dlc, ens / H, nodal, comp_fail, dlc,
+    outs = (ens, dlc * (1.0 / H), nlc, dlc, ens / H, nodal, comp_fail, dlc,
             n_over, res.infeasible.sum())
+    if cv_arrays is not None:
+        # Integer-valued float32 capacities: the capacity sums are exact
+        # (TF32 is off), so the host's exact means see the same deficits.
+        loads_mw, gen_cap_mw = cv_arrays
+        gen_up = 1.0 - down[:, :sys.n_gen, :].to(dns.dtype)
+        cap_mw = torch.einsum("ygh,g->yh", gen_up, gen_cap_mw)
+        deficit = torch.clamp_min(loads_mw[None, :] - cap_mw, 0.0)
+        outs = outs + (deficit.sum(1), (
+            deficit > compat.seq_curtail_threshold_mw).to(dns.dtype).sum(1))
+    return outs
 
 
 def _years_eval(sys: System, compat: CompatFlags, ipm: IPMConfig,
                 load: torch.Tensor, hours: int, n_draws: int, max_lp: int,
                 nodal_mode: str, generator: torch.Generator, years: int,
-                stationary: bool = False):
+                stationary: bool = False, cv_arrays: tuple | None = None):
     """Draw a block of ``years`` years and evaluate it; mirrors reference
-    ``studies/hl2_seq.py::_years_eval`` (without maintenance and the
-    control variate): :func:`sample_years`, then
-    :func:`evaluate_years`."""
+    ``studies/hl2_seq.py::_years_eval`` (without maintenance):
+    :func:`sample_years`, then :func:`evaluate_years`."""
     down = sample_years(generator, sys, years, hours, n_draws, stationary)
-    return evaluate_years(sys, compat, ipm, load, down, max_lp, nodal_mode)
+    return evaluate_years(sys, compat, ipm, load, down, max_lp, nodal_mode,
+                          cv_arrays)
 
 
 def make_seq_batch_step(sys: System, years_per_device: int,
                         compat: CompatFlags, ipm: IPMConfig, hours: int,
                         n_draws: int, max_lp: int, factors,
-                        nodal_mode: str = "lp", stationary: bool = False):
+                        nodal_mode: str = "lp", stationary: bool = False,
+                        cv_arrays: tuple | None = None):
     """One-batch step ``generator -> (ens [Y], plc [Y], nlc [Y], dlc [Y],
     edns [Y], nodal_sum [nb], comp_fail_sum [n_comp], loss_hours,
-    n_over, n_infeasible)``, all device tensors; mirrors reference
+    n_over, n_infeasible)``, all device tensors, followed by ``(c_ens [Y],
+    c_dlc [Y])`` when ``cv_arrays = (loads_mw [H], gen_cap_mw [ng])``
+    (host arrays, copied to the device here) is given; mirrors reference
     ``studies/hl2_seq.py::make_seq_batch_step`` on one device.
     ``max_lp`` is per year. The step only enqueues device work: nothing
     in it waits for the device."""
     load = year_block_load(sys, factors, years_per_device)
+    if cv_arrays is not None:
+        cv_arrays = tuple(torch.as_tensor(np.asarray(a, np.float32),
+                                          device=sys.device)
+                          for a in cv_arrays)
 
     def step(generator: torch.Generator):
+        out = _years_eval(sys, compat, ipm, load, hours, n_draws,
+                          max_lp * years_per_device, nodal_mode, generator,
+                          years_per_device, stationary, cv_arrays)
         (ens, plc, nlc, dlc, edns, nodal, comp_fail, loss_h, n_over,
-         n_infeas) = _years_eval(sys, compat, ipm, load, hours, n_draws,
-                                 max_lp * years_per_device, nodal_mode,
-                                 generator, years_per_device, stationary)
+         n_infeas) = out[:10]
         return (ens, plc, nlc, dlc, edns, nodal.sum(0), comp_fail.sum(0),
-                loss_h.sum(), n_over, n_infeas)
+                loss_h.sum(), n_over, n_infeas) + out[10:]
 
     return step
 
 
 def _pack(out) -> torch.Tensor:
     """One step's outputs as one float32 vector: loss hours, n_over,
-    n_infeasible, the five per-year vectors, nodal and component sums."""
+    n_infeasible, the per-year vectors (five, or seven with the control
+    variates), nodal and component sums."""
     (ens, plc, nlc, dlc, edns, nodal, comp_fail, loss_h, n_over,
-     n_infeas) = out
+     n_infeas) = out[:10]
     dt = ens.dtype
     return torch.cat([torch.stack([loss_h, n_over.to(dt), n_infeas.to(dt)]),
-                      ens, plc, nlc, dlc, edns, nodal, comp_fail])
+                      ens, plc, nlc, dlc, edns, *out[10:], nodal, comp_fail])
 
 
-def _unpack(v: np.ndarray, years: int, nb: int):
+def _unpack(v: np.ndarray, years: int, nb: int, n_per_year: int = 5):
     """Inverse of :func:`_pack` on the host's float64 copy: (per-year
-    (ens, plc, nlc, dlc, edns), nodal, comp_fail, loss_hours, n_over,
-    n_infeasible)."""
-    per_year = v[3:3 + 5 * years].reshape(5, years)
-    rest = v[3 + 5 * years:]
+    vectors (ens, plc, nlc, dlc, edns[, c_ens, c_dlc]), nodal, comp_fail,
+    loss_hours, n_over, n_infeasible)."""
+    per_year = v[3:3 + n_per_year * years].reshape(n_per_year, years)
+    rest = v[3 + n_per_year * years:]
     return (tuple(per_year), rest[:nb], rest[nb:], v[0], int(v[1]),
             int(v[2]))
 
@@ -192,9 +217,14 @@ class SEQResult:
     # studies/hl2_seq_split.py (not ported; always 0 here).
     split_entered: int = 0
     split_overflow: int = 0
+    # Per-year DLC (h) and NLC, for the standard errors of LOLE and LOLF
+    # (not in the reference's result, nor in its exported schema).
+    annual_dlc: list = dataclasses.field(default_factory=list)
+    annual_nlc: list = dataclasses.field(default_factory=list)
 
     def to_dict(self) -> dict[str, Any]:
         d = dataclasses.asdict(self)
+        del d["annual_dlc"], d["annual_nlc"]
         d["nodal_eens_mwh_yr"] = self.nodal_eens_mwh_yr.tolist()
         d["comp_importance"] = self.comp_importance.tolist()
         return d
@@ -240,19 +270,29 @@ def run_seq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
     counts and the promoted ``max_lp`` are saved, and a study whose
     checkpointer holds a state resumes from it (exactly: the draws depend
     only on (seed, batch index)). ``load_scale`` multiplies the load
-    profile. ``control_variate`` and ``scheduled_maintenance`` raise
-    NotImplementedError.
+    profile.
+
+    ``control_variate=True`` (stationary sampling; ``"reference"`` is
+    switched to it, as in the reference) subtracts each year's copper-
+    sheet deficit C (``c_ens``, ``c_dlc`` of :func:`evaluate_years`) and
+    adds back its exact stationary mean from a float64 COPT
+    (``copt.copper_cv_means`` on the same float32-rounded hourly loads):
+    ENS_cv = ENS - C + mu_C, DLC likewise, on the host in float64. NLC,
+    nodal and weak-point sums stay plain. With ``scheduled_maintenance``
+    it raises ValueError (maintenance breaks stationarity);
+    ``scheduled_maintenance`` alone raises NotImplementedError.
     """
-    if control_variate:
-        raise NotImplementedError(
-            "control_variate needs engines/copt.py's copper_cv_means, not "
-            "ported yet (ROADMAP.md Queue 1 item 8)")
+    if control_variate and sampling == "reference":
+        sampling = "stationary"
+    if sampling not in ("reference", "stationary"):
+        raise ValueError(f"unknown sampling mode {sampling!r}")
+    if control_variate and scheduled_maintenance:
+        raise ValueError("control_variate requires a stationary fleet; "
+                         "scheduled maintenance breaks stationarity")
     if scheduled_maintenance:
         raise NotImplementedError(
             "scheduled_maintenance needs engines/planning.py, not ported "
             "yet (ROADMAP.md Queue 1 item 9)")
-    if sampling not in ("reference", "stationary"):
-        raise ValueError(f"unknown sampling mode {sampling!r}")
     stationary = sampling == "stationary"
 
     sys = build_system(case, compat, device)
@@ -262,6 +302,23 @@ def run_seq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
     factors = load_profile.load_factors(hours, compat.weekday_mode)
     if load_scale != 1.0:
         factors = factors * load_scale
+    cv_arrays, mu_eens, mu_lole = None, 0.0, 0.0
+    if control_variate:
+        gen_cap_mw = np.asarray(case.gen_pmax, np.float32)
+        total_load_mw = float(np.sum(np.asarray(case.bus_pd, np.float64)))
+        # Rounded to float32 before the exact means: host and device then
+        # see the same load values.
+        loads_mw = (np.asarray(factors, np.float64)
+                    * total_load_mw).astype(np.float32)
+        mu_eens, mu_lole, _, _ = copt.copper_cv_means(
+            gen_cap_mw.astype(np.float64),
+            twostate.unavailability(case)[:case.n_gen],
+            loads_mw.astype(np.float64),
+            thresh_mw=compat.seq_curtail_threshold_mw)
+        cv_arrays = (loads_mw, gen_cap_mw)
+        if log_every:
+            print(f"control variate: mu_EENS {mu_eens:.3f} MWh/yr, "
+                  f"mu_LOLE {mu_lole:.4f} h/yr (exact f64 COPT)")
     # Copied to the device once; every step's load is made from it.
     factors = torch.as_tensor(factors, dtype=torch.float32,
                               device=sys.device)
@@ -293,7 +350,8 @@ def run_seq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
         if lp not in steps:
             steps[lp] = make_seq_batch_step(
                 sys, Y, compat, ipm, hours, n_draws, lp, factors,
-                nodal_mode=cfg.nodal_mode, stationary=stationary)
+                nodal_mode=cfg.nodal_mode, stationary=stationary,
+                cv_arrays=cv_arrays)
         return steps[lp]
 
     # Transient grow-and-redo: chronological outages cluster, so a batch
@@ -316,7 +374,8 @@ def run_seq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
         nonlocal overflow, infeasible, cap_warned, consec_over, max_lp
         idx, lp_used, fetched = dispatched
         per_year, nodal, comp_fail, loss_h, n_over, n_infeas = _unpack(
-            fetched_numpy(fetched), Y, sys.n_bus)
+            fetched_numpy(fetched), Y, sys.n_bus,
+            5 if cv_arrays is None else 7)
         if n_over > 0 and lp_used < lp_cap:
             redo_lp[idx] = min(2 * lp_used, lp_cap)
             print(f"LP buffer overflow ({n_over} h); redoing batch {idx} "
@@ -341,6 +400,14 @@ def run_seq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
                       f"{max_lp}/yr to the base step")
         else:
             consec_over = 0
+        if cv_arrays is not None:
+            # Y_i = ENS_i - C_i + mu_C in float64: E[C_i] = mu_C exactly
+            # under stationary sampling, so the mean is unchanged and the
+            # copper deficit's variance leaves.
+            ens, _, nlc, dlc, _, c_ens, c_dlc = per_year
+            ens = ens - c_ens + mu_eens
+            dlc = dlc - c_dlc + mu_lole
+            per_year = (ens, dlc / hours, nlc, dlc, ens / hours)
         stats.update_years(*per_year, nodal, comp_fail, loss_h)
         overflow += n_over
         infeasible += n_infeas
@@ -374,4 +441,5 @@ def run_seq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
         comp_importance=stats.component_importance(),
         eens_history=eens_history, cov_history=cov_history,
         overflow_hours=overflow, annual_ens=list(stats.ens),
-        infeasible_hours=infeasible)
+        infeasible_hours=infeasible, annual_dlc=list(stats.dlc),
+        annual_nlc=list(stats.nlc))

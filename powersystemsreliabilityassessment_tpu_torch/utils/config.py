@@ -4,9 +4,9 @@ Port of ``powersystemsreliabilityassessment_tpu/utils/config.py``
 (``CompatFlags``, ``IPMConfig``, ``MCSConfig``). Field names, defaults and
 meanings are the reference's. The port carries the fields its ported
 code reads: the NSQ and SEQ studies with the NSQ samplers (antithetic,
-importance with its scopes, the cross-entropy proposal) and the large-m
-LP solver. The reference's ``island_blackout`` is carried but raises
-(ROADMAP.md Queue 1 item 8).
+importance with its scopes, the cross-entropy proposal), the control
+variate, the enumeration hybrid and ``island_blackout``, and the large-m
+LP solver.
 """
 from __future__ import annotations
 
@@ -38,8 +38,8 @@ class CompatFlags:
     # anloducurve.m:39's day-of-week formula ("reference") or the
     # conventional calendar ("calendar"); core/load_profile.py.
     weekday_mode: str = "reference"
-    # Shed islands outright (reference option; not ported yet — the port
-    # raises NotImplementedError when it is set).
+    # Shed the loads cut off from bus 0 outright and take their island's
+    # generators out (engines/dcopf.py::apply_island_blackout).
     island_blackout: bool = False
 
 

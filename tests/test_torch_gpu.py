@@ -10,7 +10,10 @@ step without a host sync, the 98-state golden replay on the card
 (tests/test_torch_nsq.py runs it on the CPU through the same helper),
 and the NSQ samplers (antithetic, importance, mixture) on the card
 against their marginals on the CPU, with each sampler's RTS-24 step
-without a host sync.
+without a host sync; the COPT on the card against the float64 host
+table, an enumeration chunk and an island-blackout batch on the card
+against the same on the CPU, and the control-variate, enumeration-tail
+and blackout steps (NSQ and SEQ) without a host sync.
 
 Tests that need a card carry the ``gpu`` marker and skip without one.
 The file imports neither JAX nor the JAX package, so it also runs where
@@ -1508,3 +1511,161 @@ def test_sampler_step_never_waits_for_the_device(cuda, option):
     assert ipm_fused.launches["fused_ipm_iterations"] > before
     assert float(m.n) == 8192 and int(n_over) == 0
     assert math.isfinite(float(m.sum_dns)) and float(m.sum_dns) > 0
+
+
+@pytest.mark.gpu
+def test_copt_on_card_matches_host_float64(cuda):
+    from powersystemsreliabilityassessment_tpu_torch.engines import copt
+    from powersystemsreliabilityassessment_tpu_torch.studies import (
+        hl1_rts24)
+    gens = hl1_rts24.rts24_fleet()
+    caps = np.asarray([g.capacity for g in gens], np.float32)
+    fors = np.asarray([g.for_rate for g in gens], np.float32)
+    n = copt.grid_points_for(float(caps.sum()), 1.0)
+    got = copt.build_copt(torch.as_tensor(caps), torch.as_tensor(fors), 1.0,
+                          n, device=cuda)
+    want = copt.build_copt_np(caps.astype(np.float64),
+                              fors.astype(np.float64), 1.0)
+    assert got.is_cuda and got.shape == want.shape
+    assert np.abs(got.cpu().numpy() - want).max() <= 1e-6
+    load = hl1_rts24.rts24_load()
+    on_card = copt.lole_eue(got, 1.0, float(caps.sum()),
+                            torch.as_tensor(load, device=cuda))
+    on_cpu = copt.lole_eue(got.cpu(), 1.0, float(caps.sum()),
+                           torch.as_tensor(load))
+    for a, b in zip(on_card, on_cpu):
+        assert float(a) == pytest.approx(float(b), rel=1e-5)
+    assert float(on_card[0]) == pytest.approx(9.394095, rel=1e-4)
+
+
+@pytest.mark.gpu
+def test_enumeration_on_card_matches_cpu(cuda):
+    from powersystemsreliabilityassessment_tpu_torch.sampling import (
+        enumeration)
+    out = {}
+    for dev in ("cpu", cuda):
+        sys_ = build_system(cases.rts24(), device=dev)
+        step = enumeration.make_chunk_step(sys_, CompatFlags(), IPMConfig(),
+                                           "lp", 2048, 2048)
+        free = enumeration.free_components(
+            sys_.unavail.cpu().numpy(), sys_.always_up_nsq.cpu().numpy())
+        combos = enumeration.unrank_combinations(
+            np.arange(5000, 7048, dtype=np.int64), 3, len(free))
+        down = torch.zeros((2048, sys_.n_comp), dtype=torch.bool)
+        down[np.repeat(np.arange(2048), 3), free[combos].ravel()] = True
+        v = step(down.to(dev)).cpu().numpy()
+        ex = enumeration.enumerate_exact(sys_, CompatFlags(), IPMConfig(),
+                                         "lp", 2, chunk=4096)
+        out[str(dev)] = v, ex
+    (v_cpu, ex_cpu), (v_gpu, ex_gpu) = out.values()
+    assert v_cpu[3, 0] == v_gpu[3, 0] == 0              # no overflow
+    assert np.abs(v_gpu[0] - v_cpu[0]).max() <= 0.05    # DNS, MW
+    assert (v_gpu[1] == v_cpu[1]).mean() >= 0.999        # failure flags
+    assert ex_gpu.n_states == ex_cpu.n_states == 2486
+    assert ex_gpu.mass == ex_cpu.mass
+    assert ex_gpu.edns_mw == pytest.approx(ex_cpu.edns_mw, abs=1e-3)
+    assert ex_gpu.pfail == pytest.approx(ex_cpu.pfail, abs=1e-6)
+
+
+@pytest.mark.gpu
+def test_blackout_batch_on_card_matches_cpu(cuda):
+    rng = np.random.default_rng(21)
+    sys_cpu = build_system(cases.rts24(), device="cpu")
+    u = sys_cpu.unavail.numpy().astype(np.float64).copy()
+    u[sys_cpu.n_gen:] = 0.08
+    down = rng.uniform(size=(4096, sys_cpu.n_comp)) < u[None, :]
+    down &= ~sys_cpu.always_up_nsq.numpy()[None, :]
+    compat = CompatFlags(island_blackout=True)
+    out = []
+    for dev in ("cpu", cuda):
+        sys_ = build_system(cases.rts24(), device=dev)
+        load = sys_.load_pd[None, :].expand(4096, sys_.n_load)
+        d = torch.as_tensor(down, device=dev)
+        reach = dcopf.connected_to_ref(sys_, 1.0 - d[:, sys_.n_gen:].float())
+        res, n_over = dcopf.evaluate_states_screened(
+            sys_, d, load, 4096, compat, IPMConfig(), "lp")
+        out.append((reach.cpu().numpy(), res.dns_mw.cpu().numpy(),
+                    res.failure.cpu().numpy(), int(n_over),
+                    ~(res.primal_residual <= 5e-3).cpu().numpy()))
+    (r_c, d_c, f_c, o_c, g_c), (r_g, d_g, f_g, o_g, g_g) = out
+    np.testing.assert_array_equal(r_g, r_c)
+    assert (~r_c.all(1)).sum() > 100                     # islanded lanes
+    assert o_c == o_g == 0
+    # The deep LP lanes of this batch are where K1 and its plain version
+    # part (ROADMAP.md Queue 3 A and B): all but 0.1% of lanes agree
+    # within 0.05 MW. On those that do not, the float64 optimum of the
+    # lane's LP (after the blackout transform) judges the card: within
+    # the guard's 5e-3 p.u. (0.5 MW) of it, unless the card's guard
+    # flagged the lane and took the certificate's bound.
+    diff = np.abs(d_g - d_c)
+    assert (diff > 0.05).mean() <= 1e-3
+    far = np.nonzero(diff > 0.05)[0]
+    sys_ = build_system(cases.rts24(), device=cuda)
+    d = torch.as_tensor(down[far], device=cuda)
+    d, load, _ = dcopf.apply_island_blackout(
+        sys_, d, sys_.load_pd[None, :].expand(far.size, sys_.n_load))
+    up = 1.0 - d.float()
+    c, b, l, u_, colscale = dcopf.build_state_lp_vectors(
+        sys_, up[:, :sys_.n_gen], up[:, sys_.n_gen:].contiguous(), load,
+        compat, IPMConfig().theta_max)
+    st = ipm_fused.build_structure(sys_)
+    args = (colscale, up[:, sys_.n_gen:].contiguous(), c, b, l, u_)
+    opt = np.asarray([_lp_optimum(st, args, j) for j in range(far.size)])
+    off = (np.abs(d_g[far] - opt * sys_.base_mva)
+           > LP_QUALITY_GUARD * sys_.base_mva)
+    assert not (off & ~g_g[far]).any(), (far, d_c[far], d_g[far], opt)
+    assert abs(float(d_g.mean()) - float(d_c.mean())) <= 0.01
+    assert (f_g == f_c).mean() >= 0.999
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("option", ["cv", "enum", "blackout"])
+def test_nsq_option_step_never_waits_for_the_device(cuda, option):
+    case = cases.rts24()
+    compat = CompatFlags(island_blackout=option == "blackout")
+    sys_ = build_system(case, compat, device=cuda)
+    kw = {"cv": dict(cv_arrays=(np.asarray(case.gen_pmax, np.float32),
+                                float(case.bus_pd.sum()), 14.69, 0.0846)),
+          "enum": dict(enum_order=4), "blackout": {}}[option]
+    step = hl2_nsq.make_nsq_batch_step(
+        sys_, 8192, compat, IPMConfig(), max_lp=2048,
+        shed_hint=dcopf.calibrate_shed_hint(sys_), **kw)
+    step(hl2_nsq.batch_generator(0, 0, cuda))      # builds the kernels
+    torch.cuda.synchronize()
+    before = ipm_fused.launches["fused_ipm_iterations"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m, n_over, _ = step(hl2_nsq.batch_generator(0, 1, cuda))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ipm_fused.launches["fused_ipm_iterations"] > before
+    assert float(m.n) == 8192 and int(n_over) == 0
+    assert math.isfinite(float(m.sum_dns))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("option", ["cv", "blackout"])
+def test_seq_option_step_never_waits_for_the_device(cuda, option):
+    case = cases.rts24()
+    compat = CompatFlags(island_blackout=option == "blackout")
+    sys_ = build_system(case, compat, device=cuda)
+    hours = 8736
+    factors = load_profile.load_factors(hours)
+    mt = twostate.mean_times(case)
+    k = chronological.default_num_draws(mt[:, 0], mt[:, 1], hours)
+    cv = None
+    if option == "cv":
+        loads = (factors * float(case.bus_pd.sum())).astype(np.float32)
+        cv = (loads, np.asarray(case.gen_pmax, np.float32))
+    step = hl2_seq.make_seq_batch_step(
+        sys_, 16, compat, IPMConfig(), hours, k, 256, factors,
+        stationary=option == "cv", cv_arrays=cv)
+    step(hl2_nsq.batch_generator(0, 0, cuda))      # builds the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = step(hl2_nsq.batch_generator(0, 1, cuda))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(out) == (12 if option == "cv" else 10)
+    assert bool(torch.isfinite(out[0]).all()) and int(out[8]) == 0

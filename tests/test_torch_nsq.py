@@ -167,15 +167,17 @@ def test_default_woodbury_k_matches_reference():
 
 def test_run_nsq_study_defaults_match_reference():
     # Every argument both studies take has the reference's default; the
-    # port's ``device`` stands in for the reference's ``mesh``, and its
-    # options not ported yet (control_variate, enum_order) are absent.
+    # port's ``device`` stands in for the reference's ``mesh``, and every
+    # other argument of the reference is the port's too.
     import dataclasses
     import inspect
     ref = inspect.signature(ref_nsq.run_nsq_study).parameters
     got = inspect.signature(hl2_nsq.run_nsq_study).parameters
     shared = (set(ref) & set(got)) - {"case"}
     assert shared >= {"cfg", "compat", "ipm", "checkpointer",
-                      "checkpoint_every", "log_every", "max_lp"}
+                      "checkpoint_every", "log_every", "max_lp",
+                      "control_variate", "enum_order"}
+    assert set(ref) - set(got) == {"mesh"}
     for name in shared:
         a, b = got[name].default, ref[name].default
         if dataclasses.is_dataclass(a):
@@ -254,9 +256,15 @@ def test_double_buffered_loop_matches_reference(overflow_at):
 
 
 def test_island_blackout_is_not_ported_yet():
+    # The name is from when the flag raised; the flag now runs: line 7-8
+    # out islands bus 7, whose 125 MW is shed outright
+    # (tests/test_torch_island_blackout.py holds it to the reference).
     sys_ = build_system(cases.rts24(), device="cpu")
     down = torch.zeros((4, 71), dtype=torch.bool)
+    down[1, 33 + 10] = True
     load = sys_.load_pd[None, :].expand(4, 17)
-    with pytest.raises(NotImplementedError, match="island_blackout"):
-        dcopf.evaluate_states(sys_, down, load,
-                              CompatFlags(island_blackout=True))
+    res = dcopf.evaluate_states(sys_, down, load,
+                                CompatFlags(island_blackout=True))
+    assert res.dns_mw.tolist() == pytest.approx([0.0, 125.0, 0.0, 0.0],
+                                                abs=1.0)
+    assert res.failure.tolist() == [False, True, False, False]

@@ -516,7 +516,7 @@ class _ScriptedStep:
         self.need, self.years, self.calls = need, years, []
 
     def make(self, sys, years, compat, ipm, hours, n_draws, max_lp,
-             factors, nodal_mode="lp", stationary=False):
+             factors, nodal_mode="lp", stationary=False, cv_arrays=None):
         def step(i):
             self.calls.append((i, max_lp))
             over = max(self.need.get(i, 0) - max_lp, 0) * self.years
@@ -702,9 +702,9 @@ def test_export_study_writes_the_reference_schema(tmp_path):
 
 
 def test_seq_options_not_ported_raise():
+    # The control variate is ported (tests/test_torch_cv.py); maintenance
+    # is not, and a bad sampling mode raises.
     case = cases.rts24()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        hl2_seq.run_seq_study(case, device="cpu", control_variate=True)
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         hl2_seq.run_seq_study(case, device="cpu",
                               scheduled_maintenance=True)
@@ -727,3 +727,9 @@ def test_stationary_study_runs(capsys):
     assert res.nodal_eens_mwh_yr.shape == (24,)
     assert res.comp_importance.shape in ((71,), (0,))
     assert json.dumps(res.to_dict())
+    # The per-year DLC and NLC (for LOLE's and LOLF's standard errors)
+    # stay out of the exported schema.
+    assert len(res.annual_dlc) == len(res.annual_nlc) == 4
+    assert np.mean(res.annual_dlc) == res.lole_hr_yr
+    assert np.mean(res.annual_nlc) == res.lolf_occ_yr
+    assert "annual_dlc" not in res.to_dict()
