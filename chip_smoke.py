@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's HL2 NSQ and SEQ paths and its HL1 study
-on one CUDA card.
+"""Smoke run of the PyTorch port's HL2 NSQ and SEQ paths, its HL1 and
+planning studies and the multi-area HL1.5 engine on one CUDA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -12,9 +12,12 @@ Phases, one line each (any failure raises, so the exit code is not 0):
               equilibrated normal matrices of real LP lanes [256, 62, 62]
               (plus a lane that hits the pivot floor) and their solve
               [256, 62], and RTS-96's diagonal panels [2048, 56, 56] and
-              [2048, 23, 23]; per shape the kernel's device time (CUDA
-              graph), wrapper, plain and library times, bound and bound
-              share, K2a's launch shape and the inputs' asymmetry
+              [2048, 23, 23], and the multi-area curtailment LP's
+              normal matrices at m = 2 (the two-area demo, [70080, 2, 2])
+              and m = 3 (RTS-96's three areas, [69888, 3, 3]) with their
+              solves; per shape the kernel's device time (CUDA graph),
+              wrapper, plain and library times, bound and bound share,
+              K2a's launch shape and the inputs' asymmetry
   4. k1       K1 fused IPM kernel vs its plain version on 256 and on
               2,048 real LP lanes (states with a deficit or a failed
               certificate): errors, times, launch shape, bound
@@ -182,6 +185,34 @@ Phases, one line each (any failure raises, so the exit code is not 0):
               2,000,000-sample NSQ Monte Carlo against the analytical
               value (within 4 of its standard error), and the float32
               COPT on the card against the float64 host table
+ 26. plan     run_planning_analytical at 600 and 50 hydro hours (LOLE
+              within 1e-3 of results/study_sweep.json's "elu_600h" /
+              "tail_risk_50h" analytical values), run_elu_comparison
+              (1,000 years, seed 3) and run_tail_risk_study (2,000 years,
+              seed 4), each Monte Carlo LOLE within 4 combined standard
+              errors of its record (the record's taken equal to the
+              port's per-year one), VaR / CVaR printed; the ELU hour loop
+              at 2,000 years: its wall under set_sync_debug_mode
+              ("error"), and its device ms and launches on a tenth of
+              the year (876 hours); the four educational
+              studies on the card, and the Markov chain's down share
+              against its stationary value
+ 27. seqmaint run_seq_study(rts24, MCSConfig(max_years=512, seed=11),
+              years_per_device=8, max_lp=1024, scheduled_maintenance=
+              True) against study_sweep.json["seq_with_maintenance"]
+              (EENS, LOLE, LOLF within 4 combined standard errors, the
+              record's taken equal to the port's; no overflow left; the
+              redo count printed); K1 at the step's own 8,192-lane buffer
+              (guarded as in seq) and K2a / K2b at its polish shape
+              against their plain versions
+ 28. multi    multiarea_demo.run_demo(n_years=200, seed=5) against
+              study_sweep.json["multiarea"] (each area's LOLE and EUE,
+              both policies, within 4 combined standard errors from the
+              per-batch partials); interconnected EUE at most isolated
+              in every area of the demo, run_rts96_hl15 and a 4-area
+              ring (50 years each); the interconnected step's wall and
+              device ms, launches and K2 launches, under the sync check;
+              the loss hours whose curtailment is float32 noise
 The bench phase also times the fused step (fused_tier1) at its shape,
 under the same sync check, and prints it on a line of its own.
 Then one JSON line of per-kernel results and, last, the device line
@@ -211,7 +242,7 @@ PKG = "powersystemsreliabilityassessment_tpu_torch"
 ALL_PHASES = ("build", "k2", "k1", "bench", "study", "k3", "study96", "k6",
               "k4", "k5", "studyfused", "seq", "lp300", "pf300", "study300",
               "anti", "is24", "mix300", "ce300", "enum24", "cv24", "cvseq",
-              "seqib", "hl1")
+              "seqib", "hl1", "plan", "seqmaint", "multi")
 # Not run by default: a per-layer and per-kernel breakdown of the
 # bench-shaped step and of the RTS-96 step (for PERF.md), not part of
 # the smoke contract.
@@ -627,12 +658,63 @@ def _k2_inputs(sys_, sys96):
         batched_chol as bc)
     M62 = _polish_matrices(sys_)
     S56, S23 = _rts96_panels(_rts96_normal(sys96))
-    r = torch.randn(M62.shape[:2], generator=torch.Generator(
-        device="cuda").manual_seed(2), device="cuda")
-    return {"chol_polish": ("cholesky", (M62,)),
-            "solve_polish": ("cho_solve", (bc.cholesky_plain(M62), r)),
-            "chol_p56": ("cholesky", (S56,)),
-            "chol_p23": ("cholesky", (S23,))}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    r = torch.randn(M62.shape[:2], generator=gen, device="cuda")
+    shapes = {"chol_polish": ("cholesky", (M62,)),
+              "solve_polish": ("cho_solve", (bc.cholesky_plain(M62), r)),
+              "chol_p56": ("cholesky", (S56,)),
+              "chol_p23": ("cholesky", (S23,))}
+    for m, M in _multiarea_normals().items():
+        r = torch.randn(M.shape[:2], generator=gen, device="cuda")
+        shapes[f"chol_ma{m}"] = ("cholesky", (M,))
+        shapes[f"solve_ma{m}"] = ("cho_solve", (bc.cholesky_plain(M), r))
+    return shapes
+
+
+def _multiarea_systems():
+    """The multi-area phase's systems: the two-area demo (8,760 hours)
+    and RTS-96's three areas (8,736)."""
+    from powersystemsreliabilityassessment_tpu_torch.studies import (
+        multiarea_demo)
+    return {2: multiarea_demo.demo_system(),
+            3: multiarea_demo.rts96_three_area_system()}
+
+
+def _multiarea_margins(sys_ma, generator, years: int = 8):
+    """Margins [years H, A] of one block of ``sys_ma`` drawn as the
+    study's step draws it: the curtailment LP's inputs."""
+    from powersystemsreliabilityassessment_tpu_torch.engines import multiarea
+    areas = multiarea.device_areas(sys_ma, "cuda")
+    return multiarea.block_margins(
+        multiarea.draw_block(areas, years, generator), areas.caps,
+        areas.load)
+
+
+def _multiarea_normals() -> dict:
+    """m -> [8 H, m, m]: the equilibrated normal matrices K2a factors in
+    solve_curtailment on one 8-year block of each multi-area system (the
+    study's step), captured on the path: the tenth IPM iteration's on the
+    first half of the lanes, the twentieth's on the second."""
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.engines import (
+        lp_ipm_batched as lpb, multiarea)
+    from powersystemsreliabilityassessment_tpu_torch.studies import hl2_nsq
+    out = {}
+    for m, sys_ma in _multiarea_systems().items():
+        margins = _multiarea_margins(sys_ma,
+                                     hl2_nsq.batch_generator(5, 0, "cuda"))
+        store: list = []
+        kernels = lpb._DIRECT_KERNELS["cuda"]
+        lpb._DIRECT_KERNELS["cuda"] = kernels._replace(
+            factor=lambda M: store.append(M.clone()) or kernels.factor(M))
+        try:
+            multiarea.solve_curtailment(margins, sys_ma.tie_from,
+                                        sys_ma.tie_to, sys_ma.tie_cap)
+        finally:
+            lpb._DIRECT_KERNELS["cuda"] = kernels
+        half = margins.shape[0] // 2
+        out[m] = torch.cat([store[9][:half], store[19][half:]]).contiguous()
+    return out
 
 
 def _k2_fns(kind):
@@ -3511,6 +3593,409 @@ def phase_hl1(results):
                            f"estimate past {RARE_MAX_Z} standard errors")
 
 
+# The planning, maintenance and multi-area phases. Their records
+# are results/study_sweep.json's, which keep no standard errors: each
+# record's is taken equal to the port's own, so a z is the distance over
+# sqrt(2) port standard errors (as seqib does).
+PLAN_ANALYTICAL_RTOL = 1e-3
+PLAN_ELU_YEARS = 2000          # the tail study's years, for the loop line
+MULTI_NOISE_MW = 1e-3
+
+
+def _per_year_se(values) -> float:
+    import math
+    import numpy as np
+    v = np.asarray(values, np.float64)
+    return float(v.std(ddof=1) / math.sqrt(v.shape[0]))
+
+
+def _z_record(got, record, se) -> float:
+    import math
+    return abs(got - record) / (math.sqrt(2.0) * se) if se > 0 else (
+        0.0 if got == record else float("inf"))
+
+
+def phase_plan():
+    """HL1 planning on the card: the analytical pipeline and both ELU
+    comparisons against results/study_sweep.json, the ELU hour loop's
+    times and launches (and once under the sync check), and the four
+    educational studies."""
+    import numpy as np
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.engines import (
+        elu, planning)
+    from powersystemsreliabilityassessment_tpu_torch.models import twostate
+    from powersystemsreliabilityassessment_tpu_torch.sampling import markov
+    from powersystemsreliabilityassessment_tpu_torch.studies import (
+        hl2_nsq, markov_education, planning_elu)
+    sweep = json.loads((ROOT / "results" / "study_sweep.json").read_text())
+    bad = []
+    for key, hydro, years, seed in (("elu_600h", 600.0, 1000, 3),
+                                    ("tail_risk_50h", 50.0, 2000, 4)):
+        rec = sweep[key]
+        load = planning_elu.demo_planning_load()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ana = planning_elu.run_planning_analytical(
+            planning_elu.demo_planning_fleet(hydro), load, device="cuda")
+        t_ana = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = planning_elu.run_elu_comparison(
+            planning_elu.demo_planning_fleet(hydro), load, mc_years=years,
+            seed=seed, device="cuda")
+        t_cmp = time.perf_counter() - t0
+        se = _per_year_se(res.mc_yearly_distribution)
+        z = _z_record(res.mc_lole, rec["mc_lole"], se)
+        rel = abs(ana.lole_hr_yr - rec["analytical_lole"]) / rec[
+            "analytical_lole"]
+        _line("plan", study=key, years=years, seed=seed,
+              analytical_lole=f"{ana.lole_hr_yr:.6f}",
+              record_analytical=f"{rec['analytical_lole']:.6f}",
+              analytical_rel=f"{rel:.2e}<={PLAN_ANALYTICAL_RTOL:g}",
+              effective_q_elu=f"{ana.effective_q[4]:.6f}",
+              maint_start=json.dumps(ana.maint_start.tolist()).replace(
+                  " ", ""),
+              mc_lole=f"{res.mc_lole:.4f}", mc_se=f"{se:.4f}",
+              record_mc_lole=f"{rec['mc_lole']:.4f}",
+              mc_z=f"{z:.2f}<={RARE_MAX_Z:g}", var95=f"{res.var95:g}",
+              record_var95=rec["var95"], cvar95=f"{res.cvar95:.4f}",
+              record_cvar95=f"{rec['cvar95']:.4f}",
+              diff_percent=f"{res.diff_percent:.2f}", success=res.success,
+              analytical_s=f"{t_ana:.3f}", comparison_s=f"{t_cmp:.3f}",
+              record_tpu_wall_s=f"{rec['wall_s']:.2f}",
+              card=repr(CARD["smi"]))
+        if not (rel <= PLAN_ANALYTICAL_RTOL and z <= RARE_MAX_Z):
+            bad.append(key)
+
+    # The ELU hour loop at the tail study's 2,000 years: the draw, then
+    # the loop's wall, device time and launches, then once under the
+    # sync check.
+    fleet = planning_elu.demo_planning_fleet(50.0)
+    load = planning_elu.demo_planning_load()
+    planning.schedule_maintenance(fleet, planning_elu.weekly_peaks_of(load))
+    gen = hl2_nsq.batch_generator(4, 0, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u, z = elu.elu_draws(gen, PLAN_ELU_YEARS, len(load), fleet.n, "cuda")
+    torch.cuda.synchronize()
+    draw_ms = (time.perf_counter() - t0) * 1e3
+    args = [torch.as_tensor(np.asarray(a), device="cuda") for a in (
+        fleet.capacity, fleet.for_rate, fleet.maint_start, fleet.maint_weeks,
+        fleet.energy_limit, load)]
+    lfu = float(load.max()) * 0.05
+    torch.cuda.reset_peak_memory_stats()
+    loop = lambda h: elu.elu_mc_from_draws(u[:, :h], z[:, :h], *args[:5],
+                                           args[5][:h], lfu)
+    H = len(load)
+    loop(H)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lole_y, _ = loop(H)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    # Device time and launches on a tenth of the year: the profiler's own
+    # cost (key_averages over ~245,000 events) would take a minute on the
+    # whole year's loop.
+    hs = H // 10
+    s_wall, s_dev, s_kernels, _ = _measure(lambda: loop(hs), reps=1)
+    _line("plan", elu_loop_years=PLAN_ELU_YEARS, hours=H,
+          draw_ms=f"{draw_ms:.2f}", loop_wall_ms=f"{wall:.2f}",
+          sync_check="error", slice_hours=hs,
+          slice_wall_ms=f"{s_wall:.2f}", slice_device_ms=f"{s_dev:.2f}",
+          slice_device_busy_share=f"{s_dev / s_wall:.3f}",
+          slice_kernel_launches=f"{s_kernels:.0f}",
+          launches_per_hour=f"{s_kernels / hs:.2f}",
+          mc_lole=f"{float(lole_y.mean()):.4f}",
+          peak_mem_bytes=torch.cuda.max_memory_allocated())
+
+    # The educational studies on the card.
+    t0 = time.perf_counter()
+    times, _, _ = markov_education.exponential_proof()
+    single = markov_education.single_component_study(device="cuda")
+    cap, total = markov_education.multi_unit_capacity_series(device="cuda")
+    est = markov_education.parameter_estimation_study()
+    mttf = np.array([1000.0, 1200.0, 800.0, 1500.0, 2000.0])
+    mttr = np.array([50.0, 60.0, 40.0, 20.0, 100.0])
+    p01, p10 = twostate.transition_probs(mttf, mttr)
+    chains = markov.sample_markov_chain_batch(
+        hl2_nsq.batch_generator(42, 1, "cuda"), p01, p10, 4000, 4096)
+    down_share = chains[:, :, 1000:].float().mean((0, 2)).cpu().numpy()
+    u_ss = twostate.steady_state_unavailability(mttf, mttr)
+    markov_rel = float(np.abs(down_share / u_ss - 1.0).max())
+    edu_s = time.perf_counter() - t0
+    checks = {
+        "exponential_mean": abs(np.mean(times) / 1000.0 - 1.0) <= 0.1,
+        "single_steady_state": abs(single.prob_down_analytical[-1]
+                                   / single.steady_state - 1.0) <= 0.05,
+        "single_path": set(np.unique(single.mc_realization)) <= {0, 1},
+        "capacity_range": 0 <= cap.min() and cap.max() <= total == 600.0,
+        "running_lambda": abs(est.running_lambda[-1] / est.true_lambda
+                              - 1.0) <= 0.1,
+        "markov_stationary": markov_rel <= 0.1}
+    checks = {k: bool(v) for k, v in checks.items()}
+    _line("plan", educational_s=f"{edu_s:.3f}",
+          exponential_mean_h=f"{np.mean(times):.2f}",
+          single_down_hours=int(single.mc_realization.sum()),
+          capacity_min_mw=f"{cap.min():.0f}", capacity_mean_mw=
+          f"{cap.mean():.2f}", running_lambda=f"{est.running_lambda[-1]:.6f}",
+          true_lambda=est.true_lambda,
+          markov_down_share=json.dumps(np.round(down_share, 5).tolist()
+                                       ).replace(" ", ""),
+          markov_rel_err=f"{markov_rel:.4f}<=0.1",
+          checks=json.dumps(checks).replace(" ", ""))
+    bad += [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise RuntimeError(f"plan: {bad} off their records or checks")
+
+
+@contextlib.contextmanager
+def _capturing_k1(store: list):
+    """While active, the inputs of every K1 call on the LP path
+    (``lp_kernels(...).iterate``) are appended to ``store``."""
+    from powersystemsreliabilityassessment_tpu_torch.engines import (
+        lp_ipm_batched as lpb)
+    kernels = lpb._DIRECT_KERNELS["cuda"]
+
+    def iterate(st, *args):
+        store.append(tuple(a.clone() for a in args[:6]))
+        return kernels.iterate(st, *args)
+
+    lpb._DIRECT_KERNELS["cuda"] = kernels._replace(iterate=iterate)
+    try:
+        yield
+    finally:
+        lpb._DIRECT_KERNELS["cuda"] = kernels
+
+
+def phase_seqmaint(sys_, results):
+    """The RTS-24 SEQ study with scheduled maintenance at the record's
+    configuration against results/study_sweep.json
+    ["seq_with_maintenance"]; K1 on the step's own 8,192-lane LP buffer
+    and K2a / K2b at its polish shape against their plain versions."""
+    import io
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.core import (
+        cases, load_profile)
+    from powersystemsreliabilityassessment_tpu_torch.models import twostate
+    from powersystemsreliabilityassessment_tpu_torch.ops import (
+        batched_chol as bc, ipm_fused)
+    from powersystemsreliabilityassessment_tpu_torch.sampling import (
+        chronological)
+    from powersystemsreliabilityassessment_tpu_torch.studies import (
+        hl2_nsq, hl2_seq)
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        CompatFlags, IPMConfig, MCSConfig)
+    rec = json.loads((ROOT / "results" / "study_sweep.json").read_text()
+                     )["seq_with_maintenance"]
+    years_per_step, max_lp = 8, 1024
+    cfg = MCSConfig(max_years=512, cov_threshold=0.0, seed=11)
+    _reset_counts()
+    log = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        res = hl2_seq.run_seq_study(
+            cases.rts24(), cfg, device="cuda", log_every=0,
+            years_per_device=years_per_step, max_lp=max_lp,
+            scheduled_maintenance=True)
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    text = log.getvalue()
+    z = {"eens": _z_record(res.eens_mwh_yr, rec["eens"],
+                           _per_year_se(res.annual_ens)),
+         "lole": _z_record(res.lole_hr_yr, rec["lole"],
+                           _per_year_se(res.annual_dlc)),
+         "lolf": _z_record(res.lolf_occ_yr, rec["lolf"],
+                           _per_year_se(res.annual_nlc))}
+    _line("seqmaint", years=res.years, record_years=rec["years"],
+          eens_mwh_yr=f"{res.eens_mwh_yr:.3f}",
+          record_eens=f"{rec['eens']:.3f}",
+          eens_se=f"{_per_year_se(res.annual_ens):.3f}",
+          lole_hr_yr=f"{res.lole_hr_yr:.4f}",
+          record_lole=f"{rec['lole']:.4f}",
+          lolf_occ_yr=f"{res.lolf_occ_yr:.4f}",
+          record_lolf=f"{rec['lolf']:.4f}",
+          z=json.dumps({k: round(v, 2) for k, v in z.items()}
+                       ).replace(" ", "") + f"<={RARE_MAX_Z:g}",
+          overflow_hours=res.overflow_hours,
+          redos=text.count("redoing batch"),
+          promotions=text.count("promoting max_lp"),
+          infeasible_hours=res.infeasible_hours, wall_s=f"{wall:.2f}",
+          record_tpu_wall_s=f"{rec['wall_s']:.2f}", card=repr(CARD["smi"]),
+          launches=json.dumps(counts).replace(" ", ""))
+    _check_launched("seqmaint", counts, RTS24_KERNELS)
+    _record_launches(results, "seqmaint", counts)
+    if res.overflow_hours or not all(v <= RARE_MAX_Z for v in z.values()):
+        raise RuntimeError(f"seqmaint: z {z} past {RARE_MAX_Z}, or "
+                           f"{res.overflow_hours} overflow hours left")
+
+    # K1 and K2 on the step's own LP buffer (8 years x 1,024 lanes).
+    case = cases.rts24()
+    hours = CompatFlags().hours_per_year_seq
+    mt = twostate.mean_times(case)
+    step = hl2_seq.make_seq_batch_step(
+        sys_, years_per_step, CompatFlags(), IPMConfig(), hours,
+        chronological.default_num_draws(mt[:, 0], mt[:, 1], hours), max_lp,
+        load_profile.load_factors(hours),
+        maint_down=hl2_seq.maintenance_down(case, hours))
+    store: list = []
+    with _capturing_k1(store):
+        step(hl2_nsq.batch_generator(cfg.seed, 0, "cuda"))
+    lanes = store[0]
+    n = lanes[2].shape[0]
+    st = ipm_fused.build_structure(sys_)
+    ipm = IPMConfig()
+    k1 = _k1_shape(sys_, st, n, ipm, args=lanes, tag="seqmaint",
+                   guarded=True)
+    k1["device_ms"] = _graph_ms(
+        lambda *a: ipm_fused.fused_ipm_iterations(st, *a, ipm), [lanes],
+        calls=4, replays=3)
+    k1["bound_share"] = k1["bound_ms"] / k1["device_ms"]
+    _line("seqmaint", k1_lanes=n, device_ms=f"{k1['device_ms']:.4f}",
+          bound_share_of_device=f"{k1['bound_share']:.4f}", library_ms=None)
+    M = _polish_factor_inputs(st, lanes)
+    r = torch.randn(M.shape[:2], generator=torch.Generator(
+        device="cuda").manual_seed(15), device="cuda")
+    rows = {"chol_seqmaint": _k2_row("seqmaint", "chol_seqmaint",
+                                     "cholesky", (M,), (M,))}
+    solve = (bc.cholesky_plain(M), r)
+    rows["solve_seqmaint"] = _k2_row("seqmaint", "solve_seqmaint",
+                                     "cho_solve", solve, solve)
+    _check_k2_rows("seqmaint", rows)
+    entry = results.setdefault("fused_ipm_iterations", {})
+    entry["seqmaint_shape"] = k1
+    entry["max_abs_err"] = max(entry.get("max_abs_err", 0.0),
+                               k1["objective_err_pu"], k1["best_score_err"])
+    for kind, name in (("cholesky", "chol_seqmaint"),
+                       ("cho_solve", "solve_seqmaint")):
+        entry = results.setdefault(kind, {})
+        entry.setdefault("path_shapes", {})[name] = rows[name]
+        entry["max_abs_err"] = max(entry.get("max_abs_err", 0.0),
+                                   rows[name]["abs_err"])
+        entry["max_rel_err"] = max(entry.get("max_rel_err", 0.0),
+                                   rows[name]["rel_err"])
+
+
+def phase_multi(results):
+    """The multi-area HL1.5 engine on the card: run_demo against
+    results/study_sweep.json["multiarea"] from the per-batch partials,
+    interconnection against isolation on the demo, RTS-96 and a 4-area
+    ring, and the interconnected step's times and K2 launches."""
+    import numpy as np
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.engines import multiarea
+    from powersystemsreliabilityassessment_tpu_torch.ops import (
+        batched_chol as bc)
+    from powersystemsreliabilityassessment_tpu_torch.studies import (
+        hl2_nsq, multiarea_demo)
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        IPMConfig)
+    rec = json.loads((ROOT / "results" / "study_sweep.json").read_text()
+                     )["multiarea"]
+    parts: list = []
+    batches = multiarea.multiarea_batches
+
+    def keep(*a, **kw):
+        parts.append(batches(*a, **kw))
+        return parts[-1]
+
+    _reset_counts()
+    multiarea.multiarea_batches = keep
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = multiarea_demo.run_demo(n_years=200, seed=5, device="cuda")
+        wall = time.perf_counter() - t0
+    finally:
+        multiarea.multiarea_batches = batches
+    counts = _counts()
+    bad = []
+    for policy, (loss, eue, ypb) in zip(multiarea_demo.POLICIES, parts):
+        zs = {}
+        for key, part in (("lole", loss), ("eue", eue)):
+            per_batch = part / ypb                      # [n_batches, A]
+            for a in range(per_batch.shape[1]):
+                zs[f"{key}{a}"] = _z_record(
+                    res[policy][key][a], rec[policy][key][a],
+                    _per_year_se(per_batch[:, a]))
+        _line("multi", policy=policy, batches=loss.shape[0],
+              years=loss.shape[0] * ypb,
+              lole=json.dumps(np.round(res[policy]["lole"], 3).tolist()
+                              ).replace(" ", ""),
+              record_lole=json.dumps(rec[policy]["lole"]).replace(" ", ""),
+              eue=json.dumps(np.round(res[policy]["eue"], 1).tolist()
+                             ).replace(" ", ""),
+              record_eue=json.dumps(np.round(rec[policy]["eue"], 1).tolist()
+                                    ).replace(" ", ""),
+              z=json.dumps({k: round(v, 2) for k, v in zs.items()}
+                           ).replace(" ", "") + f"<={RARE_MAX_Z:g}")
+        bad += [f"{policy} {k}" for k, v in zs.items() if not v <= RARE_MAX_Z]
+    helps = {"demo": res}
+    for tag, run in (("rts96", lambda: multiarea_demo.run_rts96_hl15(
+                          n_years=50, device="cuda")),
+                     ("ring4", lambda: multiarea_demo.run_nring_demo(
+                          4, n_years=50, device="cuda"))):
+        t1 = time.perf_counter()
+        helps[tag] = run()
+        _line("multi", system=tag, years=50,
+              **{f"{p}_{k}": json.dumps(np.round(helps[tag][p][k], 2)
+                                        .tolist()).replace(" ", "")
+                 for p in multiarea_demo.POLICIES for k in ("lole", "eue")},
+              wall_s=f"{time.perf_counter() - t1:.2f}")
+    for tag, out in helps.items():
+        iso = np.asarray(out[multiarea.ISOLATED]["eue"])
+        inter = np.asarray(out[multiarea.INTERCONNECTED]["eue"])
+        if not (inter <= iso + 1e-6).all():
+            bad.append(f"{tag}: interconnection worsens an area")
+    _line("multi", demo_wall_s=f"{wall:.2f}",
+          record_tpu_wall_s=f"{rec['wall_s']:.2f}", card=repr(CARD["smi"]),
+          launches=json.dumps({k: counts[k] for k in ("cholesky",
+                                                      "cho_solve")}
+                              ).replace(" ", ""))
+    _check_launched("multi", counts, ("cholesky", "cho_solve"))
+    for name in ("cholesky", "cho_solve"):
+        results.setdefault(name, {})["launches_multi"] = counts[name]
+
+    # The interconnected step alone: wall and device ms, launches, K2
+    # launches a step, under the sync check; the loss hours whose
+    # curtailment is float32 noise of the closed-form repair.
+    for m, sys_ma in _multiarea_systems().items():
+        step = multiarea.make_multiarea_batch_step(
+            sys_ma, 8, multiarea.INTERCONNECTED, IPMConfig(iterations=20),
+            device="cuda")
+        seeds = iter(range(10**6))
+        gen = lambda: hl2_nsq.batch_generator(5, next(seeds), "cuda")
+        out, sync_ms = _sync_checked(step, lambda i: gen())
+        before = dict(bc.launches)
+        step(gen())
+        k2 = {k: bc.launches[k] - before[k] for k in before}
+        wall_ms, dev, n_kernels, kernels = _measure(lambda: step(gen()),
+                                                    reps=4)
+        margins = _multiarea_margins(sys_ma, gen())
+        curt = multiarea.solve_curtailment(margins, sys_ma.tie_from,
+                                           sys_ma.tie_to, sys_ma.tie_cap)
+        noise = ((curt > 0) & (curt <= MULTI_NOISE_MW)).sum(0)
+        _line("multi", step_areas=m, lanes=margins.shape[0],
+              wall_ms=f"{wall_ms:.2f}", sync_checked_ms=f"{sync_ms:.2f}",
+              device_ms=f"{dev:.3f}", device_busy_share=f"{dev / wall_ms:.3f}",
+              kernel_launches=f"{n_kernels:.0f}",
+              k2_launches=json.dumps(k2).replace(" ", ""),
+              loss_hours=json.dumps((curt > 0).sum(0).tolist()
+                                    ).replace(" ", ""),
+              noise_loss_hours=json.dumps(noise.tolist()).replace(" ", ""),
+              noise_mw=MULTI_NOISE_MW, finite=bool(torch.isfinite(
+                  out[1]).all()))
+        for e in sorted(kernels, key=_dev_us, reverse=True)[:6]:
+            print(f"  step kernel {_dev_us(e) / 1e3 / 4:8.3f} ms/step "
+                  f"{e.count / 4:6.0f}x  {e.key[:90]}")
+    if bad:
+        raise RuntimeError(f"multi: {bad}")
+
+
 def phase_studyfused(results):
     counts = phase_study("studyfused", fused=True, kernels=FUSED_KERNELS)
     results.setdefault("sample_certify_quick", {})["launches"] = \
@@ -3823,6 +4308,12 @@ def main() -> int:
         phase_seqib(results)
     if "hl1" in phases:
         phase_hl1(results)
+    if "plan" in phases:
+        phase_plan()
+    if "seqmaint" in phases:
+        phase_seqmaint(sys_, results)
+    if "multi" in phases:
+        phase_multi(results)
     if "profile" in phases:
         phase_profile(sys_)
         phase_profile96(sys96)

@@ -43,11 +43,12 @@ def grid_points_for(total_capacity: float, step: float) -> int:
 
 
 def _shift(p: torch.Tensor, k: int, fill: float = 0.0) -> torch.Tensor:
-    """``p`` shifted right by ``k`` grid slots: out[i] = p[i - k], ``fill``
-    below 0."""
-    n = p.shape[0]
+    """``p`` shifted right by ``k`` grid slots along its last axis:
+    out[..., i] = p[..., i - k], ``fill`` below 0."""
+    n = p.shape[-1]
     k = min(max(k, 0), n)
-    return torch.cat([p.new_full((k,), fill), p[:n - k]])
+    return torch.cat([p.new_full((*p.shape[:-1], k), fill), p[..., :n - k]],
+                     dim=-1)
 
 
 def build_copt(capacities, q, step: float, n_points: int,
@@ -111,23 +112,26 @@ def build_copt_fd(capacities, q, lam_per_yr, step: float, n_points: int,
 class COPTSummary(NamedTuple):
     """Suffix sums of a COPT; mirrors reference ``COPTSummary`` without
     its padding (``sentinel`` is the last index, the all-zero slot)."""
-    suffix_prob: torch.Tensor   # [n + 1] S0[i] = P[Outage >= i step]
-    suffix_xprob: torch.Tensor  # [n + 1] S1[i] = E[Outage; Outage >= i step]
+    suffix_prob: torch.Tensor   # [..., n + 1] S0[i] = P[Outage >= i step]
+    suffix_xprob: torch.Tensor  # [..., n + 1] S1[i] = E[Outage; >= i step]
     sentinel: int               # n: the "beyond the table" slot
 
 
 def summarize(probs: torch.Tensor, step: float) -> COPTSummary:
-    """Suffix sums of ``probs``; mirrors reference
-    ``engines/copt.py::summarize`` (no 128-padding)."""
-    x = torch.arange(probs.shape[0], dtype=probs.dtype,
+    """Suffix sums of ``probs`` along its last axis (a batch of tables
+    summarizes row by row); mirrors reference ``engines/copt.py::summarize``
+    (no 128-padding)."""
+    x = torch.arange(probs.shape[-1], dtype=probs.dtype,
                      device=probs.device) * step
-    zero = probs.new_zeros(1)
-    s0 = torch.cat([torch.flip(torch.cumsum(torch.flip(probs, [0]), 0),
-                               [0]), zero])
-    s1 = torch.cat([torch.flip(torch.cumsum(torch.flip(probs * x, [0]), 0),
-                               [0]), zero])
-    return COPTSummary(suffix_prob=s0, suffix_xprob=s1,
-                       sentinel=probs.shape[0])
+    zero = probs.new_zeros(*probs.shape[:-1], 1)
+
+    def suffix(v):
+        return torch.cat([torch.flip(torch.cumsum(torch.flip(v, [-1]), -1),
+                                     [-1]), zero], dim=-1)
+
+    return COPTSummary(suffix_prob=suffix(probs),
+                       suffix_xprob=suffix(probs * x),
+                       sentinel=probs.shape[-1])
 
 
 def risk_at_loads(summary: COPTSummary, total_capacity, loads, step: float):

@@ -22,8 +22,10 @@ the CoV std / (mean sqrt(N)) falls below ``cov_threshold`` or at
 redone at twice the size (the same draws, so the estimate does not
 depend on the buffer); three redone batches in a row promote the size.
 ``control_variate`` adjusts each year by its copper-sheet deficit and
-that deficit's exact stationary mean (a float64 COPT). Not ported yet
-(ROADMAP.md Queue 1): the mesh (item 12), scheduled maintenance (item 9).
+that deficit's exact stationary mean (a float64 COPT).
+``scheduled_maintenance`` takes each generator out for its levelized
+maintenance weeks (``engines/planning.py``). Not ported yet (ROADMAP.md
+Queue 1): the mesh (item 12).
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ from powersystemsreliabilityassessment_tpu_torch.core.cases import CaseData
 from powersystemsreliabilityassessment_tpu_torch.core.system import (
     System, build_system)
 from powersystemsreliabilityassessment_tpu_torch.engines import (
-    copper_sheet, copt, dcopf)
+    copper_sheet, copt, dcopf, planning)
 from powersystemsreliabilityassessment_tpu_torch.models import twostate
 from powersystemsreliabilityassessment_tpu_torch.parallel.accumulators import (
     AnnualStats)
@@ -80,11 +82,15 @@ def year_block_load(sys: System, factors, years: int) -> torch.Tensor:
 
 def evaluate_years(sys: System, compat: CompatFlags, ipm: IPMConfig,
                    load: torch.Tensor, down: torch.Tensor, max_lp: int,
-                   nodal_mode: str = "lp", cv_arrays: tuple | None = None):
+                   nodal_mode: str = "lp", cv_arrays: tuple | None = None,
+                   maint_down: torch.Tensor | None = None):
     """Annual indices of a given year block ``down`` ``[Y, n_comp, H]``
     evaluated as ONE flat batch of ``Y * H`` hour-states (``load`` from
     :func:`year_block_load`, ``max_lp`` the whole block's LP buffer).
     The evaluation part of reference ``studies/hl2_seq.py::_years_eval``.
+    ``maint_down`` ``[H, n_comp]`` (bool, on the device) is ORed into
+    every year's states: a component on scheduled maintenance is DOWN,
+    in the evaluation and in the weak-point counts.
 
     Returns device tensors ``(ens [Y] MWh, plc [Y], nlc [Y], dlc [Y],
     edns [Y] MW, nodal [Y, nb] MWh, comp_fail [Y, n_comp] h, loss_hours
@@ -97,6 +103,8 @@ def evaluate_years(sys: System, compat: CompatFlags, ipm: IPMConfig,
     """
     Y, _, H = down.shape
     down_h = down.transpose(1, 2)                           # [Y, H, n_comp]
+    if maint_down is not None:
+        down_h = down_h | maint_down[None]
     # Chronological outages cluster (one long line repair can make ~800
     # consecutive needy hours), so the repair buffer is Y H / 16, far
     # above the bursts the reference observed; overflow only sends the
@@ -132,29 +140,36 @@ def evaluate_years(sys: System, compat: CompatFlags, ipm: IPMConfig,
 def _years_eval(sys: System, compat: CompatFlags, ipm: IPMConfig,
                 load: torch.Tensor, hours: int, n_draws: int, max_lp: int,
                 nodal_mode: str, generator: torch.Generator, years: int,
-                stationary: bool = False, cv_arrays: tuple | None = None):
+                stationary: bool = False, cv_arrays: tuple | None = None,
+                maint_down: torch.Tensor | None = None):
     """Draw a block of ``years`` years and evaluate it; mirrors reference
-    ``studies/hl2_seq.py::_years_eval`` (without maintenance):
-    :func:`sample_years`, then :func:`evaluate_years`."""
+    ``studies/hl2_seq.py::_years_eval``: :func:`sample_years`, then
+    :func:`evaluate_years`."""
     down = sample_years(generator, sys, years, hours, n_draws, stationary)
     return evaluate_years(sys, compat, ipm, load, down, max_lp, nodal_mode,
-                          cv_arrays)
+                          cv_arrays, maint_down)
 
 
 def make_seq_batch_step(sys: System, years_per_device: int,
                         compat: CompatFlags, ipm: IPMConfig, hours: int,
                         n_draws: int, max_lp: int, factors,
                         nodal_mode: str = "lp", stationary: bool = False,
-                        cv_arrays: tuple | None = None):
+                        cv_arrays: tuple | None = None,
+                        maint_down: np.ndarray | None = None):
     """One-batch step ``generator -> (ens [Y], plc [Y], nlc [Y], dlc [Y],
     edns [Y], nodal_sum [nb], comp_fail_sum [n_comp], loss_hours,
     n_over, n_infeasible)``, all device tensors, followed by ``(c_ens [Y],
     c_dlc [Y])`` when ``cv_arrays = (loads_mw [H], gen_cap_mw [ng])``
     (host arrays, copied to the device here) is given; mirrors reference
     ``studies/hl2_seq.py::make_seq_batch_step`` on one device.
-    ``max_lp`` is per year. The step only enqueues device work: nothing
-    in it waits for the device."""
+    ``max_lp`` is per year; ``maint_down`` (host bool ``[H, n_comp]``,
+    copied to the device here) is the maintenance schedule of
+    :func:`maintenance_down`. The step only enqueues device work:
+    nothing in it waits for the device."""
     load = year_block_load(sys, factors, years_per_device)
+    if maint_down is not None:
+        maint_down = torch.as_tensor(np.asarray(maint_down, bool),
+                                     device=sys.device)
     if cv_arrays is not None:
         cv_arrays = tuple(torch.as_tensor(np.asarray(a, np.float32),
                                           device=sys.device)
@@ -163,7 +178,8 @@ def make_seq_batch_step(sys: System, years_per_device: int,
     def step(generator: torch.Generator):
         out = _years_eval(sys, compat, ipm, load, hours, n_draws,
                           max_lp * years_per_device, nodal_mode, generator,
-                          years_per_device, stationary, cv_arrays)
+                          years_per_device, stationary, cv_arrays,
+                          maint_down)
         (ens, plc, nlc, dlc, edns, nodal, comp_fail, loss_h, n_over,
          n_infeas) = out[:10]
         return (ens, plc, nlc, dlc, edns, nodal.sum(0), comp_fail.sum(0),
@@ -230,6 +246,29 @@ class SEQResult:
         return d
 
 
+def maintenance_down(case: CaseData, hours: int,
+                     weekday_mode: str = "reference") -> np.ndarray:
+    """bool ``[hours, n_comp]``: the generators on scheduled maintenance
+    each hour (branches never). A levelized schedule of ``gen_maint_weeks``
+    (case24_failrate.m:48-56) against the 52 weekly peaks of the full
+    year's profile, also when ``hours`` is shorter; week 52 runs on past
+    hour 8,736. The maintenance part of reference
+    ``studies/hl2_seq.py::run_seq_study``."""
+    fleet = planning.PlanningFleet(
+        names=[f"G{i + 1}" for i in range(case.n_gen)],
+        capacity=case.gen_pmax.astype(float),
+        for_rate=np.zeros(case.n_gen),
+        maint_weeks=np.round(case.gen_maint_weeks).astype(int),
+        energy_limit=np.full(case.n_gen, np.inf))
+    planning.schedule_maintenance(fleet, load_profile.weekly_peaks(
+        load_profile.load_factors(52 * 168, weekday_mode)))
+    week_of_hour = np.minimum(np.arange(hours) // 168, 51)
+    maint_down = np.zeros((hours, case.n_comp), bool)
+    maint_down[:, :case.n_gen] = planning.maintenance_mask(fleet)[
+        week_of_hour]
+    return maint_down
+
+
 def seq_lp_cap(m: int, hours: int, years_per_device: int) -> int:
     """Per-year LP-buffer ceiling of the chronological study; mirrors
     reference ``studies/hl2_seq.py::seq_lp_cap``. Systems with m <= 336
@@ -272,6 +311,10 @@ def run_seq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
     only on (seed, batch index)). ``load_scale`` multiplies the load
     profile.
 
+    ``scheduled_maintenance=True`` takes each generator out for the
+    levelized window of its ``gen_maint_weeks`` (:func:`maintenance_down`),
+    the same weeks every year.
+
     ``control_variate=True`` (stationary sampling; ``"reference"`` is
     switched to it, as in the reference) subtracts each year's copper-
     sheet deficit C (``c_ens``, ``c_dlc`` of :func:`evaluate_years`) and
@@ -279,8 +322,7 @@ def run_seq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
     (``copt.copper_cv_means`` on the same float32-rounded hourly loads):
     ENS_cv = ENS - C + mu_C, DLC likewise, on the host in float64. NLC,
     nodal and weak-point sums stay plain. With ``scheduled_maintenance``
-    it raises ValueError (maintenance breaks stationarity);
-    ``scheduled_maintenance`` alone raises NotImplementedError.
+    it raises ValueError (maintenance breaks stationarity).
     """
     if control_variate and sampling == "reference":
         sampling = "stationary"
@@ -289,10 +331,6 @@ def run_seq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
     if control_variate and scheduled_maintenance:
         raise ValueError("control_variate requires a stationary fleet; "
                          "scheduled maintenance breaks stationarity")
-    if scheduled_maintenance:
-        raise NotImplementedError(
-            "scheduled_maintenance needs engines/planning.py, not ported "
-            "yet (ROADMAP.md Queue 1 item 9)")
     stationary = sampling == "stationary"
 
     sys = build_system(case, compat, device)
@@ -319,6 +357,8 @@ def run_seq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
         if log_every:
             print(f"control variate: mu_EENS {mu_eens:.3f} MWh/yr, "
                   f"mu_LOLE {mu_lole:.4f} h/yr (exact f64 COPT)")
+    maint_down = (maintenance_down(case, hours, compat.weekday_mode)
+                  if scheduled_maintenance else None)
     # Copied to the device once; every step's load is made from it.
     factors = torch.as_tensor(factors, dtype=torch.float32,
                               device=sys.device)
@@ -351,7 +391,7 @@ def run_seq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
             steps[lp] = make_seq_batch_step(
                 sys, Y, compat, ipm, hours, n_draws, lp, factors,
                 nodal_mode=cfg.nodal_mode, stationary=stationary,
-                cv_arrays=cv_arrays)
+                cv_arrays=cv_arrays, maint_down=maint_down)
         return steps[lp]
 
     # Transient grow-and-redo: chronological outages cluster, so a batch

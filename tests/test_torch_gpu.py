@@ -13,7 +13,10 @@ against their marginals on the CPU, with each sampler's RTS-24 step
 without a host sync; the COPT on the card against the float64 host
 table, an enumeration chunk and an island-blackout batch on the card
 against the same on the CPU, and the control-variate, enumeration-tail
-and blackout steps (NSQ and SEQ) without a host sync.
+and blackout steps (NSQ and SEQ) without a host sync; K2a / K2b at the
+multi-area LP's shapes (m = 1-5, 70,080 lanes), ``solve_curtailment``
+and the energy-limited-unit Monte Carlo on the card against the CPU, and
+the multi-area, ELU and maintenance SEQ steps without a host sync.
 
 Tests that need a card carry the ``gpu`` marker and skip without one.
 The file imports neither JAX nor the JAX package, so it also runs where
@@ -1644,7 +1647,7 @@ def test_nsq_option_step_never_waits_for_the_device(cuda, option):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("option", ["cv", "blackout"])
+@pytest.mark.parametrize("option", ["cv", "blackout", "maint"])
 def test_seq_option_step_never_waits_for_the_device(cuda, option):
     case = cases.rts24()
     compat = CompatFlags(island_blackout=option == "blackout")
@@ -1657,9 +1660,11 @@ def test_seq_option_step_never_waits_for_the_device(cuda, option):
     if option == "cv":
         loads = (factors * float(case.bus_pd.sum())).astype(np.float32)
         cv = (loads, np.asarray(case.gen_pmax, np.float32))
+    maint = (hl2_seq.maintenance_down(case, hours) if option == "maint"
+             else None)
     step = hl2_seq.make_seq_batch_step(
         sys_, 16, compat, IPMConfig(), hours, k, 256, factors,
-        stationary=option == "cv", cv_arrays=cv)
+        stationary=option == "cv", cv_arrays=cv, maint_down=maint)
     step(hl2_nsq.batch_generator(0, 0, cuda))      # builds the kernels
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -1669,3 +1674,139 @@ def test_seq_option_step_never_waits_for_the_device(cuda, option):
         torch.cuda.set_sync_debug_mode("default")
     assert len(out) == (12 if option == "cv" else 10)
     assert bool(torch.isfinite(out[0]).all()) and int(out[8]) == 0
+
+
+# -- the multi-area LP's K2 shapes, ELU and multi-area on the card ---------
+
+MULTI_LANES = 70080          # 8 years x 8,760 hours of the two-area demo
+
+
+def _spd_batch(B, m, seed):
+    """``B`` random equilibrated SPD m x m matrices (unit diagonal)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    G = torch.randn((B, m, m + 2), generator=gen, device="cuda")
+    M = G @ G.transpose(1, 2) / (m + 2) + 0.05 * torch.eye(m, device="cuda")
+    s = torch.rsqrt(torch.diagonal(M, dim1=1, dim2=2))
+    return (M * s[:, :, None] * s[:, None, :]).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5])
+def test_k2_at_the_multiarea_shapes_matches_plain(cuda, m):
+    # One warp a lane, eight lanes a block; the row clamps, the one-slot
+    # instance and the 2- / 1-float staging below m = 4 never ran on the
+    # RTS paths (m >= 20).
+    assert bc.launch_shape(MULTI_LANES, m, _sms())[:2] == (1, 8)
+    M = _spd_batch(MULTI_LANES, m, seed=m)
+    r = torch.randn((MULTI_LANES, m), generator=torch.Generator(
+        device=cuda).manual_seed(100 + m), device=cuda)
+    _k2_check(M, r)
+    for B in (1, 7, 9, 1025):          # ragged batches around a block
+        _k2_check(M[:B].contiguous(), r[:B].contiguous())
+
+
+def _demo_margins(device, years=2, seed=0):
+    """The two-area demo's margins [years x 8,760, 2] from the port's own
+    draw on ``device``, and the system."""
+    from powersystemsreliabilityassessment_tpu_torch.engines import multiarea
+    from powersystemsreliabilityassessment_tpu_torch.studies import (
+        multiarea_demo)
+    sys_ = multiarea_demo.demo_system()
+    areas = multiarea.device_areas(sys_, device)
+    down = multiarea.draw_block(areas, years,
+                                hl2_nsq.batch_generator(seed, 0, device))
+    return multiarea.block_margins(down, areas.caps, areas.load), sys_
+
+
+@pytest.mark.gpu
+def test_solve_curtailment_on_card_matches_cpu(cuda, monkeypatch):
+    from powersystemsreliabilityassessment_tpu_torch.engines import multiarea
+    margins, sys_ = _demo_margins(cuda)
+    ties = (sys_.tie_from, sys_.tie_to, sys_.tie_cap.astype(np.float32))
+    kernels, mats = lp_ipm_batched._DIRECT_KERNELS["cuda"], []
+    monkeypatch.setitem(lp_ipm_batched._DIRECT_KERNELS, "cuda",
+                        kernels._replace(factor=lambda M: mats.append(
+                            M.clone()) or kernels.factor(M)))
+    before = dict(bc.launches)
+    got = multiarea.solve_curtailment(margins, *ties)
+    torch.cuda.synchronize()
+    assert bc.launches["cholesky"] > before["cholesky"]
+    assert bc.launches["cho_solve"] > before["cho_solve"]
+    want = multiarea.solve_curtailment(margins.cpu(), *ties)
+    got = got.cpu()
+    # Totals within 1e-3 MW, areas within 0.1 MW; a loss hour only one
+    # side counts is float32 noise of the closed-form repair.
+    assert float((got.sum(1) - want.sum(1)).abs().max()) <= 1e-3
+    assert float((got - want).abs().max()) <= 0.1
+    apart = (got > 0) != (want > 0)
+    assert bool((torch.maximum(got, want)[apart] <= 1e-3).all())
+    assert bool((got <= torch.clamp_min(-margins.cpu(), 0) + 1e-3).all())
+    # The path's own normal matrices [B, 2, 2] through K2a against plain.
+    assert mats and all(M.shape == (margins.shape[0], 2, 2) for M in mats)
+    for M in mats[:3] + mats[-2:]:
+        _k2_check(M)
+
+
+@pytest.mark.gpu
+def test_multiarea_step_never_waits_for_the_device(cuda):
+    from powersystemsreliabilityassessment_tpu_torch.engines import multiarea
+    from powersystemsreliabilityassessment_tpu_torch.studies import (
+        multiarea_demo)
+    step = multiarea.make_multiarea_batch_step(
+        multiarea_demo.demo_system(), 8, multiarea.INTERCONNECTED,
+        IPMConfig(iterations=20), device=cuda)
+    step(hl2_nsq.batch_generator(5, 0, cuda))     # builds the kernels
+    torch.cuda.synchronize()
+    before = dict(bc.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, eue = step(hl2_nsq.batch_generator(5, 1, cuda))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert loss.shape == eue.shape == (2,)
+    assert bool(torch.isfinite(eue).all()) and int(loss[1]) > 0
+    # 20 iterations of a factor and two solves, then the polish's two
+    # factors and three solves.
+    assert bc.launches["cholesky"] - before["cholesky"] == 22
+    assert bc.launches["cho_solve"] - before["cho_solve"] == 43
+
+
+def _elu_inputs(cuda, years, hydro_hours=50.0):
+    from powersystemsreliabilityassessment_tpu_torch.engines import (
+        elu, planning)
+    from powersystemsreliabilityassessment_tpu_torch.studies import (
+        planning_elu)
+    fleet = planning_elu.demo_planning_fleet(hydro_hours)
+    load = planning_elu.demo_planning_load()
+    planning.schedule_maintenance(fleet, planning_elu.weekly_peaks_of(load))
+    u, z = elu.elu_draws(hl2_nsq.batch_generator(4, 0, cuda), years,
+                         len(load), fleet.n, cuda)
+    args = (fleet.capacity, fleet.for_rate, fleet.maint_start,
+            fleet.maint_weeks, fleet.energy_limit, load)
+    return u, z, args, float(load.max()) * 0.05
+
+
+@pytest.mark.gpu
+def test_elu_construction_on_card_matches_cpu(cuda):
+    from powersystemsreliabilityassessment_tpu_torch.engines import elu
+    u, z, args, lfu = _elu_inputs(cuda, 64)
+    got_y, got_h = elu.elu_mc_from_draws(u, z, *args, lfu)
+    want_y, want_h = elu.elu_mc_from_draws(u.cpu(), z.cpu(), *args, lfu)
+    assert float(want_y.sum()) > 0
+    assert torch.equal(got_y.cpu(), want_y)
+    assert float((got_h.cpu() - want_h).abs().max()) <= 1e-6
+
+
+@pytest.mark.gpu
+def test_elu_loop_never_waits_for_the_device(cuda):
+    from powersystemsreliabilityassessment_tpu_torch.engines import elu
+    u, z, args, lfu = _elu_inputs(cuda, 32)
+    dev = [torch.as_tensor(np.asarray(a), device=cuda) for a in args]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lole_y, hourly = elu.elu_mc_from_draws(u, z, *dev, lfu)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert lole_y.shape == (32,) and hourly.shape == (8760,)
+    assert float(lole_y.mean()) > 0

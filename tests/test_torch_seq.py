@@ -77,6 +77,10 @@ from powersystemsreliabilityassessment_tpu_torch.utils.config import (
 torch.set_num_threads(1)
 
 ENS_TOL_MW = 0.05        # per loss hour: the reference's oracle tolerance
+# A kept LP lane against float64 HiGHS (tests/test_torch_rts96.py's
+# oracle bound), and the evaluator's quality guard (engines/dcopf.py).
+ORACLE_TOL_MW = 0.15
+LP_GUARD = 5e-3
 
 
 @pytest.fixture(scope="module")
@@ -366,6 +370,146 @@ def test_year_block_matches_reference(ref_sys, port_sys, seed, load_scale):
     np.testing.assert_allclose(edns, ens / hours, rtol=1e-6)
 
 
+class _Captured(Exception):
+    pass
+
+
+def _ref_maint_down(monkeypatch, hours):
+    """The ``maint_down`` reference ``run_seq_study`` hands its step with
+    ``scheduled_maintenance=True`` (captured, the study stopped there)."""
+    seen = {}
+
+    def capture(*args, **kw):
+        seen["md"] = args[9]
+        raise _Captured
+
+    monkeypatch.setattr(ref_seq, "make_seq_batch_step", capture)
+    with pytest.raises(_Captured):
+        ref_seq.run_seq_study(ref_cases.rts24(), hours=hours, log_every=0,
+                              scheduled_maintenance=True)
+    return seen["md"]
+
+
+@pytest.mark.parametrize("hours", [8736, 2016])
+def test_maintenance_schedule_matches_reference(monkeypatch, hours):
+    want = _ref_maint_down(monkeypatch, hours)
+    got = hl2_seq.maintenance_down(cases.rts24(), hours)
+    assert got.shape == want.shape == (hours, 71) and want.any()
+    np.testing.assert_array_equal(got, want)
+    assert not got[:, 33:].any()          # branches are never maintained
+    weeks = np.round(cases.rts24().gen_maint_weeks).astype(int)
+    if hours == 8736:
+        np.testing.assert_array_equal(got[:, :33].sum(0), 168 * weeks)
+
+
+def _guard_judged(ref_sys, flat, load, i, dns_p, q_p, dns_r, q_r):
+    """Hour ``i``, where the two packages' DNS part: at least one side's
+    LP lane is past the evaluator's quality guard, which then keeps the
+    certificate's lower bound (ROADMAP.md Queue 3 A: the float32 IPMs'
+    outcome on a hard lane moves with rounding). The flagged side must
+    stay at or below the float64 HiGHS optimum, a kept side within the
+    oracle tolerance of it."""
+    from scipy.optimize import linprog
+    up = 1.0 - flat[i].astype(np.float32)
+    ng = ref_sys.n_gen
+    lp = ref_dcopf.build_state_lp(ref_sys, jnp.asarray(up[:ng]),
+                                  jnp.asarray(up[ng:]), jnp.asarray(load[i]),
+                                  RefCompat(), RefIPM().theta_max)
+    c, A, b, lo, hi = (np.asarray(t, np.float64) for t in lp)
+    r = linprog(c, A_eq=A, b_eq=b, bounds=list(zip(lo, hi)), method="highs")
+    assert r.status == 0, r.message
+    oracle = r.fun * ref_sys.base_mva
+    assert q_p > LP_GUARD or q_r > LP_GUARD, (i, q_p, q_r)
+    for dns, q in ((dns_p, q_p), (dns_r, q_r)):
+        if q > LP_GUARD:
+            assert dns <= oracle + ORACLE_TOL_MW, (i, dns, oracle)
+        else:
+            assert abs(dns - oracle) <= ORACLE_TOL_MW, (i, dns, oracle)
+
+
+@pytest.mark.parametrize("seed", [3, 8])
+def test_year_block_with_maintenance_matches_reference(ref_sys, port_sys,
+                                                       monkeypatch, seed):
+    years, hours, max_lp = 2, 2016, 96
+    maint = _ref_maint_down(monkeypatch, hours)
+    monkeypatch.undo()
+    mt = twostate.mean_times(cases.rts24())
+    k = chronological.default_num_draws(mt[:, 0], mt[:, 1], hours)
+    fac = load_profile.load_factors(hours).astype(np.float32)
+    keys = jax.random.split(jax.random.key(seed), years)
+    want = [np.asarray(a, np.float64) for a in ref_seq._years_eval(
+        ref_sys, RefCompat(), RefIPM(), jnp.asarray(fac), hours, k, max_lp,
+        jnp.asarray(maint), "lp", keys)]
+    down = np.asarray(jax.vmap(lambda kk: ref_chrono.sample_timeline(
+        kk, ref_sys.mttf, ref_sys.mttr, hours, k))(keys))
+    load = hl2_seq.year_block_load(port_sys, fac, years)
+    md = _t(hl2_seq.maintenance_down(cases.rts24(), hours))
+    got = [a.numpy().astype(np.float64) for a in hl2_seq.evaluate_years(
+        port_sys, CompatFlags(), IPMConfig(), load, _t(down), max_lp,
+        maint_down=md)]
+    plain = hl2_seq.evaluate_years(port_sys, CompatFlags(), IPMConfig(),
+                                   load, _t(down), max_lp)
+    # The hours of the block, as both evaluators see them.
+    flat = (np.swapaxes(down, 1, 2) | maint[None]).reshape(years * hours, -1)
+    repair = max(4096, years * hours // 16)
+    res_p, _ = dcopf.evaluate_states_screened(
+        port_sys, _t(flat), load, max_lp, CompatFlags(), IPMConfig(), "lp",
+        repair_buffer=repair)
+    res_r, _ = ref_dcopf.evaluate_states_screened(
+        ref_sys, jnp.asarray(flat), jnp.asarray(load.numpy()), max_lp,
+        RefCompat(), RefIPM(), "lp", repair_buffer=repair,
+        pf_buffer=ref_dcopf.default_pf_buffer(ref_sys, years * hours))
+    dns_p, dns_r = res_p.dns_mw.numpy(), np.asarray(res_r.dns_mw)
+    q_p, q_r = res_p.primal_residual.numpy(), np.asarray(
+        res_r.primal_residual)
+    apart = np.abs(dns_p - dns_r) > ORACLE_TOL_MW
+    for i in np.flatnonzero(apart):
+        _guard_judged(ref_sys, flat, load.numpy(), i, dns_p[i], q_p[i],
+                      dns_r[i], q_r[i])
+    ens, plc, nlc, dlc, edns, nodal, comp_fail, loss, n_over, n_inf = got
+    w_ens, w_plc, w_nlc, w_dlc, _, w_nodal, w_comp, w_loss, w_over, _ = want
+    # Each year's indices follow from its hours; the guard-judged hours
+    # are the only ones allowed to move them.
+    thr = CompatFlags().seq_curtail_threshold_mw
+    flag_p = (dns_p > thr).reshape(years, hours)
+    flag_r = (dns_r > thr).reshape(years, hours)
+    np.testing.assert_array_equal(dlc, flag_p.sum(1))
+    np.testing.assert_array_equal(w_dlc, flag_r.sum(1))
+    same = ~apart.reshape(years, hours)
+    np.testing.assert_array_equal(flag_p[same], flag_r[same])
+    # Maintenance adds loss hours.
+    assert w_dlc.sum() > float(plain[3].sum())
+    np.testing.assert_array_equal(loss, dlc)
+    np.testing.assert_allclose(plc, dlc / hours, rtol=1e-6)
+    down_h = flat.reshape(years, hours, -1).astype(np.float64)
+    np.testing.assert_array_equal(
+        comp_fail - w_comp, np.einsum("yh,yhc->yc",
+                                      flag_p.astype(float)
+                                      - flag_r.astype(float), down_h))
+    if not apart.any():
+        np.testing.assert_array_equal(nlc, w_nlc)
+        np.testing.assert_array_equal(plc, w_plc)
+    moved = np.abs(dns_p - dns_r).reshape(years, hours)
+    moved = np.where(same, 0.0, moved).sum(1)
+    tol = ORACLE_TOL_MW * np.maximum(w_dlc, 1.0) + moved
+    assert n_over == w_over == 0 and n_inf == 0
+    assert (np.abs(ens - w_ens) <= tol).all()
+    assert (np.abs(nodal - w_nodal) <= tol[:, None]).all()
+
+
+def test_study_with_maintenance_runs():
+    res = hl2_seq.run_seq_study(
+        cases.rts24(), MCSConfig(max_years=4, cov_threshold=0.0, seed=2),
+        device="cpu", years_per_device=2, hours=504,
+        scheduled_maintenance=True, log_every=0)
+    plain = hl2_seq.run_seq_study(
+        cases.rts24(), MCSConfig(max_years=4, cov_threshold=0.0, seed=2),
+        device="cpu", years_per_device=2, hours=504, log_every=0)
+    assert res.years == 4 and np.isfinite(res.eens_mwh_yr)
+    assert res.eens_mwh_yr >= plain.eens_mwh_yr
+    assert res.overflow_hours == 0
+
+
 # -- the port's own stream --------------------------------------------------
 
 def test_steady_state_fraction():
@@ -516,7 +660,8 @@ class _ScriptedStep:
         self.need, self.years, self.calls = need, years, []
 
     def make(self, sys, years, compat, ipm, hours, n_draws, max_lp,
-             factors, nodal_mode="lp", stationary=False, cv_arrays=None):
+             factors, nodal_mode="lp", stationary=False, cv_arrays=None,
+             maint_down=None):
         def step(i):
             self.calls.append((i, max_lp))
             over = max(self.need.get(i, 0) - max_lp, 0) * self.years
@@ -702,12 +847,15 @@ def test_export_study_writes_the_reference_schema(tmp_path):
 
 
 def test_seq_options_not_ported_raise():
-    # The control variate is ported (tests/test_torch_cv.py); maintenance
-    # is not, and a bad sampling mode raises.
+    # Maintenance and the control variate are both ported; together they
+    # raise ValueError, as in the reference (maintenance breaks the
+    # stationarity the control variate's means need), and a bad sampling
+    # mode raises.
     case = cases.rts24()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(ValueError, match="stationar"):
         hl2_seq.run_seq_study(case, device="cpu",
-                              scheduled_maintenance=True)
+                              scheduled_maintenance=True,
+                              control_variate=True)
     with pytest.raises(ValueError, match="sampling"):
         hl2_seq.run_seq_study(case, device="cpu", sampling="lhs")
     assert hl2_seq.seq_lp_cap(62, 8736, 16) == \
