@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's HL2 NSQ and SEQ paths, its HL1 and
-planning studies and the multi-area HL1.5 engine on one CUDA card.
+planning studies, the multi-area HL1.5 engine, the multilevel-splitting
+SEQ study and the command line on one CUDA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -213,6 +214,28 @@ Phases, one line each (any failure raises, so the exit code is not 0):
               ring (50 years each); the interconnected step's wall and
               device ms, launches and K2 launches, under the sync check;
               the loss hours whose curtailment is float32 noise
+ 29. split    run_seq_split_study(rts24) at the CLI's defaults (level
+              auto: entry 0.10, 256-year pilot; K 4, max_split 8, 16 years
+              a step, max_lp 256, 8,736-hour years) for 512 years, its
+              EENS, LOLE and LOLF within 4 combined standard errors of the
+              same study never splitting (level -1e9, another seed) and of
+              results/seq_results.json (its LOLE / LOLF standard errors
+              the port's); K = 1 at -100 MW and 1.2x load equal to the
+              never-split run on one seed (EENS to 1e-6, LOLE and LOLF
+              exactly); the step at the calibrated level under the sync
+              check: wall and device ms, launches, K1 lanes, entered and
+              split-overflow parents; K1 on the step's 6,144-lane clone
+              buffer (guarded as in seq) and K2a / K2b at its polish
+              shape against their plain versions, with times and bounds
+ 30. cli      the command line on the card: rts24 / rts96 written by
+              save_matpower_case and loaded back field for field;
+              main([...]) in this process for nsq at 65,536 samples on
+              rts24 and on rts24.m (the same JSON line), seq --split-level
+              auto --years 32, scaleup --case rts96, multiarea --system
+              case on rts96.m, and bench (exit 2), each with its wall,
+              peak CUDA memory and launches; the figure line on stderr
+              exactly when matplotlib is absent; one python -m
+              multiarea --system demo in a subprocess
 The bench phase also times the fused step (fused_tier1) at its shape,
 under the same sync check, and prints it on a line of its own.
 Then one JSON line of per-kernel results and, last, the device line
@@ -242,7 +265,7 @@ PKG = "powersystemsreliabilityassessment_tpu_torch"
 ALL_PHASES = ("build", "k2", "k1", "bench", "study", "k3", "study96", "k6",
               "k4", "k5", "studyfused", "seq", "lp300", "pf300", "study300",
               "anti", "is24", "mix300", "ce300", "enum24", "cv24", "cvseq",
-              "seqib", "hl1", "plan", "seqmaint", "multi")
+              "seqib", "hl1", "plan", "seqmaint", "multi", "split", "cli")
 # Not run by default: a per-layer and per-kernel breakdown of the
 # bench-shaped step and of the RTS-96 step (for PERF.md), not part of
 # the smoke contract.
@@ -3996,6 +4019,342 @@ def phase_multi(results):
         raise RuntimeError(f"multi: {bad}")
 
 
+# The multilevel-splitting SEQ study (split) and the command line (cli).
+SPLIT_YEARS = 512
+SPLIT_SEED, SPLIT_CONTROL_SEED = 16, 17
+SPLIT_YEARS_PER_STEP, SPLIT_MAX_LP = 16, 256
+SPLIT_K1_YEARS = 64       # the K = 1 reduce-to-plain check, full years
+SPLIT_EENS_RTOL = 1e-6
+
+
+def _split_run(cfg, split, **kw):
+    """run_seq_split_study on RTS-24 on the card with the launch counts
+    reset; returns (result, wall s, launch counts, its printed log)."""
+    import io
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.core import cases
+    from powersystemsreliabilityassessment_tpu_torch.studies import (
+        hl2_seq_split)
+    _reset_counts()
+    log = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        res = hl2_seq_split.run_seq_split_study(
+            cases.rts24(), cfg, split, device="cuda", log_every=1,
+            years_per_device=SPLIT_YEARS_PER_STEP, max_lp=SPLIT_MAX_LP,
+            **kw)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, _counts(), log.getvalue()
+
+
+def _split_z(a, b, se_b=None) -> dict:
+    """EENS, LOLE and LOLF z of result ``a`` against ``b`` over their
+    combined per-year standard errors (``se_b``: b's, where b keeps no
+    per-year values)."""
+    import math
+    se_b = se_b or {"eens": _per_year_se(b.annual_ens),
+                    "lole": _per_year_se(b.annual_dlc),
+                    "lolf": _per_year_se(b.annual_nlc)}
+    out = {}
+    for key, field, years in (("eens", "eens_mwh_yr", a.annual_ens),
+                              ("lole", "lole_hr_yr", a.annual_dlc),
+                              ("lolf", "lolf_occ_yr", a.annual_nlc)):
+        out[key] = abs(getattr(a, field) - getattr(b, field)) / math.hypot(
+            _per_year_se(years), se_b[key])
+    return out
+
+
+def phase_split(sys_, results):
+    """The multilevel-splitting SEQ study on RTS-24 at the CLI's defaults
+    (auto level: entry 0.10, 256-year pilot; K 4, max_split 8, 16 years a
+    step, max_lp 256, 8,736-hour years) for 512 years, against the same
+    study never splitting (level -1e9, another seed) and against
+    results/seq_results.json; K = 1 at -100 MW and 1.2x load equal to the
+    never-split run on one seed; the step's times under the sync check;
+    K1 and K2 on the step's clone-tail buffer against their plain
+    versions."""
+    import dataclasses
+    import math
+    import types
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.core import (
+        cases, load_profile)
+    from powersystemsreliabilityassessment_tpu_torch.models import twostate
+    from powersystemsreliabilityassessment_tpu_torch.ops import (
+        batched_chol as bc, ipm_fused)
+    from powersystemsreliabilityassessment_tpu_torch.sampling import (
+        chronological)
+    from powersystemsreliabilityassessment_tpu_torch.studies import (
+        hl2_nsq, hl2_seq_split)
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        CompatFlags, IPMConfig, MCSConfig)
+    SplitConfig = hl2_seq_split.SplitConfig
+    ref = json.loads((ROOT / "results" / "seq_results.json").read_text())
+    cfg = MCSConfig(max_years=SPLIT_YEARS, cov_threshold=0.0,
+                    seed=SPLIT_SEED)
+    res, wall, counts, log = _split_run(cfg, SplitConfig())
+    level = float(log.split("auto-calibrated splitting level: ")[1]
+                  .split(" MW")[0])
+    ctl, ctl_wall, _, ctl_log = _split_run(
+        dataclasses.replace(cfg, seed=SPLIT_CONTROL_SEED),
+        SplitConfig(level_mw=-1e9))
+    # The record keeps per-year ENS; no per-year DLC or NLC, so their
+    # standard errors are taken equal to the split study's own.
+    rec = types.SimpleNamespace(**ref)
+    z_ctl = _split_z(res, ctl)
+    z_rec = _split_z(res, rec, {"eens": _per_year_se(ref["annual_ens"]),
+                                "lole": _per_year_se(res.annual_dlc),
+                                "lolf": _per_year_se(res.annual_nlc)})
+    fmt = lambda z: json.dumps({k: round(v, 2) for k, v in z.items()}  # noqa: E731
+                               ).replace(" ", "") + f"<={RARE_MAX_Z:g}"
+    _line("split", years=res.years, level_mw=f"{level:.1f}",
+          split_entered=res.split_entered,
+          split_overflow=res.split_overflow,
+          eens_mwh_yr=f"{res.eens_mwh_yr:.3f}",
+          eens_se=f"{_per_year_se(res.annual_ens):.3f}",
+          lole_hr_yr=f"{res.lole_hr_yr:.4f}",
+          lolf_occ_yr=f"{res.lolf_occ_yr:.4f}",
+          control_eens=f"{ctl.eens_mwh_yr:.3f}",
+          control_eens_se=f"{_per_year_se(ctl.annual_ens):.3f}",
+          control_lole=f"{ctl.lole_hr_yr:.4f}",
+          control_lolf=f"{ctl.lolf_occ_yr:.4f}",
+          record_eens=f"{ref['eens_mwh_yr']:.3f}",
+          record_lole=f"{ref['lole_hr_yr']:.4f}",
+          record_lolf=f"{ref['lolf_occ_yr']:.4f}",
+          z_control=fmt(z_ctl), z_record=fmt(z_rec),
+          overflow_hours=res.overflow_hours,
+          redos=log.count("redoing batch"),
+          control_redos=ctl_log.count("redoing batch"),
+          wall_s=f"{wall:.2f}", control_wall_s=f"{ctl_wall:.2f}",
+          card=repr(CARD["smi"]),
+          launches=json.dumps(counts).replace(" ", ""))
+    _check_launched("split", counts, RTS24_KERNELS)
+    _record_launches(results, "split", counts)
+    bad = [f"control {k}" for k, v in z_ctl.items() if not v <= RARE_MAX_Z]
+    bad += [f"record {k}" for k, v in z_rec.items() if not v <= RARE_MAX_Z]
+    if bad or res.split_entered == 0 or res.overflow_hours \
+            or not math.isfinite(res.eens_mwh_yr):
+        raise RuntimeError(f"split: z past {RARE_MAX_Z}: {bad}; or no "
+                           f"parent entered, or {res.overflow_hours} "
+                           "overflow hours")
+
+    # K = 1 at a level entered mid-year equals the never-split run.
+    k1_cfg = MCSConfig(max_years=SPLIT_K1_YEARS, cov_threshold=0.0,
+                       seed=SPLIT_SEED)
+    never, _, _, _ = _split_run(k1_cfg, SplitConfig(level_mw=-1e9),
+                                load_scale=1.2)
+    k1, k1_wall, _, _ = _split_run(
+        k1_cfg, SplitConfig(level_mw=-100.0, k_clones=1), load_scale=1.2)
+    rel = abs(k1.eens_mwh_yr - never.eens_mwh_yr) / never.eens_mwh_yr
+    _line("split", k1_years=k1.years, k1_entered=k1.split_entered,
+          eens_mwh_yr=f"{k1.eens_mwh_yr:.6f}",
+          never_eens=f"{never.eens_mwh_yr:.6f}",
+          eens_rel=f"{rel:.2e}<={SPLIT_EENS_RTOL:g}",
+          lole_equal=k1.lole_hr_yr == never.lole_hr_yr,
+          lolf_equal=k1.lolf_occ_yr == never.lolf_occ_yr,
+          wall_s=f"{k1_wall:.2f}")
+    if not (rel <= SPLIT_EENS_RTOL and k1.split_entered > 0
+            and k1.lole_hr_yr == never.lole_hr_yr
+            and k1.lolf_occ_yr == never.lolf_occ_yr):
+        raise RuntimeError("split: K = 1 does not reduce to the never-split "
+                           "estimate")
+
+    # The step at the study's settings, under the sync check.
+    hours = CompatFlags().hours_per_year_seq
+    mt = twostate.mean_times(cases.rts24())
+    step = hl2_seq_split.make_split_batch_step(
+        sys_, SPLIT_YEARS_PER_STEP, CompatFlags(), IPMConfig(), hours,
+        chronological.default_num_draws(mt[:, 0], mt[:, 1], hours),
+        SPLIT_MAX_LP, load_profile.load_factors(hours),
+        SplitConfig(level_mw=level))
+    seeds = iter(range(10**6))
+    gen = lambda: hl2_nsq.batch_generator(SPLIT_SEED, next(seeds), "cuda")  # noqa: E731
+    lanes: list = []
+    with _capturing_k1(lanes):
+        step(gen())
+    k1_lanes = [a[2].shape[0] for a in lanes]
+    reps = 4
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(reps):
+            out = step(gen())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    step_wall = (time.perf_counter() - t0) * 1e3 / reps
+    step_counts = {k: v / reps for k, v in _counts().items() if v}
+    _, dev, n_kernels, _ = _measure(lambda: step(gen()), reps=2)
+    v = out.cpu().numpy()
+    _line("split", step_years=SPLIT_YEARS_PER_STEP, wall_ms=f"{step_wall:.3f}",
+          device_ms=f"{dev:.3f}", device_busy_share=f"{dev / step_wall:.3f}",
+          kernel_launches=f"{n_kernels:.0f}",
+          our_launches=json.dumps(step_counts).replace(" ", ""),
+          k1_lanes=json.dumps(k1_lanes).replace(" ", ""),
+          entered=int(v[3]), split_overflow=int(v[2]), n_over=int(v[1]),
+          level_mw=f"{level:.1f}", card=repr(CARD["smi"]))
+    if not (torch.isfinite(out).all() and int(v[1]) == 0):
+        raise RuntimeError("split: the step gave non-finite values or "
+                           "overflowed its LP buffer")
+
+    # K1 and K2 on the step's clone-tail LP buffer (8 parents x 3 tails x
+    # 256 lanes), a shape no other path gives them; the parents' 4,096
+    # lanes are the seq phase's shape.
+    clone = lanes[1]
+    n = clone[2].shape[0]
+    st = ipm_fused.build_structure(sys_)
+    ipm = IPMConfig()
+    k1 = _k1_shape(sys_, st, n, ipm, args=clone, tag="split", guarded=True)
+    k1["device_ms"] = _graph_ms(
+        lambda *a: ipm_fused.fused_ipm_iterations(st, *a, ipm), [clone],
+        calls=4, replays=3)
+    k1["bound_share"] = k1["bound_ms"] / k1["device_ms"]
+    _line("split", k1_lanes=n, device_ms=f"{k1['device_ms']:.4f}",
+          bound_share_of_device=f"{k1['bound_share']:.4f}", library_ms=None)
+    M = _polish_factor_inputs(st, clone)
+    r = torch.randn(M.shape[:2], generator=torch.Generator(
+        device="cuda").manual_seed(16), device="cuda")
+    rows = {"chol_split": _k2_row("split", "chol_split", "cholesky", (M,),
+                                  (M,))}
+    solve = (bc.cholesky_plain(M), r)
+    rows["solve_split"] = _k2_row("split", "solve_split", "cho_solve",
+                                  solve, solve)
+    _check_k2_rows("split", rows)
+    entry = results.setdefault("fused_ipm_iterations", {})
+    entry["split_shape"] = k1
+    entry["max_abs_err"] = max(entry.get("max_abs_err", 0.0),
+                               k1["objective_err_pu"], k1["best_score_err"])
+    for kind, name in (("cholesky", "chol_split"),
+                       ("cho_solve", "solve_split")):
+        entry = results.setdefault(kind, {})
+        entry.setdefault("path_shapes", {})[name] = rows[name]
+        entry["max_abs_err"] = max(entry.get("max_abs_err", 0.0),
+                                   rows[name]["abs_err"])
+        entry["max_rel_err"] = max(entry.get("max_rel_err", 0.0),
+                                   rows[name]["rel_err"])
+
+
+def _cli_main(argv):
+    """The CLI's main(argv) in this process: (stdout, stderr, exit code,
+    wall s, peak CUDA bytes)."""
+    import io
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.__main__ import main
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    code = 0
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            main(argv)
+        except SystemExit as e:
+            code = e.code
+    torch.cuda.synchronize()
+    return (out.getvalue(), err.getvalue(), code, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated())
+
+
+def phase_cli(results):
+    """The command line on the card: rts24 / rts96 written with
+    save_matpower_case and loaded back field for field; main([...]) in
+    this process for nsq (builtin and .m case: the same JSON), seq
+    --split-level auto, scaleup on rts96, multiarea on the .m case and
+    bench (exit 2); python -m for the multi-area demo; the figure line
+    on stderr exactly when matplotlib is absent."""
+    import dataclasses
+    import importlib.util
+    import tempfile
+    import numpy as np
+    from powersystemsreliabilityassessment_tpu_torch.core import cases
+    from powersystemsreliabilityassessment_tpu_torch.core.matpower_io import (
+        load_matpower_case, save_matpower_case)
+    tmp = Path(tempfile.mkdtemp(prefix="psra_cli_"))
+    for name in ("rts24", "rts96"):
+        want = getattr(cases, name)()
+        path = tmp / f"{name}.m"
+        save_matpower_case(want, str(path))
+        got = load_matpower_case(str(path))
+        for f in dataclasses.fields(want):
+            a, b = getattr(got, f.name), getattr(want, f.name)
+            same = (np.allclose(a, b, rtol=1e-9, atol=0)
+                    if isinstance(b, np.ndarray) else a == b)
+            if not same:
+                raise RuntimeError(f"cli: {name}.m loads {f.name} unlike "
+                                   "the constructor")
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    runs = {
+        "nsq": ["nsq", "--samples", "65536", "--batch", "8192", "--seed",
+                "5", "--out", str(tmp / "nsq")],
+        "nsq_m": ["nsq", "--samples", "65536", "--batch", "8192", "--seed",
+                  "5", "--case", str(tmp / "rts24.m"), "--out",
+                  str(tmp / "nsq_m")],
+        "seq_split": ["seq", "--split-level", "auto", "--years", "32",
+                      "--out", str(tmp / "seq")],
+        "scaleup": ["scaleup", "--case", "rts96", "--samples", "16384"],
+        "multiarea_case": ["multiarea", "--system", "case", "--case",
+                           str(tmp / "rts96.m"), "--years", "10"],
+        "bench": ["bench"],
+    }
+    got, bad = {}, []
+    for tag, argv in runs.items():
+        _reset_counts()
+        out, err, code, wall, peak = _cli_main(argv)
+        counts = _counts()
+        last = out.strip().splitlines()[-1] if out.strip() else ""
+        got[tag] = last
+        fig_line = "figures not written" in err
+        _line("cli", command=repr(" ".join(argv[:2])), exit=code,
+              wall_s=f"{wall:.2f}", peak_cuda_bytes=peak,
+              figure_line=fig_line,
+              our_launches=json.dumps({k: v for k, v in counts.items()
+                                       if v}).replace(" ", ""),
+              last_line=repr(last[:160]))
+        if tag == "bench":
+            if code != 2 or "Queue 1 item 1" not in err:
+                bad.append("bench did not exit 2 with its message")
+            continue
+        if code not in (0, None) or peak <= 0:
+            bad.append(f"{tag}: exit {code}, peak CUDA bytes {peak}")
+        if tag in ("nsq", "nsq_m", "seq_split"):
+            fig = (tmp / "seq" / "convergence_curve.png" if tag == "seq_split"
+                   else tmp / tag / "convergence.png")
+            if fig_line == have_mpl or fig.exists() != have_mpl:
+                bad.append(f"{tag}: figure line {fig_line}, figure "
+                           f"{fig.exists()}, matplotlib {have_mpl}")
+            missing = [k for k in RTS24_KERNELS if counts[k] <= 0]
+            if missing:
+                bad.append(f"{tag}: kernels never launched {missing}")
+            results.setdefault("fused_ipm_iterations", {})[
+                f"launches_cli_{tag}"] = counts["fused_ipm_iterations"]
+        try:
+            json.loads(last)
+        except ValueError:
+            bad.append(f"{tag}: last line is not JSON")
+    if got["nsq"] != got["nsq_m"]:
+        bad.append("nsq on rts24.m printed another JSON than on rts24")
+    exports = sorted(p.name for p in (tmp / "seq").iterdir())
+    _line("cli", nsq_json_equal=got["nsq"] == got["nsq_m"],
+          seq_exports=json.dumps(exports).replace(" ", ""),
+          matplotlib=have_mpl)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", PKG, "multiarea", "--system", "demo",
+         "--years", "10"], capture_output=True, text=True, cwd=ROOT,
+        timeout=300)
+    _line("cli", command=repr("python -m ... multiarea --system demo"),
+          exit=proc.returncode, wall_s=f"{time.perf_counter() - t0:.2f}",
+          table="MULTI-AREA COMPARISON" in proc.stdout)
+    if proc.returncode != 0 or "MULTI-AREA COMPARISON" not in proc.stdout:
+        bad.append(f"python -m multiarea: exit {proc.returncode}: "
+                   f"{proc.stderr[-400:]}")
+    if bad:
+        raise RuntimeError(f"cli: {bad}")
+
+
 def phase_studyfused(results):
     counts = phase_study("studyfused", fused=True, kernels=FUSED_KERNELS)
     results.setdefault("sample_certify_quick", {})["launches"] = \
@@ -4314,6 +4673,10 @@ def main() -> int:
         phase_seqmaint(sys_, results)
     if "multi" in phases:
         phase_multi(results)
+    if "split" in phases:
+        phase_split(sys_, results)
+    if "cli" in phases:
+        phase_cli(results)
     if "profile" in phases:
         phase_profile(sys_)
         phase_profile96(sys96)

@@ -14,6 +14,7 @@ batches' sums stay on the device and are read once at the end.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any
 
@@ -193,13 +194,10 @@ def run_full_comparison(iterations: int = 5000, years: int = 500,
                         device: torch.device | str = "cuda"
                         ) -> dict[str, Any]:
     """The run_full_comparison.jl study: the three engines on the demo
-    fleet and its sinusoidal load, and the table; mirrors reference
-    ``run_full_comparison``. ``out_dir`` (the comparison figure) raises
-    NotImplementedError: the figures are not ported yet."""
-    if out_dir is not None:
-        raise NotImplementedError(
-            "the HL1 comparison figure (matplotlib) is not ported yet "
-            "(ROADMAP.md Queue 1 item 2); pass out_dir=None")
+    fleet and its sinusoidal load, and the table, plus the convergence /
+    comparison figure ``{out_dir}/hl1_comparison.png`` when ``out_dir`` is
+    given (PowerSystemAdequacy.jl:275-298); mirrors reference
+    ``run_full_comparison``."""
     gens = demo_fleet()
     load = sinusoidal_load(seed=seed)
     results = [
@@ -209,4 +207,9 @@ def run_full_comparison(iterations: int = 5000, years: int = 500,
         run_sequential_mc(gens, load, years, seed=seed + 1, device=device),
     ]
     print(compare_results(results))
+    if out_dir is not None:
+        from powersystemsreliabilityassessment_tpu_torch.utils import report
+        os.makedirs(out_dir, exist_ok=True)
+        report.plot_hl1_comparison(
+            results, os.path.join(out_dir, "hl1_comparison.png"))
     return {r.method: dataclasses.asdict(r) for r in results}

@@ -229,8 +229,9 @@ class SEQResult:
     # Hours with no feasible dispatch (enforce_pmin only); the reference's
     # MATLAB records zero for these (seqMain.m:117-126).
     infeasible_hours: int = 0
-    # Multilevel-splitting diagnostics of the reference's
-    # studies/hl2_seq_split.py (not ported; always 0 here).
+    # Multilevel-splitting diagnostics, filled by
+    # studies/hl2_seq_split.py (0 in the plain study): parent years that
+    # reached the level, and those past the clone budget.
     split_entered: int = 0
     split_overflow: int = 0
     # Per-year DLC (h) and NLC, for the standard errors of LOLE and LOLF

@@ -364,11 +364,11 @@ def test_hl1_monte_carlo_engines_agree_with_the_analytical_value():
     assert again.convergence_history == nsq.convergence_history[:3]
 
 
-def test_run_full_comparison_and_its_figure(capsys):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        hl1_comparison.run_full_comparison(out_dir="figures", device=CPU)
-    out = hl1_comparison.run_full_comparison(iterations=2000, years=20,
-                                             device=CPU)
+def test_run_full_comparison_and_its_figure(capsys, tmp_path):
+    out = hl1_comparison.run_full_comparison(
+        iterations=2000, years=20, device=CPU,
+        out_dir=str(tmp_path / "figures"))
+    assert (tmp_path / "figures" / "hl1_comparison.png").stat().st_size > 0
     assert set(out) == {"Analytical", "Non-Sequential MC", "Sequential MC"}
     assert out["Analytical"]["batch_means"] == []
     assert "METHOD COMPARISON SUMMARY" in capsys.readouterr().out

@@ -16,7 +16,10 @@ against the same on the CPU, and the control-variate, enumeration-tail
 and blackout steps (NSQ and SEQ) without a host sync; K2a / K2b at the
 multi-area LP's shapes (m = 1-5, 70,080 lanes), ``solve_curtailment``
 and the energy-limited-unit Monte Carlo on the card against the CPU, and
-the multi-area, ELU and maintenance SEQ steps without a host sync.
+the multi-area, ELU and maintenance SEQ steps without a host sync; the
+multilevel-splitting SEQ study's K = 1 reduction to the never-split
+estimate and its step without a host sync, and the command line's
+``nsq`` on the card.
 
 Tests that need a card carry the ``gpu`` marker and skip without one.
 The file imports neither JAX nor the JAX package, so it also runs where
@@ -1810,3 +1813,65 @@ def test_elu_loop_never_waits_for_the_device(cuda):
         torch.cuda.set_sync_debug_mode("default")
     assert lole_y.shape == (32,) and hourly.shape == (8760,)
     assert float(lole_y.mean()) > 0
+
+
+# -- the multilevel-splitting SEQ study and the command line on the card ---
+
+@pytest.mark.gpu
+def test_split_k1_midyear_level_reduces_to_plain_on_card(cuda):
+    # tests/test_torch_seq_split.py's check on the card: K = 1 at a level
+    # entered mid-year rebuilds the never-split estimate on the same seed.
+    from powersystemsreliabilityassessment_tpu_torch.studies.hl2_seq_split import (  # noqa: E501
+        SplitConfig, run_seq_split_study)
+    cfg = MCSConfig(max_years=16, cov_threshold=0.0, seed=2)
+    kw = dict(device=cuda, years_per_device=8, max_lp=64, hours=504,
+              log_every=0, load_scale=1.2)
+    never = run_seq_split_study(
+        cases.rts24(), cfg, SplitConfig(level_mw=-1e9, k_clones=3,
+                                        max_split=2), **kw)
+    before = ipm_fused.launches["fused_ipm_iterations"]
+    k1 = run_seq_split_study(
+        cases.rts24(), cfg, SplitConfig(level_mw=-100.0, k_clones=1,
+                                        max_split=4), **kw)
+    assert ipm_fused.launches["fused_ipm_iterations"] > before
+    assert k1.split_entered > 0 and never.split_entered == 0
+    assert k1.eens_mwh_yr == pytest.approx(never.eens_mwh_yr, rel=1e-6)
+    assert k1.lole_hr_yr == never.lole_hr_yr
+    assert k1.lolf_occ_yr == never.lolf_occ_yr
+
+
+@pytest.mark.gpu
+def test_split_step_never_waits_for_the_device(cuda):
+    from powersystemsreliabilityassessment_tpu_torch.studies import (
+        hl2_seq_split)
+    case = cases.rts24()
+    sys_ = build_system(case, device=cuda)
+    hours = 8736
+    mt = twostate.mean_times(case)
+    k = chronological.default_num_draws(mt[:, 0], mt[:, 1], hours)
+    step = hl2_seq_split.make_split_batch_step(
+        sys_, 16, CompatFlags(), IPMConfig(), hours, k, 256,
+        load_profile.load_factors(hours),
+        hl2_seq_split.SplitConfig(level_mw=300.0))
+    step(hl2_nsq.batch_generator(0, 0, cuda))      # builds the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = step(hl2_nsq.batch_generator(0, 1, cuda))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(out).all()) and int(out[1]) == 0
+
+
+@pytest.mark.gpu
+def test_cli_nsq_on_card(cuda, tmp_path, capsys):
+    from powersystemsreliabilityassessment_tpu_torch.__main__ import main
+    before = ipm_fused.launches["fused_ipm_iterations"]
+    main(["nsq", "--samples", "16384", "--batch", "8192", "--seed", "5",
+          "--out", str(tmp_path)])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(line) == {"edns", "lole", "plc", "beta"}
+    assert ipm_fused.launches["fused_ipm_iterations"] > before
+    data = json.loads((tmp_path / "nsq_results.json").read_text())
+    assert data["samples"] == 16384 and data["edns_mw"] == line["edns"]
+    assert math.isfinite(line["edns"]) and line["edns"] > 0

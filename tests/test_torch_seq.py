@@ -842,8 +842,12 @@ def test_export_study_writes_the_reference_schema(tmp_path):
         ref_report.top_components(res.comp_importance, 33, 3)
     assert [report.component_label(i, 33) for i in (0, 32, 33, 70)] == \
         ["Gen 1", "Gen 33", "Line 1", "Line 38"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        report.export_study(res, str(tmp_path / "p2"), "seq")
+    # make_plots=True (the default) writes the same three exports and no
+    # figure, as the reference's export_study does.
+    report.export_study(res, str(tmp_path / "p2"), "seq", make_plots=True)
+    assert sorted(f.name for f in (tmp_path / "p2").iterdir()) == [
+        "seq_nodal_results.csv", "seq_reliability_results.mat",
+        "seq_results.json"]
 
 
 def test_seq_options_not_ported_raise():
