@@ -21,7 +21,20 @@ Phases, one line each (any failure raises, so the exit code is not 0):
               K2a's launch shape and the inputs' asymmetry
   4. k1       K1 fused IPM kernel vs its plain version on 256 and on
               2,048 real LP lanes (states with a deficit or a failed
-              certificate): errors, times, launch shape, bound
+              certificate): errors, times, launch shape, bound; then the
+              warm rescue's launch from a start point (16 lanes, its own
+              inputs for the hard lanes of tests/golden/
+              seq_hard_lanes.npz; guarded as in seq); and K1 with no
+              start point on fixed lanes at 16, 256 and 2,048 giving
+              the bits tests/golden/k1_null_start_digests.json records
+              for the kernel before it took a start point, and the same
+              bits as K1 started at the box midpoint
+  4b. faulta fault A: the hard lanes through the LP tier
+              (solve_box_lp_structured: K1, polish, warm rescue) against
+              float64 HiGHS with the rescue off and on: lanes more than
+              5e-3 p.u. off, lanes past the guard, off lanes not flagged
+              (must be 0), the largest errors; the seed-8 maintenance
+              hour of tests/test_torch_seq.py through evaluate_states
   5. bench    the bench-shaped step: batch 262144, proportional nodal
               mode, max_lp 256, the calibrated shed hint, 8 segments of
               16 steps with fresh generator seeds
@@ -237,7 +250,12 @@ Phases, one line each (any failure raises, so the exit code is not 0):
               exactly when matplotlib is absent; one python -m
               multiarea --system demo in a subprocess
 The bench phase also times the fused step (fused_tier1) at its shape,
-under the same sync check, and prints it on a line of its own.
+under the same sync check, and prints it on a line of its own. seq,
+seqmaint, split and enum24 print their LP lanes past the evaluator's
+guard over the study, before and after the warm rescue
+(lp_lanes_past_guard=before->after), and each guarded K1 line the
+lanes the LP path on the same buffer leaves past it
+(guard_failed_path).
 Then one JSON line of per-kernel results and, last, the device line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -247,7 +265,9 @@ the RTS-24 bench-shaped step and of the RTS-96 study step: per-layer
 times, the device-busy share, the kernels that take the most device
 time (torch.profiler) and K1's, K2's (``layer=step_k2``), K3's and K4's
 device time and launches per step; ``--phases profileseq`` the same for
-the SEQ step (16 years a step).
+the SEQ step (16 years a step). Both also run each step and its LP
+tier with the warm rescue off and on (off, on, on, off in one process):
+wall ms, device ms, launches, and the rescue's own cost per call.
 """
 from __future__ import annotations
 
@@ -262,7 +282,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PKG = "powersystemsreliabilityassessment_tpu_torch"
-ALL_PHASES = ("build", "k2", "k1", "bench", "study", "k3", "study96", "k6",
+ALL_PHASES = ("build", "k2", "k1", "faulta", "bench", "study", "k3", "study96", "k6",
               "k4", "k5", "studyfused", "seq", "lp300", "pf300", "study300",
               "anti", "is24", "mix300", "ce300", "enum24", "cv24", "cvseq",
               "seqib", "hl1", "plan", "seqmaint", "multi", "split", "cli")
@@ -883,6 +903,20 @@ def phase_k2(sys_, sys96, results):
 # K1 is checked and timed at the bench's LP buffer (max_lp 256) and at
 # the RTS-24 "lp" study's (2,048 lanes, default_max_lp of batch 8192).
 K1_LANES = (256, 2048)
+# The hard SEQ lanes of fault A (ROADMAP.md Queue 3): RTS-24 outage
+# states and hourly loads where the float32 IPMs stall off the optimum.
+HARD_LANES = ROOT / "tests" / "golden" / "seq_hard_lanes.npz"
+# SHA-256 of K1's outputs with no start point on fixed lanes
+# (:func:`_k1_identity_lanes`), taken on an NVIDIA H100 from the kernel
+# as it was before it took a start point (scripts/torch_k1_bench.py
+# --digest): the kernel must still give those bits.
+K1_DIGESTS = ROOT / "tests" / "golden" / "k1_null_start_digests.json"
+K1_IDENTITY_LANES = (16, 256, 2048)
+# The maintenance hour of fault A: hour 2,384 of tests/test_torch_seq.py's
+# seed-8 two-year block of 2,016-hour years with scheduled maintenance,
+# five units out; the LP tier without the warm rescue keeps 0 MW there,
+# the reference 10.03 MW, float64 HiGHS 9.92 MW.
+MAINT_HOUR, MAINT_DOWN = 2384, (17, 22, 23, 28, 30)
 
 
 def _lp_oracle(st, args, lanes) -> list:
@@ -905,8 +939,143 @@ def _lp_oracle(st, args, lanes) -> list:
     return np.asarray(out)
 
 
+def _hard_lanes(sys_):
+    """Structured LP inputs (colscale, br_up, c, b, l, u) of the hard SEQ
+    lanes of HARD_LANES on the system's device."""
+    import numpy as np
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        CompatFlags, IPMConfig)
+    d = np.load(HARD_LANES)
+    dev = sys_.load_pd.device
+    up = 1.0 - torch.as_tensor(d["down"], device=dev).float()
+    gen_up, br_up = up[:, :sys_.n_gen], up[:, sys_.n_gen:].contiguous()
+    c, b, l, u, colscale = dcopf.build_state_lp_vectors(
+        sys_, gen_up, br_up, torch.as_tensor(d["load"], device=dev),
+        CompatFlags(), IPMConfig().theta_max)
+    return colscale, br_up, c, b, l, u
+
+
+def _k1_identity_lanes() -> dict:
+    """{lanes: structured LP inputs on the card} at K1_IDENTITY_LANES,
+    built on the CPU from numpy draws so that they are the same bits in
+    every run: the hard lanes of HARD_LANES first, then states at three
+    times the outage rates (seed 2017), at peak load."""
+    import numpy as np
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.core import cases
+    from powersystemsreliabilityassessment_tpu_torch.core.system import (
+        build_system)
+    from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        CompatFlags, IPMConfig)
+    sys_ = build_system(cases.rts24(), device="cpu")
+    hard = _hard_lanes(sys_)
+    rng = np.random.default_rng(2017)
+    n = max(K1_IDENTITY_LANES)
+    down = rng.uniform(size=(n, sys_.n_comp)) < \
+        3 * sys_.unavail.numpy()[None, :]
+    down[:, sys_.always_up_nsq.numpy()] = False
+    up = 1.0 - torch.as_tensor(down).float()
+    br_up = up[:, sys_.n_gen:].contiguous()
+    c, b, l, u, cs = dcopf.build_state_lp_vectors(
+        sys_, up[:, :sys_.n_gen], br_up,
+        sys_.load_pd[None, :].expand(n, sys_.n_load), CompatFlags(),
+        IPMConfig().theta_max)
+    drawn = (cs, br_up, c, b, l, u)
+    k = hard[0].shape[0]
+    out = {}
+    for B in K1_IDENTITY_LANES:
+        out[B] = tuple(torch.cat([h, t[:max(B - k, 0)]])[:B].contiguous()
+                       .to("cuda") for h, t in zip(hard, drawn))
+    return out
+
+
+def _digest(tensors) -> str:
+    """SHA-256 of the tensors' bytes, in order."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _k1_null_start_bits(st, cfg) -> dict:
+    """K1 with no start point against K1_DIGESTS at K1_IDENTITY_LANES,
+    and against K1 started at the box midpoint (the kernel's own default
+    start, so the two must be bit-equal)."""
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.ops import ipm_fused
+    want = json.loads(K1_DIGESTS.read_text())["lanes"]
+    rows = {}
+    for B, args in _k1_identity_lanes().items():
+        null = ipm_fused.fused_ipm_iterations(st, *args, cfg)
+        mid = ipm_fused.fused_ipm_iterations(
+            st, *args, cfg, x_init=0.5 * (args[4] + args[5]))
+        torch.cuda.synchronize()
+        rec = want[str(B)]
+        rows[str(B)] = dict(
+            inputs_as_recorded=_digest(args) == rec["inputs"],
+            bits_as_recorded=_digest(null) == rec["outputs"],
+            midpoint_start_bit_equal=_digest(mid) == _digest(null))
+    _line("k1", null_start_bits=json.dumps(rows).replace(" ", ""),
+          recorded_on=repr(json.loads(K1_DIGESTS.read_text())["card"]))
+    if not all(v for r in rows.values() for v in r.values()):
+        raise RuntimeError("k1: the kernel with no start point does not "
+                           f"give the recorded bits: {rows}")
+    return rows
+
+
+def _rescue_inputs(sys_, st, cfg):
+    """(lanes, start) of the warm rescue's first K1 launch on the hard
+    lanes, captured on the LP path (``solve_box_lp_structured``)."""
+    from powersystemsreliabilityassessment_tpu_torch.engines import (
+        lp_ipm_structured as ls)
+    store: list = []
+    hard = _hard_lanes(sys_)
+    with _capturing_k1(store, warm=True):
+        ls.solve_box_lp_structured(st, *hard, cfg)
+    if len(store) != sum(f is not None for f in cfg.rescue_stages):
+        raise RuntimeError(f"k1: the rescue launched K1 {len(store)} times")
+    lanes, start = store[0][:6], store[0][6]
+    if lanes[2].shape[0] != min(ls.RESCUE_LANES, hard[2].shape[0]):
+        raise RuntimeError("k1: the rescue's buffer is not RESCUE_LANES")
+    return lanes, start
+
+
+@contextlib.contextmanager
+def _guard_counter():
+    """While active, each m <= 72 LP solve adds to a [2] int64 tensor on
+    the card its lanes past the evaluator's guard before and after the
+    warm rescue (``lp_ipm_structured._warm_rescue``; a NaN score counts
+    as past). Nothing is read on the host until the caller reads it."""
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.engines import (
+        lp_ipm_batched as lpb, lp_ipm_structured as ls)
+    orig = ls._warm_rescue
+    acc = torch.zeros(2, dtype=torch.int64, device="cuda")
+
+    def rescue(st, iterate, lanes, cfg, sol, k):
+        out = orig(st, iterate, lanes, cfg, sol, k)
+        acc.add_(torch.stack([(~(lpb._quality(s) <= LP_QUALITY_GUARD)).sum()
+                              for s in (sol, out)]))
+        return out
+
+    ls._warm_rescue = rescue
+    try:
+        yield acc
+    finally:
+        ls._warm_rescue = orig
+
+
+def _guard_text(acc) -> str:
+    before, after = (int(v) for v in acc.tolist())
+    return f"{before}->{after}"
+
+
 def _k1_guarded_check(st, args, pol_k, pol_p, ker_score, pla_score,
-                      deep=False):
+                      deep=False, path=None):
     """K1 against its plain version where the screened evaluator keeps
     both answers (lane quality, primal residual + 2 n gap, within the
     evaluator's LP_QUALITY_GUARD on both sides), and against the float64
@@ -917,7 +1086,10 @@ def _k1_guarded_check(st, args, pol_k, pol_p, ker_score, pla_score,
     lanes and the counts. ``deep``: kept lanes whose objectives differ
     by more than K1_DEEP_BOUND go to the float64 optimum too, and the
     counts add K1's lanes off it by more than the guard, flagged by the
-    guard and not."""
+    guard and not. ``path``: the LP path's solution of the same lanes
+    (K1, the polish, the warm rescue); the counts add its lanes past the
+    guard and, of the judged lanes, those it leaves off the optimum by
+    more than the guard, flagged and not."""
     import numpy as np
     import torch
     q = lambda sol: sol.primal_residual + 2 * st.n * sol.duality_gap
@@ -942,6 +1114,14 @@ def _k1_guarded_check(st, args, pol_k, pol_p, ker_score, pla_score,
         oracle_plain_closer=int((err_k > err_p + K1_OBJ_BOUND).sum()),
         oracle_kernel_off=int((err_k > np.maximum(err_p, LP_QUALITY_GUARD))
                               .sum() + np.isnan(opt).sum()))
+    if path is not None:
+        err_path = np.abs(path.objective[lanes].double().cpu().numpy() - opt)
+        flagged = ~(q(path)[lanes] <= LP_QUALITY_GUARD).cpu().numpy()
+        off = ~(err_path <= LP_QUALITY_GUARD)
+        info.update(guard_failed_path=int((~(q(path) <= LP_QUALITY_GUARD))
+                                          .sum()),
+                    oracle_path_off_flagged=int((off & flagged).sum()),
+                    oracle_path_off_unflagged=int((off & ~flagged).sum()))
     if deep:
         flagged_k = (q(pol_k)[lanes] > LP_QUALITY_GUARD).cpu().numpy()
         off_k = ~(err_k <= LP_QUALITY_GUARD)
@@ -955,14 +1135,17 @@ def _k1_guarded_check(st, args, pol_k, pol_p, ker_score, pla_score,
 
 
 def _k1_shape(sys_, st, n_lanes, cfg, args=None, tag="k1", guarded=False,
-              deep=False):
+              deep=False, x_init=None):
     """K1 against its plain version on ``n_lanes`` real RTS-24 LP lanes
     (``args``, or :func:`_lp_lanes`' peak-load lanes): errors, times,
     launch shape and the work this run's lanes need. ``guarded``: the
     errors are taken where the evaluator keeps both answers, and the
     float64 optimum judges the other lanes (:func:`_k1_guarded_check`).
     ``deep`` (guarded, deep multi-branch lanes): K1_DEEP_BOUND bounds
-    the kept lanes, and K1's off lanes must be flagged."""
+    the kept lanes, and K1's off lanes must be flagged. ``x_init``: both
+    start there (the warm rescue's launch); else, where guarded, the LP
+    path on the same lanes (K1, the polish and the warm rescue) adds its
+    lanes past the guard."""
     import ctypes
     import torch
     from powersystemsreliabilityassessment_tpu_torch.engines.lp_ipm_structured import (
@@ -971,10 +1154,12 @@ def _k1_shape(sys_, st, n_lanes, cfg, args=None, tag="k1", guarded=False,
         cuda_build, ipm_fused)
     from powersystemsreliabilityassessment_tpu_torch.utils.config import (
         IPMConfig)
+    from powersystemsreliabilityassessment_tpu_torch.engines import (
+        lp_ipm_structured as ls)
     if args is None:
         args = _lp_lanes(sys_, n_lanes, seed=7)
-    ker = ipm_fused.fused_ipm_iterations(st, *args, cfg)
-    pla = ipm_fused.fused_ipm_iterations_plain(st, *args, cfg)
+    ker = ipm_fused.fused_ipm_iterations(st, *args, cfg, x_init=x_init)
+    pla = ipm_fused.fused_ipm_iterations_plain(st, *args, cfg, x_init)
     torch.cuda.synchronize()
     pol_k = polish_structured(st, ker, *args, cfg)
     pol_p = polish_structured(st, pla, *args, cfg)
@@ -982,17 +1167,19 @@ def _k1_shape(sys_, st, n_lanes, cfg, args=None, tag="k1", guarded=False,
     finite = all(bool(torch.isfinite(t).all()) for t in ker)
     guard = {}
     if guarded:
+        path = (None if x_init is not None
+                else ls.solve_box_lp_structured(st, *args, cfg))
         obj_err, score_err, guard = _k1_guarded_check(
-            st, args, pol_k, pol_p, ker[4], pla[4], deep)
+            st, args, pol_k, pol_p, ker[4], pla[4], deep, path)
     else:
         obj_err = float((obj_k - obj_p).abs().max())
         score_err = float((ker[4] - pla[4]).abs().max())
     x_err = float((ker[5] - pla[5]).abs().max())
     ms = statistics.median(
-        _time_ms(lambda: ipm_fused.fused_ipm_iterations(st, *args, cfg))
-        for _ in range(5))
-    plain_ms = _time_ms(
-        lambda: ipm_fused.fused_ipm_iterations_plain(st, *args, cfg), reps=2)
+        _time_ms(lambda: ipm_fused.fused_ipm_iterations(
+            st, *args, cfg, x_init=x_init)) for _ in range(5))
+    plain_ms = _time_ms(lambda: ipm_fused.fused_ipm_iterations_plain(
+        st, *args, cfg, x_init), reps=2)
     # The work this run's lanes need: a lane frozen at mu < mu_tol never
     # changes again, and the kernel stops its lane. Count the lane-
     # iterations that moved x by replaying the loop 1..16 iterations; each
@@ -1002,18 +1189,20 @@ def _k1_shape(sys_, st, n_lanes, cfg, args=None, tag="k1", guarded=False,
     prev, active = c.new_full(c.shape, float("nan")), 0
     for k in range(1, cfg.iterations + 1):
         xk = ipm_fused.fused_ipm_iterations(
-            st, *args, IPMConfig(iterations=k))[0]
+            st, *args, IPMConfig(iterations=k), x_init=x_init)[0]
         active += int((xk != prev).any(1).sum())
         prev = xk
     B, n, m = c.shape[0], st.n, st.m
+    n_in = 4 * n + st.nl + m + (0 if x_init is None else n)
     bound = _bound(active * (m ** 3 / 3 + 4 * m * m),
-                   4 * B * ((4 * n + st.nl + m) + (4 * n + m + 1)))
+                   4 * B * (n_in + (4 * n + m + 1)))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     lpb, wpl, smem = ipm_fused.launch_shape(st, B, sms)
     blocks = ctypes.c_int(0)
     cuda_build.check_launch(cuda_build.library().psra_fused_ipm_occupancy(
         m, n, lpb, wpl, smem, ctypes.byref(blocks)), "occupancy")
-    row = dict(lanes=B, finite=finite, objective_err_pu=obj_err,
+    row = dict(lanes=B, start="midpoint" if x_init is None else "warm",
+               finite=finite, objective_err_pu=obj_err,
                best_score_err=score_err, best_x_err=x_err, ms=ms,
                plain_ms=plain_ms, active_lane_iterations=active,
                lanes_per_block=lpb, warps_per_lane=wpl, smem_bytes=smem,
@@ -1024,7 +1213,7 @@ def _k1_shape(sys_, st, n_lanes, cfg, args=None, tag="k1", guarded=False,
                               else (K1_OBJ_BOUND, K1_SCORE_BOUND))
     obj_text = (f"<={obj_bound}_or_float64_judged" if deep
                 else f"<={obj_bound}")
-    _line(tag, lanes=B, finite=finite,
+    _line(tag, lanes=B, start=row["start"], finite=finite,
           objective_err_pu=f"{obj_err:.3e}{obj_text}",
           best_score_err=f"{score_err:.3e}<={score_bound}",
           best_x_err=f"{x_err:.3e}", kernel_ms=f"{ms:.4f}",
@@ -1043,6 +1232,9 @@ def _k1_shape(sys_, st, n_lanes, cfg, args=None, tag="k1", guarded=False,
         obj_bound = float("inf")
     else:
         ok = guard.get("oracle_kernel_off", 0) == 0
+    # The LP path may leave a lane off the optimum only where the guard
+    # flags it (the evaluator then keeps the certificate's bound).
+    ok = ok and guard.get("oracle_path_off_unflagged", 0) == 0
     if not (finite and ok and obj_err <= obj_bound
             and score_err <= score_bound):
         raise RuntimeError(f"{tag}: K1 disagrees with the plain version at "
@@ -1057,6 +1249,13 @@ def phase_k1(sys_, results):
     cfg = IPMConfig()
     st = ipm_fused.build_structure(sys_)
     shapes = {str(n): _k1_shape(sys_, st, n, cfg) for n in K1_LANES}
+    # The warm rescue's launch: RESCUE_LANES lanes from a start point,
+    # on the rescue's own inputs for the hard lanes (guarded: these are
+    # the lanes where two float32 IPMs part).
+    lanes, start = _rescue_inputs(sys_, st, cfg)
+    shapes["warm"] = _k1_shape(sys_, st, lanes[2].shape[0], cfg, args=lanes,
+                               guarded=True, x_init=start)
+    _k1_null_start_bits(st, cfg)
     # The checked quantities: polished objective (p.u.) and best_score.
     # best_x is reported in the k1 lines but not bounded: on degenerate
     # optimal faces two float32 paths reach different optimal points.
@@ -1073,6 +1272,106 @@ def phase_k1(sys_, results):
         active_lane_iterations=first["active_lane_iterations"],
         bound_ms=first["bound_ms"], bound_by=first["bound_by"],
         shapes=shapes)
+
+
+def phase_faulta(sys_, results):
+    """Fault A on the card: the hard SEQ lanes of HARD_LANES through the
+    LP tier (``solve_box_lp_structured``: K1, the polish, then the warm
+    rescue) against float64 HiGHS, with the rescue off (RESCUE_LANES 0)
+    and on: lanes more than LP_QUALITY_GUARD p.u. off the optimum, lanes
+    past the guard, off lanes the guard does not flag (which must be
+    none), the largest errors and K1's launches. Fails on a non-finite
+    objective or an off lane left unflagged."""
+    import numpy as np
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.engines import (
+        lp_ipm_batched as lpb, lp_ipm_structured as ls)
+    from powersystemsreliabilityassessment_tpu_torch.ops import ipm_fused
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        IPMConfig)
+    st = ipm_fused.build_structure(sys_)
+    args = _hard_lanes(sys_)
+    n = args[2].shape[0]
+    opt = _lp_oracle(st, args, range(n))
+    lane_ids = np.load(HARD_LANES)["lane"]
+    saved, rows = ls.RESCUE_LANES, {}
+    try:
+        for k in (0, saved):
+            ls.RESCUE_LANES = k
+            _reset_counts()
+            sol = ls.solve_box_lp_structured(st, *args, IPMConfig())
+            torch.cuda.synchronize()
+            counts = _counts()
+            obj = sol.objective.double().cpu().numpy()
+            q = lpb._quality(sol).cpu().numpy()
+            err = np.abs(obj - opt)
+            off = ~(err <= LP_QUALITY_GUARD)
+            flagged = ~(q <= LP_QUALITY_GUARD)
+            rows[k] = row = dict(
+                rescue_lanes=k, lanes=n, off=int(off.sum()),
+                flagged=int(flagged.sum()),
+                off_unflagged=int((off & ~flagged).sum()),
+                max_err_pu=float(err.max()),
+                max_err_kept_pu=float(err[~flagged].max())
+                if (~flagged).any() else 0.0,
+                finite=bool(np.isfinite(obj).all()),
+                k1_launches=counts["fused_ipm_iterations"],
+                off_lanes={int(lane_ids[i]): round(float(err[i]), 6)
+                           for i in np.flatnonzero(off)})
+            _line("faulta", **{key: (f"{v:.3e}" if isinstance(v, float)
+                                     else json.dumps(v).replace(" ", "")
+                                     if isinstance(v, dict) else v)
+                               for key, v in row.items()},
+                  tolerance_pu=LP_QUALITY_GUARD)
+    finally:
+        ls.RESCUE_LANES = saved
+    on = rows[saved]
+    on["maint_hour"] = _faulta_maint_hour(sys_)
+    results.setdefault("fused_ipm_iterations", {})["fault_a"] = on
+    if not on["finite"] or on["off_unflagged"]:
+        raise RuntimeError(f"faulta: {on['off_unflagged']} lanes off the "
+                           "float64 optimum and not flagged, or a "
+                           "non-finite objective")
+
+
+def _faulta_maint_hour(sys_) -> dict:
+    """The maintenance hour MAINT_HOUR through ``evaluate_states`` on the
+    card with the warm rescue off and on, beside its float64 optimum:
+    DNS in MW and the lane's quality score."""
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.core import load_profile
+    from powersystemsreliabilityassessment_tpu_torch.engines import (
+        dcopf, lp_ipm_structured as ls)
+    from powersystemsreliabilityassessment_tpu_torch.ops import ipm_fused
+    from powersystemsreliabilityassessment_tpu_torch.studies import hl2_seq
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        CompatFlags, IPMConfig)
+    load = hl2_seq.year_block_load(sys_, load_profile.load_factors(2016),
+                                   2)[MAINT_HOUR:MAINT_HOUR + 1]
+    down = torch.zeros((1, sys_.n_comp), dtype=torch.bool, device="cuda")
+    down[0, list(MAINT_DOWN)] = True
+    st = ipm_fused.build_structure(sys_)
+    up = 1.0 - down.float()
+    vec = dcopf.build_state_lp_vectors(
+        sys_, up[:, :sys_.n_gen], up[:, sys_.n_gen:].contiguous(), load,
+        CompatFlags(), IPMConfig().theta_max)
+    args = (vec[4], up[:, sys_.n_gen:].contiguous(), *vec[:4])
+    row = dict(oracle_mw=float(_lp_oracle(st, args, [0])[0])
+               * sys_.base_mva)
+    saved = ls.RESCUE_LANES
+    try:
+        for k in (0, saved):
+            ls.RESCUE_LANES = k
+            res = dcopf.evaluate_states(sys_, down, load)
+            row[f"rescue_{k}"] = dict(dns_mw=float(res.dns_mw[0]),
+                                      quality=float(res.primal_residual[0]))
+    finally:
+        ls.RESCUE_LANES = saved
+    _line("faulta", maint_hour=MAINT_HOUR,
+          units_down=json.dumps(list(MAINT_DOWN)).replace(" ", ""),
+          **{k: (json.dumps(v).replace(" ", "") if isinstance(v, dict)
+                 else f"{v:.4f}") for k, v in row.items()})
+    return row
 
 
 def _bench_run(step, batch):
@@ -2061,9 +2360,10 @@ def phase_seq(sys_, results):
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     t0 = time.perf_counter()
-    res = hl2_seq.run_seq_study(cases.rts24(), MCSConfig(seed=1),
-                                device="cuda", log_every=0,
-                                years_per_device=years_per_step)
+    with _guard_counter() as guard:
+        res = hl2_seq.run_seq_study(cases.rts24(), MCSConfig(seed=1),
+                                    device="cuda", log_every=0,
+                                    years_per_device=years_per_step)
     wall = time.perf_counter() - t0
     counts = _counts()
     steps = res.years // years_per_step
@@ -2085,6 +2385,7 @@ def phase_seq(sys_, results):
           lole_lolf_ref_se="port's", overflow_hours=res.overflow_hours,
           infeasible_hours=res.infeasible_hours, wall_s=f"{wall:.2f}",
           peak_mem_bytes=torch.cuda.max_memory_allocated(),
+          lp_lanes_past_guard=_guard_text(guard),
           launches=json.dumps(counts).replace(" ", ""))
     _check_launched("seq", counts, RTS24_KERNELS)
     low = [k for k, per in (("fused_ipm_iterations", 1), ("cholesky", 2),
@@ -3238,8 +3539,9 @@ def phase_enum24(results):
     _reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ex = enumeration.enumerate_exact(sys_, CompatFlags(), IPMConfig(), "lp",
-                                     5)
+    with _guard_counter() as guard:
+        ex = enumeration.enumerate_exact(sys_, CompatFlags(), IPMConfig(),
+                                         "lp", 5)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _counts()
@@ -3260,7 +3562,7 @@ def phase_enum24(results):
           infeasible=ex.infeasible, wall_s=f"{wall:.2f}",
           states_per_s=f"{ex.n_states / wall:.0f}",
           record_tpu_prepass_wall_s=ref["prepass_k5"]["wall_s"],
-          card=repr(CARD["smi"]),
+          card=repr(CARD["smi"]), lp_lanes_past_guard=_guard_text(guard),
           launches=json.dumps(counts).replace(" ", ""))
     _check_launched("enum24", counts, RTS24_KERNELS)
     _record_launches(results, "enum24_order5", counts)
@@ -3776,16 +4078,20 @@ def phase_plan():
 
 
 @contextlib.contextmanager
-def _capturing_k1(store: list):
+def _capturing_k1(store: list, warm: bool = False):
     """While active, the inputs of every K1 call on the LP path
-    (``lp_kernels(...).iterate``) are appended to ``store``."""
+    (``lp_kernels(...).iterate``) from the box midpoint, or with
+    ``warm`` every call with a start point (the warm rescue's; the start
+    appended as a seventh input), are appended to ``store``."""
     from powersystemsreliabilityassessment_tpu_torch.engines import (
         lp_ipm_batched as lpb)
     kernels = lpb._DIRECT_KERNELS["cuda"]
 
-    def iterate(st, *args):
-        store.append(tuple(a.clone() for a in args[:6]))
-        return kernels.iterate(st, *args)
+    def iterate(st, *args, x_init=None):
+        if (x_init is not None) == warm:
+            extra = (x_init,) if warm else ()
+            store.append(tuple(a.clone() for a in (*args[:6], *extra)))
+        return kernels.iterate(st, *args, x_init=x_init)
 
     lpb._DIRECT_KERNELS["cuda"] = kernels._replace(iterate=iterate)
     try:
@@ -3820,7 +4126,7 @@ def phase_seqmaint(sys_, results):
     log = io.StringIO()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(log):
+    with contextlib.redirect_stdout(log), _guard_counter() as guard:
         res = hl2_seq.run_seq_study(
             cases.rts24(), cfg, device="cuda", log_every=0,
             years_per_device=years_per_step, max_lp=max_lp,
@@ -3849,6 +4155,7 @@ def phase_seqmaint(sys_, results):
           promotions=text.count("promoting max_lp"),
           infeasible_hours=res.infeasible_hours, wall_s=f"{wall:.2f}",
           record_tpu_wall_s=f"{rec['wall_s']:.2f}", card=repr(CARD["smi"]),
+          lp_lanes_past_guard=_guard_text(guard),
           launches=json.dumps(counts).replace(" ", ""))
     _check_launched("seqmaint", counts, RTS24_KERNELS)
     _record_launches(results, "seqmaint", counts)
@@ -4093,7 +4400,9 @@ def phase_split(sys_, results):
     ref = json.loads((ROOT / "results" / "seq_results.json").read_text())
     cfg = MCSConfig(max_years=SPLIT_YEARS, cov_threshold=0.0,
                     seed=SPLIT_SEED)
-    res, wall, counts, log = _split_run(cfg, SplitConfig())
+    with _guard_counter() as guard:
+        res, wall, counts, log = _split_run(cfg, SplitConfig())
+    _line("split", study="split", lp_lanes_past_guard=_guard_text(guard))
     level = float(log.split("auto-calibrated splitting level: ")[1]
                   .split(" MW")[0])
     ctl, ctl_wall, _, ctl_log = _split_run(
@@ -4439,6 +4748,33 @@ def _profile_lines(tag, layers, reps=16, top=12):
                 ("launches", sum(e.count for e in evs) / reps))})
 
 
+def _rescue_ab(tag, layers, reps=16):
+    """Each of ``layers`` (name -> callable) with the warm rescue off
+    (``lp_ipm_structured.RESCUE_LANES`` 0: the LP tier as it was before
+    the rescue) and on, in the order off, on, on, off in this process:
+    host wall ms, device ms and launches per call of each run, and the
+    rescue's own launches per call (on less off)."""
+    from powersystemsreliabilityassessment_tpu_torch.engines import (
+        lp_ipm_structured as ls)
+    saved = ls.RESCUE_LANES
+    try:
+        for name, fn in layers.items():
+            runs = []
+            for k in (0, saved, saved, 0):
+                ls.RESCUE_LANES = k
+                runs.append(_measure(fn, reps)[:3])
+            join = lambda i: ",".join(f"{r[i]:.3f}" for r in runs)  # noqa: E731
+            gain = lambda i: (runs[1][i] + runs[2][i]  # noqa: E731
+                              - runs[0][i] - runs[3][i]) / 2
+            _line(tag, layer=f"{name}_rescue_ab", order="off,on,on,off",
+                  wall_ms=join(0), device_ms=join(1), kernel_launches=join(2),
+                  rescue_wall_ms=f"{gain(0):.3f}",
+                  rescue_device_ms=f"{gain(1):.3f}",
+                  rescue_launches=f"{gain(2):.1f}")
+    finally:
+        ls.RESCUE_LANES = saved
+
+
 def phase_profile(sys_):
     import torch
     from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
@@ -4470,6 +4806,10 @@ def phase_profile(sys_):
             gen(), sys_.unavail, sys_.always_up_nsq, batch),
         "tier1": lambda: dcopf.certify_states(
             sys_, down, load, shed_hint=hint_b, repair_buffer=rbuf),
+        "lp_tier": lambda: dcopf.evaluate_states(sys_, down[idx], load[idx]),
+    })
+    _rescue_ab("profile", {
+        "step": lambda: step(gen()),
         "lp_tier": lambda: dcopf.evaluate_states(sys_, down[idx], load[idx]),
     })
     # The fused step (fused_tier1) and its two tier-1 layers.
@@ -4531,6 +4871,11 @@ def phase_profile_seq(sys_):
             sys_, CompatFlags(), IPMConfig(), load, down, years * max_lp),
         "tier1": lambda: dcopf.certify_states(sys_, flat, load,
                                               repair_buffer=rbuf),
+        "lp_tier": lambda: dcopf.evaluate_states(sys_, flat[idx],
+                                                 load[idx]),
+    })
+    _rescue_ab("profile_seq", {
+        "step": lambda: step(gen()),
         "lp_tier": lambda: dcopf.evaluate_states(sys_, flat[idx],
                                                  load[idx]),
     })
@@ -4625,6 +4970,8 @@ def main() -> int:
         phase_k2(sys_, sys96, results)
     if "k1" in phases:
         phase_k1(sys_, results)
+    if "faulta" in phases:
+        phase_faulta(sys_, results)
     if "bench" in phases:
         phase_bench(sys_, results)
     if "study" in phases:

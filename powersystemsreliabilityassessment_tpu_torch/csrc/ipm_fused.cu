@@ -95,6 +95,7 @@ struct IPMArgs {
   const float* b;         // [B, m]
   const float* l;         // [B, n]
   const float* u;         // [B, n]
+  const float* x_init;    // [B, n] start point, or null: the box midpoint
   // Shared LP structure.
   const float* invb;      // [nl] branch reactances 1/b
   const int* gen_bus;     // [ng]
@@ -635,7 +636,8 @@ fused_ipm_kernel(IPMArgs p) {
       C.cc[k] = p.c[ln + k];
       C.lo[k] = p.l[ln + k];
       C.up[k] = p.u[ln + k];
-      x[r] = 0.5f * (C.lo[k] + C.up[k]);
+      x[r] = p.x_init != nullptr ? p.x_init[ln + k]
+                                 : 0.5f * (C.lo[k] + C.up[k]);
       C.bx[k] = x[r];
     }
     zl[r] = 1.0f;
@@ -860,12 +862,15 @@ inline cudaError_t ipm_prepare(int inst, IpmKernel kern) {
 // with smem_bytes of dynamic shared memory (which must equal the layout
 // above: ops/ipm_fused.py::launch_shape computes both), allocates
 // nothing, returns cudaGetLastError() (cudaErrorInvalidValue for a shape
-// no instance takes or a shared-memory size that disagrees).
+// no instance takes or a shared-memory size that disagrees). x_init, a
+// [batch, n] start point strictly inside the box, may be null: then each
+// lane starts at its box midpoint.
 extern "C" int psra_fused_ipm(
     const float* colscale, const float* br_up, const float* c,
-    const float* b, const float* l, const float* u, const float* invb,
-    const int* gen_bus, const int* load_bus, const int* br_from,
-    const int* br_to, const int* bus_ptr, const int* bus_col,
+    const float* b, const float* l, const float* u, const float* x_init,
+    const float* invb, const int* gen_bus, const int* load_bus,
+    const int* br_from, const int* br_to, const int* bus_ptr,
+    const int* bus_col,
     float* x, float* y, float* zl, float* zu, float* best_x,
     float* best_score, int batch, int ng, int nd, int nl, int nb,
     int iters, int lanes_per_block, int warps_per_lane, int smem_bytes,
@@ -882,10 +887,10 @@ extern "C" int psra_fused_ipm(
   cudaError_t err = psra::ipm_prepare(inst, kern);
   if (err != cudaSuccess) return (int)err;
   if (batch <= 0) return (int)cudaGetLastError();
-  psra::IPMArgs p{colscale, br_up, c, b, l, u, invb, gen_bus, load_bus,
-                  br_from, br_to, bus_ptr, bus_col, x, y, zl, zu, best_x,
-                  best_score, batch, ng, nd, nl, nb, iters, lanes_per_block,
-                  tau, delta, mu_tol, center_tol};
+  psra::IPMArgs p{colscale, br_up, c, b, l, u, x_init, invb, gen_bus,
+                  load_bus, br_from, br_to, bus_ptr, bus_col, x, y, zl, zu,
+                  best_x, best_score, batch, ng, nd, nl, nb, iters,
+                  lanes_per_block, tau, delta, mu_tol, center_tol};
   const int grid = (batch + lanes_per_block - 1) / lanes_per_block;
   kern<<<grid, lanes_per_block * 32 * warps_per_lane, smem_bytes,
          (cudaStream_t)stream>>>(p);

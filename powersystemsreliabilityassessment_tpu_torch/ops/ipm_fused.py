@@ -206,14 +206,16 @@ def normal_matrix(st: LPStructure, wb, bru):
 
 
 def fused_ipm_iterations_plain(st: LPStructure, colscale, br_up, c, b, l, u,
-                               cfg: IPMConfig = IPMConfig()):
+                               cfg: IPMConfig = IPMConfig(), x_init=None):
     """Plain PyTorch version of the K1 kernel (the reference kernel's
     algorithm): ``cfg.iterations`` Mehrotra predictor-corrector steps on
-    every lane, with the reference's per-lane freeze (``mu < mu_tol`` or a
-    non-finite step keeps the state) and best-iterate tracking. Each
-    iteration forms the equilibrated, regularized normal matrix, factors
-    it with the pivot-floored right-looking Cholesky and solves by
-    forward and back substitution.
+    every lane from ``x_init`` ([B, n], strictly inside the box; None =
+    the box midpoint) with y = 0 and zl = zu = 1, with the reference's
+    per-lane freeze (``mu < mu_tol`` or a non-finite step keeps the
+    state) and best-iterate tracking. Each iteration forms the
+    equilibrated, regularized normal matrix, factors it with the
+    pivot-floored right-looking Cholesky and solves by forward and back
+    substitution.
 
     Returns batch-major ``(x, y, zl, zu, best_score, best_x)``.
     """
@@ -253,7 +255,7 @@ def fused_ipm_iterations_plain(st: LPStructure, colscale, br_up, c, b, l, u,
         return (torch.clamp_max(tau * ap, 1.0)[:, None],
                 torch.clamp_max(tau * ad, 1.0)[:, None])
 
-    x = 0.5 * (l + u)
+    x = 0.5 * (l + u) if x_init is None else x_init
     y = torch.zeros_like(b)
     zl = torch.ones_like(c)
     zu = torch.ones_like(c)
@@ -309,9 +311,12 @@ def fused_ipm_iterations_plain(st: LPStructure, colscale, br_up, c, b, l, u,
 
 
 def fused_ipm_iterations(st: LPStructure, colscale, br_up, c, b, l, u,
-                         cfg: IPMConfig = IPMConfig()):
+                         cfg: IPMConfig = IPMConfig(), x_init=None):
     """Run the whole Mehrotra iteration loop; mirrors reference
-    ``ops/ipm_fused.py::fused_ipm_iterations``.
+    ``ops/ipm_fused.py::fused_ipm_iterations``, with an optional start
+    point ``x_init`` [B, n] (None = the box midpoint, the reference's
+    only start), which the warm rescue of
+    ``engines/lp_ipm_structured.py`` passes.
 
     Inputs are batch-major float32 ([B, n] / [B, nl] / [B, m]); any B.
     Returns batch-major ``(x, y, zl, zu, best_score, best_x)`` — the state
@@ -320,13 +325,15 @@ def fused_ipm_iterations(st: LPStructure, colscale, br_up, c, b, l, u,
     """
     if c.device.type == "cpu":
         return fused_ipm_iterations_plain(st, colscale, br_up, c, b, l, u,
-                                          cfg)
+                                          cfg, x_init)
     B, n, m, nl = c.shape[0], st.n, st.m, st.nl
     lpb, wpl, smem = launch_shape(
         st, B, torch.cuda.get_device_properties(c.device).multi_processor_count)
     ops = {"colscale": (colscale, (B, n)), "br_up": (br_up, (B, nl)),
            "c": (c, (B, n)), "b": (b, (B, m)), "l": (l, (B, n)),
            "u": (u, (B, n)), "inv_b": (st.inv_b, (nl,))}
+    if x_init is not None:
+        ops["x_init"] = (x_init, (B, n))
     lists = {"gen_bus": (st.gen_bus, (st.ng,)),
              "load_bus": (st.load_bus, (st.nd,)),
              "br_from": (st.br_from, (nl,)), "br_to": (st.br_to, (nl,)),
@@ -345,7 +352,8 @@ def fused_ipm_iterations(st: LPStructure, colscale, br_up, c, b, l, u,
     best_score = torch.empty((B,), dtype=c.dtype, device=c.device)
     err = cuda_build.library().psra_fused_ipm(
         colscale.data_ptr(), br_up.data_ptr(), c.data_ptr(), b.data_ptr(),
-        l.data_ptr(), u.data_ptr(), st.inv_b.data_ptr(),
+        l.data_ptr(), u.data_ptr(),
+        None if x_init is None else x_init.data_ptr(), st.inv_b.data_ptr(),
         *(t.data_ptr() for t, _ in lists.values()),
         x.data_ptr(), y.data_ptr(), zl.data_ptr(), zu.data_ptr(),
         best_x.data_ptr(), best_score.data_ptr(),

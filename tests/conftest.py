@@ -26,3 +26,6 @@ jax.config.update("jax_platforms", "cpu")
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "gpu: needs a CUDA card; skipped where there is none")
+    config.addinivalue_line(
+        "markers", "slow: longer than the Tier-1 run allows; deselected "
+        "there with -m 'not slow'")

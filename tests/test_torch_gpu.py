@@ -411,17 +411,18 @@ def edge_lp_inputs(kind, device, n=256, seed=17):
     return ipm_fused.build_structure(sys_), _lp_inputs(sys_, down)
 
 
-def _k1_check(st, args, cfg=IPMConfig()):
-    """K1 against its plain version on the same lanes: every output
-    finite, best_score within K1_SCORE_BOUND (1e-3), as chip_smoke.py's
-    k1 phase holds it; the polished objective within 1e-3 p.u. (0.1 MW,
-    K1_OBJ_BOUND) on all but one lane in a thousand and within 1e-2 p.u.
-    on every lane. Both are float32 IPMs in another summation order; on
-    a degenerate stressed lane the two iterates polished to objectives
-    1.8e-3 p.u. apart on an H100 (one of 2,048 stressed lanes)."""
+def _k1_check(st, args, cfg=IPMConfig(), x_init=None):
+    """K1 against its plain version on the same lanes (both from
+    ``x_init`` when given): every output finite, best_score within
+    K1_SCORE_BOUND (1e-3), as chip_smoke.py's k1 phase holds it; the
+    polished objective within 1e-3 p.u. (0.1 MW, K1_OBJ_BOUND) on all but
+    one lane in a thousand and within 1e-2 p.u. on every lane. Both are
+    float32 IPMs in another summation order; on a degenerate stressed
+    lane the two iterates polished to objectives 1.8e-3 p.u. apart on an
+    H100 (one of 2,048 stressed lanes)."""
     before = ipm_fused.launches["fused_ipm_iterations"]
-    ker = ipm_fused.fused_ipm_iterations(st, *args, cfg)
-    pla = ipm_fused.fused_ipm_iterations_plain(st, *args, cfg)
+    ker = ipm_fused.fused_ipm_iterations(st, *args, cfg, x_init=x_init)
+    pla = ipm_fused.fused_ipm_iterations_plain(st, *args, cfg, x_init)
     torch.cuda.synchronize()
     assert ipm_fused.launches["fused_ipm_iterations"] == before + 1
     assert all(bool(torch.isfinite(t).all()) for t in ker)
@@ -501,6 +502,45 @@ def test_k1_ragged_batches_match_plain(cuda, batch):
     sys_ = build_system(cases.rts24(), device=cuda)
     _k1_check(ipm_fused.build_structure(sys_),
               _lp_inputs(sys_, _stressed_states(batch, 14)))
+
+
+def _warm_start(st, args, frac=0.02):
+    """The warm rescue's first start point: the polished solution of a
+    cold solve, clamped ``frac`` of the box width inside."""
+    l, u = args[4], args[5]
+    cold = lp_ipm_structured.polish_structured(
+        st, ipm_fused.fused_ipm_iterations_plain(st, *args), *args)
+    return torch.clamp(cold.x, l + frac * (u - l), u - frac * (u - l))
+
+
+@pytest.mark.gpu
+def test_k1_from_a_start_point_matches_plain(cuda):
+    # The warm rescue's launch: RESCUE_LANES lanes (two warps a lane)
+    # from the rescue's first start point.
+    sys_ = build_system(cases.rts24(), device=cuda)
+    st = ipm_fused.build_structure(sys_)
+    args = _lp_inputs(sys_, _stressed_states(
+        lp_ipm_structured.RESCUE_LANES, 15))
+    _k1_check(st, args, x_init=_warm_start(st, args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [16, 2048])
+def test_k1_null_start_is_the_box_midpoint(cuda, batch):
+    # No start point and the box midpoint passed as one give the same
+    # bits, at both instances' shapes.
+    sys_ = build_system(cases.rts24(), device=cuda)
+    st = ipm_fused.build_structure(sys_)
+    args = _lp_inputs(sys_, _stressed_states(batch, 16))
+    cold = ipm_fused.fused_ipm_iterations(st, *args)
+    mid = ipm_fused.fused_ipm_iterations(
+        st, *args, x_init=0.5 * (args[4] + args[5]))
+    for a, b in zip(cold, mid):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        ipm_fused.fused_ipm_iterations(st, *args, x_init=args[4][:, 1:])
+    with pytest.raises(ValueError):
+        ipm_fused.fused_ipm_iterations(st, *args, x_init=args[4].cpu())
 
 
 @pytest.mark.gpu
@@ -1436,10 +1476,13 @@ def test_seq_step_never_waits_for_the_device(cuda):
     ens, plc, nlc, dlc = out[:4]
     assert ens.shape == (16,) and bool(torch.isfinite(ens).all())
     assert int(out[8]) == 0 and bool((dlc <= hours).all())
+    # K1 and the polish (two factors, three solves), then the warm
+    # rescue: K1 once for each float of rescue_stages and one more polish.
+    warm = sum(f is not None for f in IPMConfig().rescue_stages)
     assert ipm_fused.launches["fused_ipm_iterations"] == \
-        before["fused_ipm_iterations"] + 1
-    assert bc.launches["cholesky"] == before["cholesky"] + 2
-    assert bc.launches["cho_solve"] == before["cho_solve"] + 3
+        before["fused_ipm_iterations"] + 1 + warm
+    assert bc.launches["cholesky"] == before["cholesky"] + 2 * 2
+    assert bc.launches["cho_solve"] == before["cho_solve"] + 3 * 2
 
 
 def _sampler_draws(kind, sys_, masks, gen, batch):

@@ -193,6 +193,36 @@ def test_lp_route_table():
         lp_ipm_batched.lp_kernels(torch.device("meta"), 62)
 
 
+def _hard_lanes():
+    """The structure and structured LP inputs of the 29 hard SEQ LP lanes
+    of RTS-24 in tests/golden/seq_hard_lanes.npz, with their lane ids."""
+    d = np.load(pathlib.Path(__file__).parent / "golden"
+                / "seq_hard_lanes.npz")
+    sys_ = from_reference(ref_build_system(ref_cases.rts24()), device="cpu")
+    up = 1.0 - torch.as_tensor(d["down"]).float()
+    c, b, l, u, cs = dcopf.build_state_lp_vectors(
+        sys_, up[:, :33], up[:, 33:].contiguous(), torch.as_tensor(d["load"]),
+        CompatFlags(), IPMConfig().theta_max)
+    return (ipm_fused.build_structure(sys_),
+            (cs, up[:, 33:].contiguous(), c, b, l, u), d["lane"])
+
+
+def _highs_objectives(st, args):
+    """Float64 HiGHS optima of the structured LP lanes ``args``."""
+    cs, bu, c, b, l, u = args
+    eye = torch.eye(st.n)
+    out = []
+    for i in range(c.shape[0]):
+        A = ipm_fused.mv(st, cs[i].expand(st.n, -1), bu[i].expand(st.n, -1),
+                         eye).T
+        f = lambda t: t.double().numpy()
+        r = linprog(f(c[i]), A_eq=f(A), b_eq=f(b[i]),
+                    bounds=list(zip(f(l[i]), f(u[i]))), method="highs")
+        assert r.status == 0
+        out.append(r.fun)
+    return np.asarray(out)
+
+
 def test_plain_k1_on_hard_seq_lanes_is_optimal_or_flagged():
     """29 hard SEQ LP lanes of RTS-24 (tests/golden/seq_hard_lanes.npz,
     written by scripts/torch_seq_lane_faults.py --golden: the outage
@@ -203,34 +233,96 @@ def test_plain_k1_on_hard_seq_lanes_is_optimal_or_flagged():
     version and the reference kernel part at the fourth Mehrotra
     iteration, once the barrier weights make the normal matrix
     ill-conditioned, and which lanes then stall depends on the float32
-    rounding order (PERF.md §6). What holds on every lane: the
-    polished objective is within the evaluator's 5e-3 of the float64
-    HiGHS optimum, or the lane's quality score fails the evaluator's
-    5e-3 guard, so the evaluator takes the certificate's bound and never
-    an off-optimum LP answer. The plain version leaves 6 of the 29
-    lanes off (PERF.md §6; bringing it within 5e-3 of HiGHS on these
-    lanes is open in ROADMAP.md Queue 3): a seventh is a regression."""
-    d = np.load(pathlib.Path(__file__).parent / "golden"
-                / "seq_hard_lanes.npz")
-    sys_ = from_reference(ref_build_system(ref_cases.rts24()), device="cpu")
-    up = 1.0 - torch.as_tensor(d["down"]).float()
+    rounding order (PERF.md §6): after K1 and the polish alone, 6 of the
+    29 lanes end more than 5e-3 p.u. off the float64 HiGHS optimum and
+    15 fail the evaluator's 5e-3 quality guard. The solver's warm rescue
+    of the worst lanes (``lp_ipm_structured._warm_rescue``) brings every
+    lane within 5e-3 of the optimum and past none of the guard."""
+    st, args, lanes = _hard_lanes()
+    sol = lp_ipm_structured.solve_box_lp_structured(st, *args, IPMConfig())
+    quality = (sol.primal_residual + 2 * st.n * sol.duality_gap).numpy()
+    err = np.abs(sol.objective.double().numpy() - _highs_objectives(st, args))
+    assert (err <= 5e-3).all(), dict(zip(lanes[err > 5e-3], err[err > 5e-3]))
+    assert (quality <= 5e-3).all(), lanes[quality > 5e-3]
+
+
+def test_plain_k1_from_the_box_midpoint_is_the_default_start(setup):
+    ref_sys, sys_, bu, _, vec = setup
+    c, b, l, u, cs = vec
+    st = ipm_fused.build_structure(sys_)
+    args = (st, cs, torch.as_tensor(bu), c, b, l, u, IPMConfig())
+    cold = ipm_fused.fused_ipm_iterations_plain(*args)
+    mid = ipm_fused.fused_ipm_iterations_plain(*args, 0.5 * (l + u))
+    wrapper = ipm_fused.fused_ipm_iterations(*args, x_init=0.5 * (l + u))
+    for a, m, w in zip(cold, mid, wrapper):
+        assert torch.equal(a, m) and torch.equal(a, w)
+
+
+def test_plain_k1_from_a_start_point_starts_there(setup):
+    # One iteration from an interior start: the first best iterate is the
+    # start itself, and the step moves from it, not from the midpoint.
+    _, sys_, bu, _, vec = setup
+    c, b, l, u, cs = vec
+    st = ipm_fused.build_structure(sys_)
+    start = l + 0.3 * (u - l)
+    x, _, _, _, score, best_x = ipm_fused.fused_ipm_iterations_plain(
+        st, cs, torch.as_tensor(bu), c, b, l, u, IPMConfig(iterations=1),
+        start)
+    assert torch.equal(best_x, start)
+    assert bool(torch.isfinite(score).all())
+    cold = ipm_fused.fused_ipm_iterations_plain(
+        st, cs, torch.as_tensor(bu), c, b, l, u, IPMConfig(iterations=1))[0]
+    assert float((x - cold).abs().max()) > 1e-3
+
+
+def test_rescue_keeps_the_bits_of_lanes_that_pass_the_guard(setup,
+                                                            monkeypatch):
+    # A clean RTS-24 buffer (64 states at the outage rates, peak load):
+    # every lane passes the guard after the polish, so the warm rescue
+    # still runs on its 16 lanes but writes nothing back.
+    ref_sys, sys_, _, _, _ = setup
+    rng = np.random.default_rng(5)
+    down = rng.uniform(size=(64, 71)) < np.asarray(ref_sys.unavail)[None]
+    down[:, 14] = False
+    up = 1.0 - torch.as_tensor(down).float()
+    bu = up[:, 33:].contiguous()
     c, b, l, u, cs = dcopf.build_state_lp_vectors(
-        sys_, up[:, :33], up[:, 33:].contiguous(), torch.as_tensor(d["load"]),
+        sys_, up[:, :33], bu, sys_.load_pd[None].expand(64, -1),
         CompatFlags(), IPMConfig().theta_max)
     st = ipm_fused.build_structure(sys_)
-    args = (cs, up[:, 33:].contiguous(), c, b, l, u)
-    sol = lp_ipm_structured.solve_box_lp_structured(st, *args, IPMConfig())
-    quality = sol.primal_residual + 2 * st.n * sol.duality_gap
-    eye = torch.eye(st.n)
-    off = []
-    for i in range(c.shape[0]):
-        A = ipm_fused.mv(st, cs[i].expand(st.n, -1),
-                         args[1][i].expand(st.n, -1), eye).T
-        f = lambda t: t.double().numpy()
-        r = linprog(f(c[i]), A_eq=f(A), b_eq=f(b[i]),
-                    bounds=list(zip(f(l[i]), f(u[i]))), method="highs")
-        assert r.status == 0
-        if abs(float(sol.objective[i]) - r.fun) > 5e-3:
-            off.append(i)
-            assert float(quality[i]) > 5e-3, int(d["lane"][i])
-    assert len(off) <= 6, off
+    args = (st, cs, bu, c, b, l, u, IPMConfig())
+    calls = []
+    rescue = lp_ipm_structured._warm_rescue
+    monkeypatch.setattr(lp_ipm_structured, "_warm_rescue",
+                        lambda *a: calls.append(a[-1]) or rescue(*a))
+    with_rescue = lp_ipm_structured.solve_box_lp_structured(*args)
+    assert calls == [lp_ipm_structured.RESCUE_LANES]
+    monkeypatch.setattr(lp_ipm_structured, "RESCUE_LANES", 0)
+    without = lp_ipm_structured.solve_box_lp_structured(*args)
+    assert len(calls) == 1
+    q = without.primal_residual + 2 * st.n * without.duality_gap
+    assert bool((q <= IPMConfig().escalate_tol).all())
+    for a, w in zip(with_rescue, without):
+        assert torch.equal(a, w)
+
+
+def test_rescue_writes_back_only_flagged_lanes():
+    # The hard lanes: lanes past the guard after the polish take the
+    # rescue's result, lanes within it keep their bits, and the rescue
+    # touches at most RESCUE_LANES lanes.
+    st, args, _ = _hard_lanes()
+    cfg = IPMConfig()
+    on = lp_ipm_structured.solve_box_lp_structured(st, *args, cfg)
+    saved = lp_ipm_structured.RESCUE_LANES
+    try:
+        lp_ipm_structured.RESCUE_LANES = 0
+        off = lp_ipm_structured.solve_box_lp_structured(st, *args, cfg)
+    finally:
+        lp_ipm_structured.RESCUE_LANES = saved
+    q_off = (off.primal_residual + 2 * st.n * off.duality_gap)
+    flagged = q_off > cfg.escalate_tol
+    changed = (on.x != off.x).any(1)
+    assert int(flagged.sum()) == 15
+    assert not bool((changed & ~flagged).any())
+    assert int(changed.sum()) <= saved
+    assert bool(changed[flagged].all())

@@ -78,16 +78,47 @@ def screened():
     return down, ref, int(ref_over), got, int(over)
 
 
+def _guard_judged(screened):
+    """[B] bool: the lanes where the two packages' DNS part by more than
+    ORACLE_TOL_MW. On each, the reference's LP lane fails the evaluator's
+    5e-3 quality guard, so it keeps the certificate's lower bound
+    (ROADMAP.md Queue 3 A: its float32 IPM stalls there), while the
+    port's warm rescue (``lp_ipm_structured._warm_rescue``) brings its
+    lane past the guard and within ORACLE_TOL_MW of the float64 HiGHS
+    optimum; the reference's bound lies at or below that optimum."""
+    from scipy.optimize import linprog
+    down, ref, _, got, _ = screened
+    dns_ref, dns = np.asarray(ref.dns_mw), got.dns_mw.numpy()
+    apart = np.abs(dns - dns_ref) > ORACLE_TOL_MW
+    sys_ = from_reference(ref_build_system(ref_cases.rts24()), device="cpu")
+    up = 1.0 - torch.as_tensor(down[apart]).float()
+    lp = dcopf.build_state_lp(sys_, up[:, :33], up[:, 33:].contiguous(),
+                              sys_.load_pd[None].expand(len(up), -1),
+                              CompatFlags(), 6.0)
+    for j, i in enumerate(np.flatnonzero(apart)):
+        c, A, b, lo, hi = (t[j].double().numpy() for t in lp)
+        r = linprog(c, A_eq=A, b_eq=b, bounds=list(zip(lo, hi)),
+                    method="highs")
+        assert r.status == 0, r.message
+        oracle = r.fun * sys_.base_mva
+        assert float(ref.primal_residual[i]) > 5e-3, i
+        assert float(got.primal_residual[i]) <= 5e-3, i
+        assert abs(dns[i] - oracle) <= ORACLE_TOL_MW, (i, dns[i], oracle)
+        assert dns_ref[i] <= oracle + ORACLE_TOL_MW, (i, dns_ref[i], oracle)
+    return apart
+
+
 def test_screened_dns_matches_reference(screened):
     _, ref, ref_over, got, over = screened
     dns_ref, dns = np.asarray(ref.dns_mw), got.dns_mw.numpy()
     assert over == ref_over == 0
-    assert np.abs(dns - dns_ref).max() <= ORACLE_TOL_MW
+    apart = _guard_judged(screened)
+    assert np.abs(dns - dns_ref)[~apart].max() <= ORACLE_TOL_MW
     assert (dns_ref > 0).sum() > 500
     # Some lanes really went through the LP tier.
     assert (got.primal_residual.numpy() > 0).sum() >= 10
-    np.testing.assert_array_equal(got.failure.numpy(),
-                                  np.asarray(ref.failure))
+    np.testing.assert_array_equal(got.failure.numpy()[~apart],
+                                  np.asarray(ref.failure)[~apart])
     assert not got.infeasible.any()
 
 
@@ -98,18 +129,27 @@ def test_screened_moments_match_reference(screened):
     m = accumulators.batch_moments(got.dns_mw, got.nodal_mw, got.failure,
                                    torch.as_tensor(down))
     assert float(m.n) == float(m_ref.n) == 4096
-    assert float(m.sum_flag) == float(m_ref.sum_flag)
-    np.testing.assert_array_equal(m.sum_comp_fail.numpy(),
-                                  np.asarray(m_ref.sum_comp_fail))
-    # Every lane within 0.05 MW bounds the sums' difference.
+    # The guard-judged lanes are the only ones allowed to move the flags
+    # and the sums, each by its own difference.
+    apart = _guard_judged(screened)
+    flag_diff = (got.failure.numpy().astype(np.float64)
+                 - np.asarray(ref.failure, np.float64))
+    assert not flag_diff[~apart].any()
+    assert float(m.sum_flag) - float(m_ref.sum_flag) == flag_diff.sum()
+    np.testing.assert_array_equal(
+        m.sum_comp_fail.numpy() - np.asarray(m_ref.sum_comp_fail),
+        flag_diff @ down.astype(np.float64))
+    moved = float(np.abs(got.dns_mw.numpy() - np.asarray(ref.dns_mw))
+                  [apart].sum())
+    # Every other lane within 0.05 MW bounds the sums' difference.
     n_lp = int((got.primal_residual > 0).sum())
     assert abs(float(m.sum_dns) - float(m_ref.sum_dns)) <= \
-        ORACLE_TOL_MW * max(n_lp, 1)
+        ORACLE_TOL_MW * max(n_lp, 1) + moved
     # Nodal splits of certified lanes are the same pattern; LP lanes'
     # splits may move along a degenerate optimal face, but each lane's
     # total stays within 0.05 MW.
     assert abs(float(m.sum_nodal.sum()) - float(m_ref.sum_nodal.sum())) \
-        <= ORACLE_TOL_MW * max(n_lp, 1)
+        <= ORACLE_TOL_MW * max(n_lp, 1) + moved
 
 
 def test_golden_replay():

@@ -60,7 +60,7 @@ from powersystemsreliabilityassessment_tpu_torch.core import (
 from powersystemsreliabilityassessment_tpu_torch.core.system import (
     from_reference)
 from powersystemsreliabilityassessment_tpu_torch.engines import (
-    copper_sheet, dcopf)
+    copper_sheet, dcopf, lp_ipm_structured)
 from powersystemsreliabilityassessment_tpu_torch.models import twostate
 from powersystemsreliabilityassessment_tpu_torch.parallel import accumulators
 from powersystemsreliabilityassessment_tpu_torch.runtime.checkpoint import (
@@ -495,6 +495,59 @@ def test_year_block_with_maintenance_matches_reference(ref_sys, port_sys,
     assert n_over == w_over == 0 and n_inf == 0
     assert (np.abs(ens - w_ens) <= tol).all()
     assert (np.abs(nodal - w_nodal) <= tol[:, None]).all()
+
+
+def test_maintenance_block_keeps_the_reference_lp_value(ref_sys, port_sys,
+                                                       monkeypatch):
+    """The seed-8 block of the test above: with the LP tier's warm rescue
+    off, the port's lane on one outage state and load (hours 2384 and
+    2387-2389) stalls past the 5e-3 quality guard and keeps the
+    certificate's 0 MW where the reference keeps 10.03 MW (HiGHS 9.92),
+    an hour ``_guard_judged`` excuses. With the rescue (the default) the
+    port keeps the reference's LP value there within ORACLE_TOL_MW, and
+    the float64 optimum within it too."""
+    from scipy.optimize import linprog
+    years, hours, max_lp = 2, 2016, 96
+    maint = _ref_maint_down(monkeypatch, hours)
+    monkeypatch.undo()
+    mt = twostate.mean_times(cases.rts24())
+    k = chronological.default_num_draws(mt[:, 0], mt[:, 1], hours)
+    keys = jax.random.split(jax.random.key(8), years)
+    down = np.asarray(jax.vmap(lambda kk: ref_chrono.sample_timeline(
+        kk, ref_sys.mttf, ref_sys.mttr, hours, k))(keys))
+    load = hl2_seq.year_block_load(
+        port_sys, load_profile.load_factors(hours).astype(np.float32), years)
+    flat = (np.swapaxes(down, 1, 2) | maint[None]).reshape(years * hours, -1)
+
+    def port(rescue):
+        monkeypatch.setattr(lp_ipm_structured, "RESCUE_LANES", rescue)
+        return dcopf.evaluate_states_screened(
+            port_sys, _t(flat), load, max_lp, CompatFlags(), IPMConfig(),
+            "lp", repair_buffer=max(4096, years * hours // 16))[0]
+
+    default = lp_ipm_structured.RESCUE_LANES
+    off = port(0)
+    on = port(default)
+    excused = np.flatnonzero(off.primal_residual.numpy() > LP_GUARD)
+    assert len(excused) >= 1
+    assert float(off.dns_mw[excused].max()) == 0.0
+    ref = ref_dcopf.evaluate_states(
+        ref_sys, jnp.asarray(flat[excused]),
+        jnp.asarray(load.numpy()[excused]), RefCompat(), RefIPM())
+    got = on.dns_mw.numpy()[excused]
+    assert (on.primal_residual.numpy()[excused] <= LP_GUARD).all()
+    np.testing.assert_allclose(got, np.asarray(ref.dns_mw), rtol=0,
+                               atol=ORACLE_TOL_MW)
+    assert got.min() > 9.0
+    up = 1.0 - flat[excused[0]].astype(np.float32)
+    lp = ref_dcopf.build_state_lp(
+        ref_sys, jnp.asarray(up[:ref_sys.n_gen]),
+        jnp.asarray(up[ref_sys.n_gen:]), jnp.asarray(load.numpy()[excused[0]]),
+        RefCompat(), RefIPM().theta_max)
+    c, A, b, lo, hi = (np.asarray(t, np.float64) for t in lp)
+    r = linprog(c, A_eq=A, b_eq=b, bounds=list(zip(lo, hi)), method="highs")
+    assert r.status == 0, r.message
+    assert abs(got[0] - r.fun * ref_sys.base_mva) <= ORACLE_TOL_MW
 
 
 def test_study_with_maintenance_runs():
