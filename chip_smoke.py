@@ -249,6 +249,30 @@ Phases, one line each (any failure raises, so the exit code is not 0):
               peak CUDA memory and launches; the figure line on stderr
               exactly when matplotlib is absent; one python -m
               multiarea --system demo in a subprocess
+ 31. seq300   the case300s SEQ year block and study: the stress block of
+              tests/golden/seq_stress_case300s.npz (rebuilt with numpy
+              from its recipe) through evaluate_years against the
+              reference's golden output (per-year ENS, DLC, NLC, nodal
+              ENS, component counts; hours the two part on judged by
+              float64 HiGHS; the LP queue and n_over, and n_over at least
+              8 times larger without tier 1.5); then run_seq_study(
+              case300s, two years a step, the study's defaults) for 64
+              years against results/case300_seq_results.json (EENS, LOLE,
+              LOLF within 4 combined standard errors, overflow and
+              infeasible hours 0, K2a and K3 launched on every batch, LP
+              lanes past the guard at most 5% of the LP lanes), a line
+              per batch (tier-1 misses and LP queue, tier 1.5's certified
+              share, LP lanes, lanes past the guard, launches), redos,
+              promotions and the buffer it ended at; one step alone:
+              wall, device ms, launches, host reads, peak memory
+ 32. seq96    the same block check on tests/golden/seq_stress_rts96.npz;
+              run_seq_study(rts96, 16 years a step, seed 5) for 1,024
+              years: every year's ENS at least its copper-sheet ENS less
+              0.15 MW a deficit hour, RTS96_KERNELS launched on every
+              step, overflow 0; the first block's kept LP lanes (up to
+              256) within 0.15 MW of float64 HiGHS; one step alone
+Extra (not run by default): seq300full, seq300's study over all 256
+years of its record, held the same way.
 The bench phase also times the fused step (fused_tier1) at its shape,
 under the same sync check, and prints it on a line of its own. seq,
 seqmaint, split and enum24 print their LP lanes past the evaluator's
@@ -285,11 +309,13 @@ PKG = "powersystemsreliabilityassessment_tpu_torch"
 ALL_PHASES = ("build", "k2", "k1", "faulta", "bench", "study", "k3", "study96", "k6",
               "k4", "k5", "studyfused", "seq", "lp300", "pf300", "study300",
               "anti", "is24", "mix300", "ce300", "enum24", "cv24", "cvseq",
-              "seqib", "hl1", "plan", "seqmaint", "multi", "split", "cli")
+              "seqib", "hl1", "plan", "seqmaint", "multi", "split", "cli",
+              "seq300", "seq96")
 # Not run by default: a per-layer and per-kernel breakdown of the
-# bench-shaped step and of the RTS-96 step (for PERF.md), not part of
-# the smoke contract.
-EXTRA_PHASES = ("profile", "profileseq")
+# bench-shaped step and of the RTS-96 step (for PERF.md), and the whole
+# 256-year case300s SEQ record (seq300full); not part of the smoke
+# contract.
+EXTRA_PHASES = ("profile", "profileseq", "seq300full")
 # The kernels each main path must launch.
 RTS24_KERNELS = ("fused_ipm_iterations", "cholesky", "cho_solve")
 RTS96_KERNELS = ("cholesky", "trsm_fwd", "trsm_bwd")
@@ -2498,9 +2524,12 @@ def _oracle300(case, states, dns, tripped):
     return len(idx), float(np.abs(ref - dns[idx]).max())
 
 
-def _highs300(sys_cpu, states, ids):
-    """Float64 HiGHS DNS (MW, no noise floor) of ``states[ids]``, on the
-    host in four threads (HiGHS releases the interpreter lock)."""
+def _highs300(sys_cpu, states, ids, loads=None, shed=None, slack=0.0):
+    """Float64 HiGHS DNS (MW, no noise floor) of ``states[ids]`` at peak
+    load, or at ``loads[ids]`` (p.u. [B, n_load]) where given, on the
+    host in four threads (HiGHS releases the interpreter lock). With
+    ``shed`` (p.u. [len(ids), n_load]) each load's shed is held within
+    ``slack`` p.u. of it, and a lane with no such dispatch gives NaN."""
     import numpy as np
     import torch
     from concurrent.futures import ThreadPoolExecutor
@@ -2510,16 +2539,24 @@ def _highs300(sys_cpu, states, ids):
         CompatFlags, IPMConfig)
     ng, nd = sys_cpu.n_gen, sys_cpu.n_load
     up = torch.as_tensor(1.0 - states[ids])
-    load = sys_cpu.load_pd[None, :].expand(len(ids), nd)
+    load = (sys_cpu.load_pd[None, :].expand(len(ids), nd) if loads is None
+            else torch.as_tensor(loads[ids]))
     c, A, b, l, u = (t.double().numpy() for t in dcopf.build_state_lp(
         sys_cpu, up[:, :ng], up[:, ng:].contiguous(), load, CompatFlags(),
         IPMConfig().theta_max))
 
     def dns(j):
-        r = linprog(c[j], A_eq=A[j], b_eq=b[j], bounds=list(zip(l[j], u[j])),
+        lo, hi = l[j].copy(), u[j].copy()
+        if shed is not None:
+            sl = slice(ng, ng + nd)
+            hi[sl] = np.minimum(hi[sl], shed[j] + slack)
+            lo[sl] = np.minimum(np.maximum(lo[sl], shed[j] - slack), hi[sl])
+        r = linprog(c[j], A_eq=A[j], b_eq=b[j], bounds=list(zip(lo, hi)),
                     method="highs")
+        if r.status == 2 and shed is not None:
+            return float("nan")
         if r.status != 0:
-            raise RuntimeError(f"HiGHS failed on case300s lane {ids[j]}")
+            raise RuntimeError(f"HiGHS failed on lane {ids[j]}")
         return float(r.x[ng:ng + nd].sum()) * sys_cpu.base_mva
 
     with ThreadPoolExecutor(4) as pool:
@@ -2752,6 +2789,11 @@ STUDY300_MEM_LANES = 2048  # hl2_nsq.PF_TIER_LP_CAP
 # screened calls: 7 in two runs on the card (fault E, ROADMAP Queue 3),
 # and one lane of room for the rounding order.
 STUDY300_PAST_GUARD_MAX = 8
+# The case300s SEQ study (seq300, seq300full) may leave at most this share
+# of its LP lanes past the guard: the NSQ study's 17 of 563 (3.0%) on the
+# card (fault E), with room; the SEQ lanes measured 0 of 55,076 over the
+# 256-year record (seq300full, NVIDIA H100 80GB HBM3).
+SEQ300_PAST_GUARD_SHARE = 0.05
 # Study batches timed alone: 1 takes the rescue ladder and the
 # escalation passes (a lane stays past escalate_tol after the ladder), 0
 # the ladder only, as 12 of the study's 16 batches do; the last one is
@@ -3110,6 +3152,653 @@ def phase_study300(results):
                            f"more than {STUDY300_PAST_GUARD_MAX}")
     for name, key in (("cholesky", "cholesky"), ("trsm_fwd", "trsm_fwd")):
         results.setdefault(name, {})["launches_study300"] = counts[key]
+
+
+# The SEQ stress blocks (seq300 and seq96): a year block of each system,
+# rebuilt with numpy alone from the recipe its golden keeps, beside the
+# reference's outputs on it (tests/golden/seq_stress_*.npz, written and
+# checked against the JAX package by tests/test_torch_seq_large.py).
+SEQ_GOLDEN = {name: ROOT / "tests" / "golden" / f"seq_stress_{name}.npz"
+              for name in ("case300s", "rts96")}
+SEQ_GOLDEN_RECIPE = ("seed", "years", "hours", "dwells",
+                     "branch_repair_scale", "forced", "window", "max_lp")
+
+
+def stress_block(mean_times, n_gen: int, recipe):
+    """bool ``[years, n_comp, hours]`` (True = DOWN): every component
+    starts up and alternates ``dwells`` exponential up and down dwells
+    (means ``mean_times`` [n_comp, 2] hours, the branches' repair times
+    scaled by ``branch_repair_scale``) drawn from numpy's generator at
+    ``seed`` as -log(1 - u); then the ``forced`` components are held
+    down over the hours ``window``. ``recipe`` is a mapping with the
+    keys of SEQ_GOLDEN_RECIPE."""
+    import numpy as np
+    years, hours = int(recipe["years"]), int(recipe["hours"])
+    k = int(recipe["dwells"])
+    mt = np.asarray(mean_times, np.float64).copy()
+    mt[n_gen:, 1] *= float(recipe["branch_repair_scale"])
+    rng = np.random.default_rng(int(recipe["seed"]))
+    u = rng.random((years, len(mt), k, 2))
+    dwell = -np.log1p(-u) * mt[None, :, None, :]
+    bounds = np.cumsum(dwell.reshape(years, len(mt), 2 * k), -1)
+    down = (bounds[..., None] <= np.arange(hours) + 0.5).sum(2) % 2 == 1
+    w0, w1 = (int(w) for w in recipe["window"])
+    down[:, np.asarray(recipe["forced"], np.int64), w0:w1] = True
+    return down
+
+
+def block_digest(down) -> str:
+    """SHA-256 of a bool block's packed bits and shape."""
+    import hashlib
+    import numpy as np
+    return hashlib.sha256(np.asarray(down.shape, np.int64).tobytes()
+                          + np.packbits(down).tobytes()).hexdigest()
+
+
+# A stress block's hour on which the port and the reference part by more
+# than this is judged by float64 HiGHS (tests/test_torch_seq.py's
+# ORACLE_TOL_MW); a kept LP lane must lie within SEQ_ORACLE_TOL_MW[system]
+# of the optimum, a lane past the guard at most that far above it.
+SEQ_APART_MW = 0.15
+SEQ_ORACLE_TOL_MW = {"rts96": 0.15, "case300s": LP300_ORACLE_MW}
+# Hours whose tier-1 or tier-1.5 verdict may differ between the card and
+# the reference's CPU run (float32 rounding at a certificate's margin).
+SEQ_NEED_MOVED_MAX = 4
+
+
+def evaluate_block(sys_, down, max_lp: int, pf: bool = True) -> dict:
+    """The port's ``hl2_seq.evaluate_years`` on a year block ``down``
+    (bool numpy [years, n_comp, hours]) at the study's load profile and a
+    ``max_lp``-lane buffer, as numpy: the per-year ``ens``, ``dlc``,
+    ``nlc``, ``nodal``, ``comp_fail`` and the block's ``n_over``, with the
+    screened evaluator's per-hour ``dns`` and quality score ``q``, its
+    LP queue ``need_lp`` (the mask it compacts into the buffer) and the
+    nodal shed ``nodal_h`` [k, nb] MW of its ``shed_hours`` (the k hours
+    with DNS > 0) read from inside the call, and the loads ``load``.
+    ``pf=False`` runs the evaluator without tier 1.5."""
+    import numpy as np
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.core import load_profile
+    from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
+    from powersystemsreliabilityassessment_tpu_torch.studies import hl2_seq
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        CompatFlags, IPMConfig)
+    years, _, hours = down.shape
+    load = hl2_seq.year_block_load(sys_, load_profile.load_factors(hours),
+                                   years)
+    seen, queues = [], []
+    orig = dcopf.evaluate_states_screened, dcopf._topk_lanes
+
+    def screened(*a, **kw):
+        if not pf:
+            kw["pf_buffer"] = None
+        out = orig[0](*a, **kw)
+        seen.append(out[0])
+        return out
+
+    def topk(need, k):
+        queues.append(need.clone())
+        return orig[1](need, k)
+
+    dcopf.evaluate_states_screened, dcopf._topk_lanes = screened, topk
+    try:
+        out = hl2_seq.evaluate_years(
+            sys_, CompatFlags(), IPMConfig(), load,
+            torch.as_tensor(down, device=sys_.device), max_lp)
+    finally:
+        dcopf.evaluate_states_screened, dcopf._topk_lanes = orig
+    np_ = lambda t: t.double().cpu().numpy()
+    ens, _, nlc, dlc, _, nodal, comp_fail = (np_(t) for t in out[:7])
+    dns = np_(seen[-1].dns_mw)
+    shed_hours = np.flatnonzero(dns > 0)
+    return dict(ens=ens, dlc=dlc, nlc=nlc, nodal=nodal, comp_fail=comp_fail,
+                n_over=int(out[8]), dns=dns,
+                q=np_(seen[-1].primal_residual),
+                need_lp=queues[-1].cpu().numpy(),
+                load=load.cpu().numpy(), shed_hours=shed_hours,
+                nodal_h=np_(seen[-1].nodal_mw[torch.as_tensor(
+                    shed_hours, device=sys_.device)]))
+
+
+def judge_block(sys_cpu, down, want: dict, got: dict, oracle_tol: float,
+                tag: str) -> dict:
+    """Hold ``got`` (:func:`evaluate_block`) against ``want``, the
+    reference's evaluation of the same block at the same buffer (the
+    same keys): every hour on which the two DNS part by more than
+    SEQ_APART_MW is judged by float64 HiGHS (at least one side past the
+    5e-3 guard; a side past it at most ``oracle_tol`` above the optimum,
+    a kept side within ``oracle_tol`` of it); on the other hours the
+    curtailment flags agree, so DLC and the component counts differ by
+    the judged hours' flags alone and ENS and nodal ENS by at most
+    SEQ_APART_MW a loss hour plus the judged hours' moves. A year whose
+    nodal ENS parts further is held to the LP's degeneracy (the shed may
+    split over the buses in more than one optimal way): every shed hour
+    of that year must be within ``oracle_tol`` of the HiGHS optimum, and
+    its nodal shed, each load within SEQ_APART_MW, a float64 dispatch's
+    (``got["nodal_h"]``). The LP queues may differ on at most
+    SEQ_NEED_MOVED_MAX hours, each printed, and ``n_over`` by no more
+    than they do. Raises RuntimeError; returns a summary."""
+    import numpy as np
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        CompatFlags)
+    years, _, hours = down.shape
+    flat = np.swapaxes(down, 1, 2).reshape(years * hours, -1)
+    gap = np.abs(got["dns"] - want["dns"])
+    apart = np.flatnonzero(gap > SEQ_APART_MW)
+    bad = []
+    if len(apart):
+        oracle = _highs300(sys_cpu, flat.astype(np.float32), list(apart),
+                           got["load"])
+        for i, o in zip(apart, oracle):
+            sides = [(got["dns"][i], got["q"][i]),
+                     (want["dns"][i], want["q"][i])]
+            print(f"  {tag} hour {i}: port {sides[0][0]:.4f} MW "
+                  f"(q {sides[0][1]:.2e}), reference {sides[1][0]:.4f} MW "
+                  f"(q {sides[1][1]:.2e}), HiGHS {o:.4f} MW")
+            if not any(q > LP_QUALITY_GUARD for _, q in sides) or any(
+                    (d > o + oracle_tol) if q > LP_QUALITY_GUARD
+                    else abs(d - o) > oracle_tol for d, q in sides):
+                bad.append(int(i))
+    thr = CompatFlags().seq_curtail_threshold_mw
+    flag_p = (got["dns"] > thr).reshape(years, hours)
+    flag_r = (want["dns"] > thr).reshape(years, hours)
+    same = np.ones(years * hours, bool)
+    same[apart] = False
+    same = same.reshape(years, hours)
+    dflag = flag_p.astype(float) - flag_r.astype(float)
+    moved = np.where(same, 0.0, gap.reshape(years, hours)).sum(1)
+    tol = SEQ_APART_MW * np.maximum(want["dlc"], 1.0) + moved
+    moved_need = np.flatnonzero(got["need_lp"] != want["need_lp"])
+    for i in moved_need:
+        print(f"  {tag} hour {i}: LP queue port {bool(got['need_lp'][i])}, "
+              f"reference {bool(want['need_lp'][i])}")
+    checks = {
+        "judged hours within HiGHS": not bad,
+        "flags on agreeing hours": bool((flag_p[same] == flag_r[same]).all()),
+        "dlc": bool((got["dlc"] - want["dlc"] == dflag.sum(1)).all()),
+        "comp_fail": bool(np.array_equal(
+            got["comp_fail"] - want["comp_fail"],
+            np.einsum("yh,yhc->yc", dflag,
+                      flat.reshape(years, hours, -1).astype(float)))),
+        "nlc": bool(len(apart) or np.array_equal(got["nlc"], want["nlc"])),
+        "ens": bool((np.abs(got["ens"] - want["ens"]) <= tol).all()),
+        "nodal": bool((np.abs(got["nodal"] - want["nodal"])
+                       <= tol[:, None]).all()),
+        "LP queue": len(moved_need) <= SEQ_NEED_MOVED_MAX,
+        "n_over": abs(got["n_over"] - want["n_over"]) <= len(moved_need),
+    }
+    split = []
+    if not checks["nodal"]:
+        years_off = np.flatnonzero((np.abs(got["nodal"] - want["nodal"])
+                                    > tol[:, None]).any(1))
+        rows = np.flatnonzero(np.isin(got["shed_hours"] // hours,
+                                      years_off))
+        hrs = got["shed_hours"][rows]
+        base = sys_cpu.base_mva
+        opt = _highs300(sys_cpu, flat.astype(np.float32), list(hrs),
+                        got["load"])
+        # Bus nodal shed to load shed: one load a bus on these systems.
+        onehot = sys_cpu.load_onehot.double().numpy()
+        pattern = got["nodal_h"][rows] @ onehot / base
+        fixed = _highs300(sys_cpu, flat.astype(np.float32), list(hrs),
+                          got["load"], shed=pattern,
+                          slack=SEQ_APART_MW / base)
+        split = [int(h) for h, o, f in zip(hrs, opt, fixed)
+                 if abs(got["dns"][h] - o) > oracle_tol or not np.isfinite(f)]
+        print(f"  {tag}: nodal ENS of years {[int(y) for y in years_off]} "
+              f"part from the reference's; {len(hrs)} shed hours, each an "
+              f"optimum of its LP unless listed: {split}")
+        checks["nodal"] = bool(len(hrs)) and not split
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise RuntimeError(f"{tag}: the block disagrees with the reference "
+                           f"on {failed} (HiGHS-judged hours off: {bad})")
+    return dict(apart_hours=len(apart), queue_moved=len(moved_need),
+                nodal_max_diff_mwh=float(np.abs(got["nodal"]
+                                                - want["nodal"]).max()),
+                ens_max_diff_mwh=float(np.abs(got["ens"] - want["ens"]).max()),
+                n_over=got["n_over"], n_over_reference=want["n_over"])
+
+
+class _SeqProbe:
+    """Per screened call of a SEQ study, read after it: the probe keeps
+    device tensors and host counters only, so it adds no host sync. The
+    block's hours and LP buffer; tier 1's misses (uncertified hours) and
+    its LP queue (misses and positive-deficit hours, nodal mode "lp"),
+    the LP queue after tier 1.5 (the screened evaluator's two
+    ``_needs_lp`` masks; one when tier 1.5 is off), the LP lanes past the
+    5e-3 guard, and the kernel launches of the call."""
+
+    def __init__(self):
+        self.calls = []
+
+    @contextlib.contextmanager
+    def installed(self):
+        from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
+        orig = dcopf.evaluate_states_screened, dcopf._needs_lp
+        queues = []
+
+        def needs_lp(pre, nodal_mode):
+            need = orig[1](pre, nodal_mode)
+            queues.append(((~pre.certified).sum(), need.sum()))
+            return need
+
+        def screened(sys_, down, load, max_lp, *a, **kw):
+            queues.clear()
+            before = _counts()
+            res, over = orig[0](sys_, down, load, max_lp, *a, **kw)
+            after = _counts()
+            self.calls.append(dict(
+                hours=down.shape[0], max_lp=max_lp, misses=queues[0][0],
+                tier1_queue=queues[0][1], lp_queue=queues[-1][1],
+                past_guard=(res.primal_residual > LP_QUALITY_GUARD).sum(),
+                launches={k: after[k] - before[k] for k in after}))
+            return res, over
+
+        dcopf.evaluate_states_screened, dcopf._needs_lp = screened, needs_lp
+        try:
+            yield self
+        finally:
+            dcopf.evaluate_states_screened, dcopf._needs_lp = orig
+
+    def rows(self) -> list:
+        out = []
+        for c in self.calls:
+            t1, lp = int(c["tier1_queue"]), int(c["lp_queue"])
+            out.append(dict(
+                hours=c["hours"], lp_buffer=c["max_lp"],
+                tier1_misses=int(c["misses"]), tier1_queue=t1,
+                tier15_certified_share=(f"{(t1 - lp) / t1:.4f}" if t1
+                                        else None),
+                lp_queue=lp, lp_lanes=min(lp, c["max_lp"]),
+                past_guard=int(c["past_guard"]),
+                k2a=c["launches"]["cholesky"],
+                k3_fwd=c["launches"]["trsm_fwd"],
+                k3_bwd=c["launches"]["trsm_bwd"]))
+        return out
+
+
+def _study_log(tag, fn):
+    """``fn()``'s result with what it printed, which is echoed line by
+    line under ``tag``: the SEQ study prints each redo and promotion."""
+    import io
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+    finally:
+        lines = buf.getvalue().splitlines()
+        for ln in lines:
+            print(f"  {tag}: {ln}")
+    return out, lines
+
+
+def _seq_step_costs(tag, case, sys_, years, max_lp, factors, seed,
+                    probe=None) -> dict:
+    """One SEQ step of the study's shape (``years`` years, ``max_lp``
+    lanes a year, the first batch of ``seed``) on its own: wall ms with
+    the step synchronized, device ms and kernel launches
+    (torch.profiler), the host reads PyTorch reports
+    (set_sync_debug_mode("warn")), the peak memory, and the block's
+    overflow hours; then one more call under ``probe`` (a
+    :class:`_SeqProbe`), if given."""
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.models import twostate
+    from powersystemsreliabilityassessment_tpu_torch.sampling import (
+        chronological)
+    from powersystemsreliabilityassessment_tpu_torch.studies import (
+        hl2_nsq, hl2_seq)
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        CompatFlags, IPMConfig)
+    hours = len(factors)
+    mt = twostate.mean_times(case)
+    k = chronological.default_num_draws(mt[:, 0], mt[:, 1], hours)
+    step = hl2_seq.make_seq_batch_step(sys_, years, CompatFlags(),
+                                       IPMConfig(), hours, k, max_lp,
+                                       factors)
+    gen = lambda: hl2_nsq.batch_generator(seed, 0, "cuda")
+    step(gen())                                            # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = step(gen())
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    reads = _count_syncs(lambda: step(gen()))
+    dev, launches, _ = _device_once(lambda: step(gen()))
+    if probe is not None:
+        with probe.installed():
+            step(gen())
+    if not bool(torch.isfinite(out[0]).all()):
+        raise RuntimeError(f"{tag}: the step's ENS is not finite")
+    return dict(years=years, max_lp=max_lp, wall_ms=round(wall, 1),
+                device_ms=round(dev, 1), launches=launches,
+                host_reads=reads, peak_mem_bytes=peak,
+                n_over=int(out[8]))
+
+
+# seq300: the case300s SEQ study at its record's configuration
+# (results/case300_seq_results.json: 256 years, two years a step, the
+# study's defaults, nodal mode "lp"), cut in depth to SEQ300_YEARS;
+# seq300full runs all 256.
+SEQ300_Y = 2
+SEQ300_YEARS = 64
+SEQ300_FULL_YEARS = 256
+# A stress block without tier 1.5 must overflow at least this many times
+# as many hours as with it (the CPU block: 78 against 3).
+SEQ300_NO_PF_RATIO = 8
+# seq96: a short RTS-96 SEQ study (16 years a step, the study's default
+# buffer of 256 lanes a year).
+SEQ96_Y = 16
+SEQ96_YEARS = 1024
+SEQ96_SEED = 5
+SEQ96_HIGHS_LANES = 256
+
+
+def _golden_block(name):
+    """(block, golden) of SEQ_GOLDEN[name]: the block rebuilt with numpy
+    from the golden's recipe, which must give the golden's digest."""
+    import numpy as np
+    from powersystemsreliabilityassessment_tpu_torch.core import cases
+    from powersystemsreliabilityassessment_tpu_torch.models import twostate
+    golden = dict(np.load(SEQ_GOLDEN[name]))
+    case = getattr(cases, name)()
+    down = stress_block(twostate.mean_times(case), case.n_gen, golden)
+    if block_digest(down) != str(golden["digest"]):
+        raise RuntimeError(f"{name}: numpy rebuilt another block than the "
+                           f"golden's ({SEQ_GOLDEN[name].name})")
+    golden["n_over"] = int(golden["n_over"])
+    return down, golden
+
+
+def _golden_block_check(tag, name, sys_, sys_cpu) -> dict:
+    """The stress block of SEQ_GOLDEN[name] through evaluate_years on
+    the card, held against the reference's golden (:func:`judge_block`);
+    at case300s also the block without tier 1.5, whose overflow must be
+    SEQ300_NO_PF_RATIO times larger."""
+    down, golden = _golden_block(name)
+    max_lp = int(golden["max_lp"])
+    _reset_counts()
+    got = evaluate_block(sys_, down, max_lp)
+    counts = _counts()
+    summary = judge_block(sys_cpu, down, golden, got,
+                          SEQ_ORACLE_TOL_MW[name], tag)
+    row = dict(block=name, hours=int(down.shape[0] * down.shape[2]),
+               max_lp=max_lp, lp_queue=int(got["need_lp"].sum()),
+               lp_queue_reference=int(golden["need_lp"].sum()), **summary,
+               ens=json.dumps([round(float(e), 4) for e in got["ens"]]),
+               ens_reference=json.dumps([round(float(e), 4)
+                                         for e in golden["ens"]]),
+               launches=json.dumps({k: v for k, v in counts.items() if v}
+                                   ).replace(" ", ""))
+    if name == "case300s":
+        none = evaluate_block(sys_, down, max_lp, pf=False)
+        row["n_over_without_tier15"] = none["n_over"]
+        if none["n_over"] < SEQ300_NO_PF_RATIO * max(
+                got["n_over"], golden["n_over"], 1):
+            raise RuntimeError(f"{tag}: the block overflows {got['n_over']} "
+                               f"hours with tier 1.5 and {none['n_over']} "
+                               "without: tier 1.5 did not run")
+    _line(tag, **row)
+
+
+def _loss_year_se(annual_ens, total) -> float:
+    """Standard error of a per-year count whose study keeps only its
+    total (``total`` = mean x years): the count spread evenly over the
+    study's loss years (its years with ENS > 0), 0 elsewhere."""
+    import math
+    import numpy as np
+    ens = np.asarray(annual_ens)
+    per = np.where(ens > 0, total / max(int((ens > 0).sum()), 1), 0.0)
+    return float(np.std(per, ddof=1) / math.sqrt(len(per)))
+
+
+def _seq300_run(tag, years, results) -> dict:
+    """run_seq_study(case300s(), two years a step, the study's defaults)
+    for ``years`` years, held against results/case300_seq_results.json:
+    EENS, LOLE and LOLF within 4 combined standard errors (the record
+    keeps only annual ENS: its LOLE / LOLF standard errors spread its
+    loss hours and events evenly over its loss years), overflow and
+    infeasible hours 0, K2a and K3 launched by every screened call, LP
+    lanes past the guard at most SEQ300_PAST_GUARD_SHARE of the LP
+    lanes; one line per screened call, the study's wall, redos,
+    promotions and the buffer it ended at."""
+    import math
+    import numpy as np
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.core import cases
+    from powersystemsreliabilityassessment_tpu_torch.studies import hl2_seq
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        MCSConfig)
+    rec = json.loads((ROOT / "results" / "case300_seq_results.json"
+                      ).read_text())
+    cfg = MCSConfig(max_years=years, cov_threshold=0.0)
+    probe = _SeqProbe()
+    _reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with probe.installed():
+        res, log = _study_log(tag, lambda: hl2_seq.run_seq_study(
+            cases.case300s(), cfg, device="cuda", log_every=0,
+            years_per_device=SEQ300_Y))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = _counts()
+    rows = probe.rows()
+    for i, r in enumerate(rows):
+        _line(tag, call=i, **r)
+    se = lambda v: float(np.std(v, ddof=1) / math.sqrt(len(v)))
+    n = rec["years"]
+    z = {"eens": abs(res.eens_mwh_yr - rec["eens_mwh_yr"]) / math.hypot(
+        se(rec["annual_ens"]), se(res.annual_ens))}
+    for key, field, per_year in (("lole", "lole_hr_yr", res.annual_dlc),
+                                 ("lolf", "lolf_occ_yr", res.annual_nlc)):
+        z[key] = abs(getattr(res, field) - rec[field]) / math.hypot(
+            _loss_year_se(rec["annual_ens"], rec[field] * n), se(per_year))
+    redos = sum("redoing batch" in ln for ln in log)
+    promotions = [ln for ln in log if "promoting max_lp" in ln]
+    lp_lanes = sum(r["lp_lanes"] for r in rows)
+    past_guard = sum(r["past_guard"] for r in rows)
+    by_buffer = {}
+    for r in rows:
+        b = by_buffer.setdefault(r["lp_buffer"], dict(
+            calls=0, lp_lanes=0, past_guard=0))
+        b["calls"] += 1
+        b["lp_lanes"] += r["lp_lanes"]
+        b["past_guard"] += r["past_guard"]
+    row = dict(years=res.years, screened_calls=len(rows), redos=redos,
+               promotions=len(promotions),
+               final_max_lp=rows[-1]["lp_buffer"] // SEQ300_Y,
+               largest_max_lp=max(r["lp_buffer"] for r in rows) // SEQ300_Y,
+               eens_mwh_yr=f"{res.eens_mwh_yr:.4f}",
+               lole_hr_yr=f"{res.lole_hr_yr:.4f}",
+               lolf_occ_yr=f"{res.lolf_occ_yr:.4f}", cov=f"{res.cov:.4f}",
+               eens_z=f"{z['eens']:.2f}<=4", lole_z=f"{z['lole']:.2f}<=4",
+               lolf_z=f"{z['lolf']:.2f}<=4", loss_years=int(
+                   (np.asarray(res.annual_ens) > 0).sum()),
+               overflow_hours=res.overflow_hours,
+               infeasible_hours=res.infeasible_hours,
+               lp_lanes=lp_lanes, past_guard=f"{past_guard}<="
+               f"{SEQ300_PAST_GUARD_SHARE}x{lp_lanes}",
+               tier1_misses=sum(r["tier1_misses"] for r in rows),
+               tier1_queue=sum(r["tier1_queue"] for r in rows),
+               lp_queue=sum(r["lp_queue"] for r in rows),
+               by_buffer=json.dumps(by_buffer).replace(" ", ""),
+               wall_s=f"{wall:.2f}",
+               wall_per_block_s=f"{wall / max(len(rows), 1):.3f}",
+               peak_mem_bytes=peak,
+               launches=json.dumps(counts).replace(" ", ""))
+    _line(tag, **row)
+    if not all(v <= 4 for v in z.values()):
+        raise RuntimeError(f"{tag}: EENS / LOLE / LOLF outside 4 combined "
+                           "standard errors of "
+                           "results/case300_seq_results.json")
+    if res.overflow_hours or res.infeasible_hours:
+        raise RuntimeError(f"{tag}: {res.overflow_hours} overflow and "
+                           f"{res.infeasible_hours} infeasible hours")
+    if any(r["k2a"] <= 0 or r["k3_fwd"] <= 0 for r in rows):
+        raise RuntimeError(f"{tag}: K2a / K3 not launched on every batch")
+    if past_guard > SEQ300_PAST_GUARD_SHARE * lp_lanes:
+        raise RuntimeError(f"{tag}: {past_guard} of {lp_lanes} LP lanes "
+                           "past the guard")
+    for name in ("cholesky", "trsm_fwd", "trsm_bwd"):
+        results.setdefault(name, {})[f"launches_{tag}"] = counts[name]
+    return row
+
+
+def phase_seq300(results):
+    """The case300s SEQ year block and study on the card: (a) the
+    golden stress block against the reference (tier 1.5 in the block:
+    fault F); (b) the study at its record's configuration for
+    SEQ300_YEARS years; then one step of it alone (two years, 256 lanes
+    a year): wall, device ms, launches, host reads, peak memory."""
+    from powersystemsreliabilityassessment_tpu_torch.core import (
+        cases, load_profile)
+    from powersystemsreliabilityassessment_tpu_torch.core.system import (
+        build_system)
+    t_phase = time.perf_counter()
+    case = cases.case300s()
+    sys_ = build_system(case, device="cuda")
+    sys_cpu = build_system(case, device="cpu")
+    _golden_block_check("seq300", "case300s", sys_, sys_cpu)
+    _seq300_run("seq300", SEQ300_YEARS, results)
+    step = _seq_step_costs("seq300", case, sys_, SEQ300_Y, 256,
+                           load_profile.load_factors(8736), seed=0)
+    _line("seq300", step=json.dumps(step).replace(" ", ""),
+          seconds=round(time.perf_counter() - t_phase, 2))
+
+
+def phase_seq300full(results):
+    """All SEQ300_FULL_YEARS years of the case300s SEQ record, held as
+    seq300's study."""
+    t_phase = time.perf_counter()
+    _seq300_run("seq300full", SEQ300_FULL_YEARS, results)
+    _line("seq300full", seconds=round(time.perf_counter() - t_phase, 2))
+
+
+def phase_seq96(results):
+    """The RTS-96 SEQ year block and a short study on the card: (a) the
+    golden stress block against the reference; (b) SEQ96_YEARS years at
+    SEQ96_Y years a step: every year's ENS at least its copper-sheet ENS
+    (evaluate_years' control-variate outputs of the same years) less
+    SEQ_APART_MW a deficit hour, RTS96_KERNELS launched by every step,
+    overflow 0; the kept LP lanes of the first block (up to
+    SEQ96_HIGHS_LANES) within SEQ_ORACLE_TOL_MW of float64 HiGHS; the
+    step's wall, device ms, launches and LP lanes."""
+    import numpy as np
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.core import (
+        cases, load_profile)
+    from powersystemsreliabilityassessment_tpu_torch.core.system import (
+        build_system)
+    from powersystemsreliabilityassessment_tpu_torch.models import twostate
+    from powersystemsreliabilityassessment_tpu_torch.sampling import (
+        chronological)
+    from powersystemsreliabilityassessment_tpu_torch.studies import (
+        hl2_nsq, hl2_seq)
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        MCSConfig)
+    t_phase = time.perf_counter()
+    case = cases.rts96()
+    sys_ = build_system(case, device="cuda")
+    sys_cpu = build_system(case, device="cpu")
+    _golden_block_check("seq96", "rts96", sys_, sys_cpu)
+
+    # The study, with the copper-sheet ENS of every year read beside it.
+    hours = 8736
+    factors = load_profile.load_factors(hours)
+    total_mw = float(np.sum(np.asarray(case.bus_pd, np.float64)))
+    cv = (torch.as_tensor((np.asarray(factors, np.float64) * total_mw
+                           ).astype(np.float32), device="cuda"),
+          torch.as_tensor(np.asarray(case.gen_pmax, np.float32),
+                          device="cuda"))
+    years_seen = []
+    orig = hl2_seq.evaluate_years
+
+    def evaluate_years(sys__, compat, ipm, load, down, max_lp,
+                       nodal_mode="lp", cv_arrays=None, maint_down=None):
+        out = orig(sys__, compat, ipm, load, down, max_lp, nodal_mode, cv,
+                   maint_down)
+        years_seen.append((out[0], out[10], out[11]))
+        return out[:10]
+
+    probe = _SeqProbe()
+    cfg = MCSConfig(max_years=SEQ96_YEARS, cov_threshold=0.0,
+                    seed=SEQ96_SEED)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hl2_seq.evaluate_years = evaluate_years
+    try:
+        with probe.installed():
+            res, log = _study_log("seq96", lambda: hl2_seq.run_seq_study(
+                case, cfg, device="cuda", log_every=0,
+                years_per_device=SEQ96_Y))
+    finally:
+        hl2_seq.evaluate_years = orig
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    rows = probe.rows()
+    for i, r in enumerate(rows):
+        _line("seq96", call=i, **r)
+    ens, copper, copper_h = (torch.cat(v).double().cpu().numpy()
+                             for v in zip(*years_seen))
+    # Each hour with a copper deficit may round by SEQ_APART_MW (the LP's
+    # float32 answer, the 0.1 MW noise floor).
+    shortfall = float((copper - ens).max())
+    low = int((ens < copper - SEQ_APART_MW * np.maximum(copper_h, 1.0)
+               ).sum())
+
+    # The first block's kept LP lanes against float64 HiGHS.
+    mt = twostate.mean_times(case)
+    k = chronological.default_num_draws(mt[:, 0], mt[:, 1], hours)
+    down = hl2_seq.sample_years(hl2_nsq.batch_generator(SEQ96_SEED, 0,
+                                                        "cuda"),
+                                sys_, SEQ96_Y, hours, k).cpu().numpy()
+    got = evaluate_block(sys_, down, 256 * SEQ96_Y)
+    kept = np.flatnonzero((got["q"] > 0) & (got["q"] <= LP_QUALITY_GUARD))
+    lanes = kept[np.argsort(-got["dns"][kept], kind="stable")][
+        :SEQ96_HIGHS_LANES]
+    flat = np.swapaxes(down, 1, 2).reshape(SEQ96_Y * hours, -1)
+    oracle = _highs300(sys_cpu, flat.astype(np.float32), list(lanes),
+                       got["load"])
+    highs_err = float(np.abs(got["dns"][lanes] - oracle).max()
+                      ) if len(lanes) else 0.0
+    step = _seq_step_costs("seq96", case, sys_, SEQ96_Y, 256, factors,
+                           seed=SEQ96_SEED)
+    _line("seq96", years=res.years, steps=len(rows),
+          redos=sum("redoing batch" in ln for ln in log),
+          eens_mwh_yr=f"{res.eens_mwh_yr:.4f}",
+          lole_hr_yr=f"{res.lole_hr_yr:.4f}",
+          lolf_occ_yr=f"{res.lolf_occ_yr:.4f}", cov=f"{res.cov:.4f}",
+          copper_eens_mwh_yr=f"{copper.mean():.4f}",
+          years_below_copper=f"{low}<=0",
+          largest_copper_shortfall_mwh=f"{shortfall:.4f}",
+          overflow_hours=res.overflow_hours,
+          infeasible_hours=res.infeasible_hours,
+          lp_lanes_per_step=json.dumps([r["lp_lanes"] for r in rows]),
+          past_guard=sum(r["past_guard"] for r in rows),
+          highs_lanes=len(lanes), highs_kept_lanes=len(kept),
+          highs_max_err_mw=f"{highs_err:.4f}<="
+          f"{SEQ_ORACLE_TOL_MW['rts96']}",
+          wall_s=f"{wall:.2f}", step=json.dumps(step).replace(" ", ""),
+          launches=json.dumps(counts).replace(" ", ""),
+          seconds=round(time.perf_counter() - t_phase, 2))
+    if low or res.overflow_hours or highs_err > SEQ_ORACLE_TOL_MW["rts96"]:
+        raise RuntimeError(f"seq96: {low} years below their copper ENS, "
+                           f"{res.overflow_hours} overflow hours, or a kept "
+                           f"LP lane {highs_err:.4f} MW off HiGHS")
+    missing = [(i, k_) for i, r in enumerate(rows)
+               for k_ in ("k2a", "k3_fwd", "k3_bwd") if r[k_] <= 0]
+    if missing:
+        raise RuntimeError(f"seq96: RTS96_KERNELS not launched on every "
+                           f"step: {missing}")
+    for name in RTS96_KERNELS:
+        results.setdefault(name, {})["launches_seq96"] = counts[name]
 
 
 # The samplers' phases: a record's estimate and standard error, held
@@ -5024,6 +5713,12 @@ def main() -> int:
         phase_split(sys_, results)
     if "cli" in phases:
         phase_cli(results)
+    if "seq300" in phases:
+        phase_seq300(results)
+    if "seq96" in phases:
+        phase_seq96(results)
+    if "seq300full" in phases:
+        phase_seq300full(results)
     if "profile" in phases:
         phase_profile(sys_)
         phase_profile96(sys96)

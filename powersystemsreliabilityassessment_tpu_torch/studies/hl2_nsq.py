@@ -56,7 +56,7 @@ from powersystemsreliabilityassessment_tpu_torch.utils.config import (
 # memory envelope of a large-m IPM buffer on a 15.75 GB chip (reference
 # ``studies/hl2_nsq.py::default_max_lp``), kept so that the study can be
 # compared with its artifact; not sized again for the H100's 80 GB yet
-# (ROADMAP.md Queue 1 item 7).
+# (ROADMAP.md Queue 1 item 1, the constants).
 PF_TIER_LP_CAP = 2048
 # The proportional-mode buffer with tier 1.5 on: its misses are ~0.1% of
 # lanes (results/r4_miss.json), and <= 128 lanes cost the large-m LP

@@ -9,9 +9,12 @@ device. Per batch of ``years_per_device`` simulated years, on the device:
    the batch index);
 2. scale the RTS-79 hourly load profile (``core/load_profile.py``) and
    evaluate every hour-state of the block as one flat batch through the
-   screened evaluator: the certificate proves most hours shed-free, and
-   the LP (K1, then the polish's K2a / K2b on RTS-24) takes the rest in
-   a buffer of ``max_lp`` lanes a year;
+   screened evaluator: the certificate proves most hours shed-free,
+   tier 1.5 (the island power-flow certificate, past m = 336) closes
+   most of the rest, and the LP (K1, then the polish's K2a / K2b on
+   RTS-24; the blocked Cholesky's K2a / K3 on RTS-96; the block-Schur
+   inverses' K2a / K3 on case300s) takes what remains in a buffer of
+   ``max_lp`` lanes a year;
 3. reduce to the annual indices ENS / PLC / NLC (event counting,
    calnlc.m) / DLC / EDNS (seqMain.m:160-176) and the nodal and
    weak-point sums.
@@ -90,7 +93,9 @@ def evaluate_years(sys: System, compat: CompatFlags, ipm: IPMConfig,
     The evaluation part of reference ``studies/hl2_seq.py::_years_eval``.
     ``maint_down`` ``[H, n_comp]`` (bool, on the device) is ORed into
     every year's states: a component on scheduled maintenance is DOWN,
-    in the evaluation and in the weak-point counts.
+    in the evaluation and in the weak-point counts. Tier 1.5 runs where
+    ``dcopf.default_pf_buffer`` turns it on (m > 336), on ``min(Y H,
+    256)`` of tier 1's LP queue, as in the reference.
 
     Returns device tensors ``(ens [Y] MWh, plc [Y], nlc [Y], dlc [Y],
     edns [Y] MW, nodal [Y, nb] MWh, comp_fail [Y, n_comp] h, loss_hours
@@ -111,7 +116,8 @@ def evaluate_years(sys: System, compat: CompatFlags, ipm: IPMConfig,
     # excess lanes to the LP buffer.
     res, n_over = dcopf.evaluate_states_screened(
         sys, down_h.reshape(Y * H, -1), load, max_lp, compat, ipm,
-        nodal_mode, repair_buffer=max(4096, (Y * H) // 16))
+        nodal_mode, repair_buffer=max(4096, (Y * H) // 16),
+        pf_buffer=dcopf.default_pf_buffer(sys, Y * H))
     dns = res.dns_mw.reshape(Y, H)
     flag = dns > compat.seq_curtail_threshold_mw
     flag_f = flag.to(dns.dtype)
@@ -164,8 +170,14 @@ def make_seq_batch_step(sys: System, years_per_device: int,
     ``studies/hl2_seq.py::make_seq_batch_step`` on one device.
     ``max_lp`` is per year; ``maint_down`` (host bool ``[H, n_comp]``,
     copied to the device here) is the maintenance schedule of
-    :func:`maintenance_down`. The step only enqueues device work:
-    nothing in it waits for the device."""
+    :func:`maintenance_down`. At m <= 72 (RTS-24) the step only enqueues
+    device work: nothing in it waits for the device. Past it the LP
+    reads on the host: the blocked Cholesky's probe once a factor (18
+    host reads a 16-year RTS-96 step), and at m > 336 the large-m LP's
+    gates (``lp_ipm_batched.solve_box_lp_ops``: the Schur inverses'
+    probes and the rescue ladder's gates; 38-39 host reads a two-year
+    case300s step). Measured on an NVIDIA H100 by chip_smoke.py's seq96
+    and seq300 phases and scripts/torch_seq300_step.py."""
     load = year_block_load(sys, factors, years_per_device)
     if maint_down is not None:
         maint_down = torch.as_tensor(np.asarray(maint_down, bool),
@@ -273,14 +285,18 @@ def maintenance_down(case: CaseData, hours: int,
 def seq_lp_cap(m: int, hours: int, years_per_device: int) -> int:
     """Per-year LP-buffer ceiling of the chronological study; mirrors
     reference ``studies/hl2_seq.py::seq_lp_cap``. Systems with m <= 336
-    may grow to the whole year; larger ones keep the reference's TPU
-    memory envelope (4096 / Y^2 a year), not yet sized for the H100
-    (ROADMAP.md Queue 1 item 7). Hours past the cap keep their certified
-    deficit bounds and are counted in ``overflow_hours``."""
+    may grow to the whole year. Larger ones hold 4,096 LP lanes a block
+    (4,096 / Y a year), where the reference holds 4,096 / Y^2 a year (its
+    envelope on a 15.75 GB chip): on an 80 GB H100 a case300s step at
+    4,096 lanes peaks at 26.2 GB at Y = 2 and 26.3 GB at Y = 4, within
+    half the card (chip_smoke.py seq300full,
+    scripts/torch_seq300_step.py), and the 256-year case300s record at
+    Y = 2 needs 2,291 LP lanes in one block, past the reference's 2,048.
+    Hours past the cap keep their certified deficit bounds and are
+    counted in ``overflow_hours``."""
     if m <= 336:
         return hours
-    return min(hours, max(128, 4096 // (years_per_device *
-                                        years_per_device)))
+    return min(hours, max(128, 4096 // years_per_device))
 
 
 def run_seq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),

@@ -211,6 +211,9 @@ def _screened(sys: System, compat: CompatFlags, ipm: IPMConfig,
     ``[N, H]``, nodal shed ``[N, H, nb]`` and the overflow count. The
     repair buffer is the SEQ study's (``hl2_seq.evaluate_years``)."""
     N, H, _ = down_h.shape
+    # No tier 1.5 (pf_buffer), as in the reference's split study; the
+    # plain SEQ block has it (hl2_seq.evaluate_years). Change both
+    # packages' split together or neither.
     res, n_over = dcopf.evaluate_states_screened(
         sys, down_h.reshape(N * H, -1), load, max_lp, compat, ipm,
         nodal_mode, repair_buffer=max(4096, (N * H) // 16))

@@ -18,8 +18,8 @@ multi-area LP's shapes (m = 1-5, 70,080 lanes), ``solve_curtailment``
 and the energy-limited-unit Monte Carlo on the card against the CPU, and
 the multi-area, ELU and maintenance SEQ steps without a host sync; the
 multilevel-splitting SEQ study's K = 1 reduction to the never-split
-estimate and its step without a host sync, and the command line's
-``nsq`` on the card.
+estimate and its step without a host sync, the command line's
+``nsq`` on the card, and a case300s SEQ step with tier 1.5 in it.
 
 Tests that need a card carry the ``gpu`` marker and skip without one.
 The file imports neither JAX nor the JAX package, so it also runs where
@@ -1483,6 +1483,38 @@ def test_seq_step_never_waits_for_the_device(cuda):
         before["fused_ipm_iterations"] + 1 + warm
     assert bc.launches["cholesky"] == before["cholesky"] + 2 * 2
     assert bc.launches["cho_solve"] == before["cho_solve"] + 3 * 2
+
+
+@pytest.mark.gpu
+def test_case300_seq_step_runs_tier15(cuda, monkeypatch):
+    """One case300s SEQ step (two years, 256 LP lanes a year) on the card
+    under the sync check's default mode (the large-m LP reads its gates
+    on the host): tier 1.5 runs in the year block and takes hours out of
+    tier 1's LP queue, and the step's outputs are finite."""
+    case = cases.case300s()
+    sys_ = build_system(case, device=cuda)
+    hours = 8736
+    mt = twostate.mean_times(case)
+    k = chronological.default_num_draws(mt[:, 0], mt[:, 1], hours)
+    step = hl2_seq.make_seq_batch_step(
+        sys_, 2, CompatFlags(), IPMConfig(), hours, k, 256,
+        load_profile.load_factors(hours))
+    queues = []
+    needs_lp = dcopf._needs_lp
+
+    def counted(pre, nodal_mode):
+        need = needs_lp(pre, nodal_mode)
+        queues.append(need.sum())
+        return need
+
+    monkeypatch.setattr(dcopf, "_needs_lp", counted)
+    torch.cuda.set_sync_debug_mode("default")
+    out = step(hl2_nsq.batch_generator(0, 0, cuda))
+    torch.cuda.synchronize()
+    tier1, lp = int(queues[0]), int(queues[-1])
+    assert len(queues) == 2 and tier1 > 0 and lp < tier1, (tier1, lp)
+    assert out[0].shape == (2,) and bool(torch.isfinite(out[0]).all())
+    assert math.isfinite(float(out[8])) and int(out[8]) >= 0
 
 
 def _sampler_draws(kind, sys_, masks, gen, batch):
