@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's HL2 NSQ and SEQ paths, its HL1 and
 planning studies, the multi-area HL1.5 engine, the multilevel-splitting
-SEQ study and the command line on one CUDA card.
+SEQ study, the command line and the scenario mesh on one CUDA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -271,6 +271,20 @@ Phases, one line each (any failure raises, so the exit code is not 0):
               0.15 MW a deficit hour, RTS96_KERNELS launched on every
               step, overflow 0; the first block's kept LP lanes (up to
               256) within 0.15 MW of float64 HiGHS; one step alone
+ 33. mesh     the scenario mesh (parallel/mesh.py): one NCCL rank in
+              this process (a world of one) runs the bench-shaped step
+              on the mesh bit-equal to the one-device step on 8 seeds
+              under the sync check, with the all_reduce's time a call and
+              both steps' wall, device ms and launches, and the
+              106,496-sample RTS-24 study bit-equal to the one-device
+              study; two gloo ranks sharing the card, each launch the CLI
+              under torchrun: that study (EDNS and PLC within 4 combined
+              standard errors of results/nsq_results.json), the seq
+              phase's study (8 years a rank a step, EENS within 4 of
+              results/seq_results.json), one 16-year multi-area block and
+              one 4,096-state case300s batch side by side; NCCL across
+              cards on min(count, 4) ranks where there are two or more,
+              else a line saying it was not run
 Extra (not run by default): seq300full, seq300's study over all 256
 years of its record, held the same way.
 The bench phase also times the fused step (fused_tier1) at its shape,
@@ -310,7 +324,7 @@ ALL_PHASES = ("build", "k2", "k1", "faulta", "bench", "study", "k3", "study96", 
               "k4", "k5", "studyfused", "seq", "lp300", "pf300", "study300",
               "anti", "is24", "mix300", "ce300", "enum24", "cv24", "cvseq",
               "seqib", "hl1", "plan", "seqmaint", "multi", "split", "cli",
-              "seq300", "seq96")
+              "seq300", "seq96", "mesh")
 # Not run by default: a per-layer and per-kernel breakdown of the
 # bench-shaped step and of the RTS-96 step (for PERF.md), and the whole
 # 256-year case300s SEQ record (seq300full); not part of the smoke
@@ -1468,10 +1482,21 @@ def phase_bench(sys_, results):
                 "launches_bench_fused"] = counts["sample_certify_quick"]
 
 
+def _nsq_z(ref, edns, beta, plc, samples):
+    """(EDNS z, PLC z) of an NSQ estimate against the record ``ref``
+    (results/nsq_results.json), each over the two runs' combined
+    standard error."""
+    import math
+    se_e = math.hypot(ref["beta"] * ref["edns_mw"], beta * edns)
+    se_p = math.hypot(
+        math.sqrt(ref["plc"] * (1 - ref["plc"]) / ref["samples"]),
+        math.sqrt(plc * (1 - plc) / samples))
+    return abs(edns - ref["edns_mw"]) / se_e, abs(plc - ref["plc"]) / se_p
+
+
 def phase_study(tag="study", fused=False, kernels=RTS24_KERNELS):
     """The 106,496-sample RTS-24 study (default, or ``fused_tier1``) held
     against results/nsq_results.json; returns the launch counts."""
-    import math
     import torch
     from powersystemsreliabilityassessment_tpu_torch.core import cases
     from powersystemsreliabilityassessment_tpu_torch.studies import hl2_nsq
@@ -1486,12 +1511,7 @@ def phase_study(tag="study", fused=False, kernels=RTS24_KERNELS):
         device="cuda", log_every=0)
     wall = time.perf_counter() - t0
     counts = _counts()
-    se_e = math.hypot(ref["beta"] * ref["edns_mw"], res.beta * res.edns_mw)
-    se_p = math.hypot(
-        math.sqrt(ref["plc"] * (1 - ref["plc"]) / ref["samples"]),
-        math.sqrt(res.plc * (1 - res.plc) / res.samples))
-    z_e = abs(res.edns_mw - ref["edns_mw"]) / se_e
-    z_p = abs(res.plc - ref["plc"]) / se_p
+    z_e, z_p = _nsq_z(ref, res.edns_mw, res.beta, res.plc, res.samples)
     _line(tag, samples=res.samples, edns_mw=f"{res.edns_mw:.4f}",
           lole_hr_yr=f"{res.lole_hr_yr:.2f}", plc=f"{res.plc:.5f}",
           beta=f"{res.beta:.5f}", edns_z=f"{z_e:.2f}<=4",
@@ -5353,6 +5373,249 @@ def phase_cli(results):
         raise RuntimeError(f"cli: {bad}")
 
 
+MESH_RANKS = 2                 # ranks that share the card over gloo
+MESH_LAUNCH_TIMEOUT_S = 300
+
+
+def _torchrun_start(tag, argv, tmp, nproc=MESH_RANKS, backend="gloo"):
+    """Start ``python -m torch.distributed.run --standalone
+    --nproc_per_node nproc -m PKG argv`` from the root, each rank's
+    output teed with its rank's prefix (``backend`` as PSRA_MESH_BACKEND,
+    None: the CLI's own choice). Returns (tag, process, start time) for
+    :func:`_torchrun_finish`."""
+    import os
+    env = dict(os.environ)
+    env.pop("PSRA_MESH_BACKEND", None)
+    if backend:
+        env["PSRA_MESH_BACKEND"] = backend
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), "--log-dir",
+           str(tmp / f"logs_{tag}"), "--tee", "3", "-m", PKG, *argv]
+    return tag, subprocess.Popen(
+        cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True), time.perf_counter()
+
+
+def _torchrun_finish(started):
+    """Wait for a :func:`_torchrun_start` launch; past
+    MESH_LAUNCH_TIMEOUT_S torchrun is stopped (it stops its workers),
+    then killed. Returns (rank 0's JSON lines, rank 0's output, wall s);
+    a failed launch, or a JSON line from another rank, raises."""
+    import re
+    tag, proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=MESH_LAUNCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.terminate()
+        try:
+            proc.communicate(timeout=30)
+        finally:
+            proc.kill()
+            proc.communicate()
+        raise RuntimeError(f"mesh {tag}: torchrun past "
+                           f"{MESH_LAUNCH_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"mesh {tag}: exit {proc.returncode}:\n"
+                           f"{out[-2000:]}\n{err[-3000:]}")
+    rank0 = [ln.split(":", 1)[1] for ln in out.splitlines()
+             if ln.startswith("[default0]:")]
+    if re.search(r"^\[default[1-9]\d*\]:\{", out, re.M):
+        raise RuntimeError(f"mesh {tag}: a rank other than 0 printed JSON")
+    return ([json.loads(ln) for ln in rank0 if ln.startswith("{")],
+            "\n".join(rank0), wall)
+
+
+def _torchrun(tag, argv, tmp, nproc=MESH_RANKS, backend="gloo"):
+    """One launch, alone on the card: :func:`_torchrun_start`, then
+    :func:`_torchrun_finish`."""
+    return _torchrun_finish(_torchrun_start(tag, argv, tmp, nproc, backend))
+
+
+def phase_mesh(sys_, results):
+    """The scenario mesh (parallel/mesh.py) on the card. 1: one NCCL rank
+    in this process (a world of one: the real all_reduce in the real
+    step): the bench-shaped step on the mesh bit-equal to the one-device
+    step under the sync check, the all_reduce's device time, both steps'
+    device time and launches; the 106,496-sample RTS-24 study on the mesh
+    bit-equal to the one-device study. 2: two ranks sharing the card
+    over gloo, through the CLI under torchrun: that study (z <= 4 against
+    results/nsq_results.json), the seq phase's study (EENS z <= 4 against
+    results/seq_results.json), one multi-area block and one case300s NSQ
+    batch. 3: NCCL across cards on min(count, 4) ranks where the machine
+    has two or more."""
+    import math
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from powersystemsreliabilityassessment_tpu_torch.core import cases
+    from powersystemsreliabilityassessment_tpu_torch.engines import dcopf
+    from powersystemsreliabilityassessment_tpu_torch.parallel import (
+        accumulators, mesh as meshlib)
+    from powersystemsreliabilityassessment_tpu_torch.studies import hl2_nsq
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        CompatFlags, IPMConfig, MCSConfig)
+    tmp = Path(tempfile.mkdtemp(prefix="psra_mesh_"))
+    count = torch.cuda.device_count()
+    _line("mesh", device_count=count)
+
+    # 1. One NCCL rank in this process.
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=0,
+                            world_size=1, timeout=meshlib.TIMEOUT)
+    try:
+        mesh = meshlib.scenario_mesh("cuda:0")
+        batch, gen = 262144, hl2_nsq.batch_generator
+        kw = dict(max_lp=256, nodal_mode="proportional",
+                  shed_hint=dcopf.calibrate_shed_hint(sys_))
+        one = hl2_nsq.make_nsq_batch_step(sys_, batch, CompatFlags(),
+                                          IPMConfig(), **kw)
+        on_mesh = hl2_nsq.make_nsq_batch_step(sys_, batch, CompatFlags(),
+                                              IPMConfig(), mesh=mesh, **kw)
+        pack = lambda out: accumulators.pack_moments(  # noqa: E731
+            out[0], out[1].float(), out[2].float())
+        flat = torch.zeros(7 + sys_.n_bus + sys_.n_comp, device="cuda")
+        meshlib.psum(mesh, flat)          # the communicator, before timing
+        one(gen(0, 10**6, "cuda"))
+        on_mesh(gen(0, 10**6, "cuda"))
+        torch.cuda.synchronize()
+        n_steps = 8
+        _reset_counts()
+        got = []
+        for it in range(n_steps):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got.append(pack(on_mesh(gen(0, it, "cuda"))))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        counts = _counts()
+        _check_launched("mesh", counts, RTS24_KERNELS)
+        same = sum(torch.equal(g, pack(one(gen(0, it, "cuda"))))
+                   for it, g in enumerate(got))
+        # 200 all_reduce calls back to back: host ms a call, and ms a call
+        # between CUDA events on the compute stream (it waits on NCCL's).
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            meshlib.psum(mesh, flat)
+        torch.cuda.synchronize()
+        ar_host = (time.perf_counter() - t0) * 1e3 / 200
+        ar_ms = _time_ms(lambda: meshlib.psum(mesh, flat), reps=200)
+        wall1, dev1, n1, _ = _measure(lambda: one(gen(0, 3, "cuda")), 8)
+        wallm, devm, nm, kern = _measure(
+            lambda: on_mesh(gen(0, 3, "cuda")), 8)
+        nccl = [e for e in kern if "nccl" in e.key.lower()]
+        _line("mesh", part="nccl_one_rank_step", batch=batch,
+              bit_equal_steps=f"{same}/{n_steps}", sync_checked=True,
+              all_reduce_floats=flat.numel(),
+              all_reduce_host_ms=f"{ar_host:.4f}",
+              all_reduce_event_ms=f"{ar_ms:.4f}",
+              nccl_kernels_per_step=f"{sum(e.count for e in nccl) / 8:.0f}",
+              nccl_kernel_ms_per_step=(
+                  f"{sum(_dev_us(e) for e in nccl) / 1e3 / 8:.4f}"),
+              step_wall_ms=f"{wall1:.3f},{wallm:.3f}",
+              step_device_ms=f"{dev1:.3f},{devm:.3f}",
+              step_launches=f"{n1:.0f},{nm:.0f}",
+              order="one_device,mesh",
+              launches=json.dumps(counts).replace(" ", ""))
+        if same != n_steps:
+            raise RuntimeError(f"mesh: {n_steps - same} mesh steps differ "
+                               "from the one-device step")
+        cfg = MCSConfig(max_samples=106496)
+        t0 = time.perf_counter()
+        alone = hl2_nsq.run_nsq_study(cases.rts24(), cfg, device="cuda",
+                                      log_every=0)
+        t1 = time.perf_counter()
+        meshed = hl2_nsq.run_nsq_study(cases.rts24(), cfg, log_every=0,
+                                       mesh=mesh)
+        t2 = time.perf_counter()
+        _line("mesh", part="nccl_one_rank_study", samples=meshed.samples,
+              edns_mw=repr(meshed.edns_mw), edns_one_device=repr(
+                  alone.edns_mw), wall_s=f"{t1 - t0:.2f},{t2 - t1:.2f}")
+        if (meshed.edns_history != alone.edns_history
+                or meshed.beta != alone.beta):
+            raise RuntimeError("mesh: the one-rank study differs from the "
+                               "one-device study")
+    finally:
+        dist.destroy_process_group()
+
+    # 2. Two ranks sharing the card over gloo, through the CLI.
+    nsq_ref = json.loads((ROOT / "results" / "nsq_results.json").read_text())
+    seq_ref = json.loads((ROOT / "results" / "seq_results.json").read_text())
+    dev = ["--device", "cuda:0"]
+    jsons, _, wall = _torchrun("nsq", ["nsq", "--samples", "106496", "--out",
+                                       str(tmp / "nsq"), *dev], tmp)
+    res = jsons[-1]
+    rec = json.loads((tmp / "nsq" / "nsq_results.json").read_text())
+    z_e, z_p = _nsq_z(nsq_ref, res["edns"], res["beta"], res["plc"],
+                      rec["samples"])
+    _line("mesh", part="gloo_two_ranks_nsq", json_lines=len(jsons),
+          samples=rec["samples"], edns_mw=f"{res['edns']:.4f}",
+          plc=f"{res['plc']:.5f}", beta=f"{res['beta']:.5f}",
+          edns_z=f"{z_e:.2f}<=4", plc_z=f"{z_p:.2f}<=4",
+          overflow=rec["overflow_states"], wall_s=f"{wall:.2f}")
+    if not (len(jsons) == 1 and rec["samples"] == 106496 and z_e <= 4
+            and z_p <= 4):
+        raise RuntimeError("mesh: the two-rank NSQ study is off its record")
+    jsons, _, wall = _torchrun("seq", ["seq", "--seed", "1",
+                                       "--years-per-device", "8", "--out",
+                                       str(tmp / "seq"), *dev], tmp)
+    res = jsons[-1]
+    rec = json.loads((tmp / "seq" / "seq_results.json").read_text())
+    se = lambda v: float(np.std(v, ddof=1) / math.sqrt(len(v)))  # noqa: E731
+    z = abs(rec["eens_mwh_yr"] - seq_ref["eens_mwh_yr"]) / math.hypot(
+        se(seq_ref["annual_ens"]), se(rec["annual_ens"]))
+    _line("mesh", part="gloo_two_ranks_seq", json_lines=len(jsons),
+          years=rec["years"], converged=rec["converged"],
+          eens_mwh_yr=f"{rec['eens_mwh_yr']:.4f}",
+          lole_hr_yr=f"{res['lole']:.4f}", lolf_occ_yr=f"{res['lolf']:.4f}",
+          eens_z=f"{z:.2f}<=4", overflow_hours=rec["overflow_hours"],
+          wall_s=f"{wall:.2f}")
+    if not (len(jsons) == 1 and rec["years"] % 16 == 0 and z <= 4):
+        raise RuntimeError("mesh: the two-rank SEQ study is off its record")
+    # The multi-area block and the case300s batch side by side: four
+    # ranks on the card at once, so their walls overlap.
+    started = [_torchrun_start("multiarea", ["multiarea", "--system", "demo",
+                                             "--years", "16", *dev], tmp),
+               _torchrun_start("case300s", [
+                   "nsq", "--case", "case300s", "--samples", "4096",
+                   "--batch", "4096", "--out", str(tmp / "n300"), *dev],
+                   tmp)]
+    (_, out, wall_ma), (jsons, _, wall) = map(_torchrun_finish, started)
+    _line("mesh", part="gloo_two_ranks_multiarea", years=16,
+          table="MULTI-AREA COMPARISON" in out, wall_s=f"{wall_ma:.2f}",
+          beside="case300s")
+    if "MULTI-AREA COMPARISON" not in out:
+        raise RuntimeError("mesh: no multi-area table from rank 0")
+    res = jsons[-1]
+    _line("mesh", part="gloo_two_ranks_case300s", states_per_rank=2048,
+          edns_mw=f"{res['edns']:.4f}", wall_s=f"{wall:.2f}",
+          beside="multiarea")
+    if not math.isfinite(res["edns"]):
+        raise RuntimeError("mesh: case300s NSQ on two ranks not finite")
+
+    # 3. NCCL between cards.
+    if count < 2:
+        _line("mesh", part="nccl_across_cards", run=False,
+              reason=f"{count} card on this machine: NCCL between cards "
+              "was not run")
+        return
+    ranks = min(count, 4)
+    jsons, _, wall = _torchrun("nccl", ["nsq", "--samples", "106496",
+                                        "--out", str(tmp / "nccl")], tmp,
+                               nproc=ranks, backend=None)
+    res = jsons[-1]
+    rec = json.loads((tmp / "nccl" / "nsq_results.json").read_text())
+    z_e, z_p = _nsq_z(nsq_ref, res["edns"], res["beta"], res["plc"],
+                      rec["samples"])
+    _line("mesh", part="nccl_across_cards", ranks=ranks,
+          edns_mw=f"{res['edns']:.4f}", edns_z=f"{z_e:.2f}<=4",
+          plc_z=f"{z_p:.2f}<=4", wall_s=f"{wall:.2f}")
+    if not (z_e <= 4 and z_p <= 4):
+        raise RuntimeError("mesh: the NCCL study is off its record")
+
+
 def phase_studyfused(results):
     counts = phase_study("studyfused", fused=True, kernels=FUSED_KERNELS)
     results.setdefault("sample_certify_quick", {})["launches"] = \
@@ -5717,6 +5980,8 @@ def main() -> int:
         phase_seq300(results)
     if "seq96" in phases:
         phase_seq96(results)
+    if "mesh" in phases:
+        phase_mesh(sys_, results)
     if "seq300full" in phases:
         phase_seq300full(results)
     if "profile" in phases:

@@ -10,10 +10,13 @@ version beside it that CPU tensors take.
 Ported: the HL2 non-sequential and sequential studies with every
 sampler and option, multilevel splitting, the large-m path, HL1,
 planning, ELU, Markov, the multi-area engine, MATPOWER case files, JSON
-checkpoints, the report figures and the command line (``python -m
-powersystemsreliabilityassessment_tpu_torch``); ROADMAP.md lists what is
-left (the mesh first). Entry points run on the card unless the caller
-passes ``device="cpu"``.
+checkpoints, the report figures, the command line (``python -m
+powersystemsreliabilityassessment_tpu_torch``) and the scenario mesh
+(``parallel/mesh.py``: one process per device under torchrun, one
+``all_reduce`` of the partials a step, for the NSQ, SEQ, split-SEQ,
+multi-area and HL1 Monte Carlo). Entry points run on the card unless the
+caller passes ``device="cpu"``, or on every rank of a mesh
+(``scenario_mesh``) where the caller passes ``mesh=``.
 """
 
 __version__ = "0.1.0"
@@ -55,6 +58,8 @@ _LAZY = {
         "powersystemsreliabilityassessment_tpu_torch.studies.hl2_nsq",
     "run_seq_study":
         "powersystemsreliabilityassessment_tpu_torch.studies.hl2_seq",
+    "scenario_mesh":
+        "powersystemsreliabilityassessment_tpu_torch.parallel.mesh",
 }
 
 

@@ -27,6 +27,22 @@ Deliberate differences (ROADMAP.md Queue 3):
   the exit code stays 0.
 * ``--early-exit`` is accepted and changes nothing: the port's K1 already
   stops each frozen lane on its own.
+
+Several devices: ``nsq``, ``seq`` (and ``--split-level``), ``hl1``,
+``multiarea`` and ``scaleup`` run on a scenario mesh of one process per
+device (``parallel/mesh.py``) when started by torchrun::
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m powersystemsreliabilityassessment_tpu_torch nsq ...
+
+Each rank then runs on ``cuda:LOCAL_RANK`` (``--device cuda``; ``--device
+cpu`` runs the ranks on the CPU over gloo), every rank draws its own
+share of each batch, one ``all_reduce`` a step sums the partials, and
+rank 0 alone prints the JSON line and writes the exports and figures.
+The process group is NCCL on cards and gloo on the CPU;
+``PSRA_MESH_BACKEND=gloo`` with an explicit ``--device cuda:0`` lets
+ranks share one card. ``education`` and ``planning`` do not shard and
+refuse to run under torchrun. Without torchrun nothing changes.
 """
 from __future__ import annotations
 
@@ -34,6 +50,9 @@ import argparse
 import json
 import os
 import sys
+
+# The studies that shard their scenarios over a torchrun mesh.
+MESH_STUDIES = ("nsq", "seq", "hl1", "multiarea", "scaleup")
 
 
 def _add_device(p: argparse.ArgumentParser) -> None:
@@ -226,10 +245,34 @@ def _checkpointer(p: argparse.ArgumentParser, args):
 
 def main(argv=None) -> None:
     """Parse ``argv`` (None: ``sys.argv``) and run the study. Mirrors
-    reference ``__main__.py::main``."""
+    reference ``__main__.py::main``. Under torchrun (``WORLD_SIZE`` above
+    1) the process group is initialised, the study runs on the scenario
+    mesh, and the group it initialised is destroyed at the end."""
     p = build_parser()
     args = p.parse_args(argv)
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        _run(p, args, None)
+        return
+    if args.study not in MESH_STUDIES:
+        p.error(f"{args.study} does not run on a mesh; start it without "
+                "torchrun")
+    import torch.distributed as dist
 
+    from powersystemsreliabilityassessment_tpu_torch.parallel import (
+        mesh as meshlib)
+    backend = os.environ.get("PSRA_MESH_BACKEND") or None
+    started = meshlib.init_from_env(args.device, backend)
+    try:
+        _run(p, args, meshlib.scenario_mesh(args.device, backend))
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _run(p: argparse.ArgumentParser, args, mesh) -> None:
+    """Run ``args.study``, on ``mesh`` where one is given (then rank 0
+    alone prints the result and writes the exports and figures)."""
+    lead = mesh is None or mesh.rank == 0
     if args.study == "nsq":
         from powersystemsreliabilityassessment_tpu_torch.core.matpower_io import (
             resolve_case)
@@ -249,7 +292,9 @@ def main(argv=None) -> None:
             ce_batch=args.ce_batch, ce_boost0=args.ce_boost0,
             fused_tier1=args.fused_tier1), device=args.device,
             checkpointer=ck, control_variate=args.control_variate,
-            enum_order=args.enum_order)
+            enum_order=args.enum_order, mesh=mesh)
+        if not lead:
+            return
         report.export_study(res, args.out, "nsq")
         _figures([
             (f"{args.out}/convergence.png",
@@ -293,14 +338,17 @@ def main(argv=None) -> None:
                             k_clones=args.split_k,
                             max_split=args.split_max),
                 device=args.device,
-                years_per_device=args.years_per_device, checkpointer=ck)
+                years_per_device=args.years_per_device, checkpointer=ck,
+                mesh=mesh)
         else:
             res = run_seq_study(
                 case, cfg, device=args.device,
                 years_per_device=args.years_per_device, checkpointer=ck,
                 sampling=args.sampling,
                 control_variate=args.control_variate,
-                scheduled_maintenance=args.maintenance)
+                scheduled_maintenance=args.maintenance, mesh=mesh)
+        if not lead:
+            return
         report.export_study(res, args.out, "seq")
         _figures([(f"{args.out}/convergence_curve.png",
                    lambda f: report.plot_seq(res, f, args.cov,
@@ -313,8 +361,9 @@ def main(argv=None) -> None:
         figures = _have_matplotlib()
         hl1_comparison.run_full_comparison(
             args.iterations, args.years,
-            out_dir=args.out if figures else None, device=args.device)
-        if not figures:
+            out_dir=args.out if figures else None, device=args.device,
+            mesh=mesh)
+        if not figures and lead:
             _figures_missing([f"{args.out}/hl1_comparison.png"])
     elif args.study == "education":
         import numpy as np
@@ -365,24 +414,32 @@ def main(argv=None) -> None:
         from powersystemsreliabilityassessment_tpu_torch.studies import (
             multiarea_demo)
         if args.system == "rts96":
-            print(json.dumps(multiarea_demo.run_rts96_hl15(
-                args.years, device=args.device)))
+            out = multiarea_demo.run_rts96_hl15(args.years,
+                                                device=args.device,
+                                                mesh=mesh)
+            if lead:
+                print(json.dumps(out))
         elif args.system == "ring":
             multiarea_demo.run_nring_demo(args.areas, args.years,
-                                          device=args.device)
+                                          device=args.device, mesh=mesh)
         elif args.system == "case":
             from powersystemsreliabilityassessment_tpu_torch.core.matpower_io import (  # noqa: E501
                 resolve_case)
-            print(json.dumps(multiarea_demo.run_case_hl15(
-                resolve_case(args.case), args.years, device=args.device)))
+            out = multiarea_demo.run_case_hl15(
+                resolve_case(args.case), args.years, device=args.device,
+                mesh=mesh)
+            if lead:
+                print(json.dumps(out))
         else:
-            multiarea_demo.run_demo(args.years, device=args.device)
+            multiarea_demo.run_demo(args.years, device=args.device,
+                                    mesh=mesh)
     elif args.study == "scaleup":
         from powersystemsreliabilityassessment_tpu_torch.studies import scaleup
-        print(json.dumps(scaleup.run(case_name=args.case,
-                                     samples=args.samples,
-                                     antithetic=args.antithetic,
-                                     device=args.device)))
+        out = scaleup.run(case_name=args.case, samples=args.samples,
+                          antithetic=args.antithetic, device=args.device,
+                          mesh=mesh)
+        if lead:
+            print(json.dumps(out))
     elif args.study == "bench":
         p.error("bench: the port's benchmark does not exist yet (ROADMAP.md "
                 "Queue 1 item 1); bench.py times the JAX package")

@@ -22,10 +22,11 @@ reference pads the batch to 128 lanes on the TPU; the CUDA kernels take
 any batch, so the port does not.
 
 The study runs on one device (the card unless the caller passes
-``device="cpu"``): each batch of years draws its timelines from its own
-generator (``hl2_nsq.batch_generator(seed, batch)``), and the per-batch
-partial sums stay on the device until one read at the end. The mesh
-waits for ROADMAP.md Queue 1 item 12.
+``device="cpu"``) or on every rank of a scenario mesh
+(``parallel/mesh.py``): each batch of years draws its timelines from its
+own generator (``hl2_nsq.batch_generator(seed, batch, rank)``), and the
+per-batch partial sums stay on the device, summed over the ranks in one
+``all_reduce``, until one read at the end.
 """
 from __future__ import annotations
 
@@ -37,6 +38,8 @@ import torch
 
 from powersystemsreliabilityassessment_tpu_torch.engines import (
     lp_ipm_batched)
+from powersystemsreliabilityassessment_tpu_torch.parallel import (
+    mesh as meshlib)
 from powersystemsreliabilityassessment_tpu_torch.sampling import chronological
 from powersystemsreliabilityassessment_tpu_torch.studies.hl2_nsq import (
     batch_generator)
@@ -258,14 +261,16 @@ def draw_block(areas: DeviceAreas, years: int,
 
 def make_multiarea_batch_step(sys: MultiAreaSystem, years_per_device: int,
                               policy: str, ipm: IPMConfig,
-                              device: torch.device | str = "cuda"):
+                              device: torch.device | str = "cuda",
+                              mesh=None):
     """One-batch step ``generator -> (loss hours [A], curtailment sum [A]
     MWh)``, device tensors, over ``years_per_device`` years on
-    ``device``; mirrors reference
-    ``engines/multiarea.py::make_multiarea_batch_step`` on one device:
+    ``device`` (``mesh``'s device where one is given); mirrors reference
+    ``engines/multiarea.py::make_multiarea_batch_step``:
     :func:`draw_block`, then :func:`evaluate_block`. The step only
-    enqueues device work."""
-    areas = device_areas(sys, device)
+    enqueues device work; the rank's sums are summed over the mesh by
+    :func:`multiarea_batches`, once for all batches."""
+    areas = device_areas(sys, device if mesh is None else mesh.device)
 
     def step(generator: torch.Generator):
         return evaluate_block(draw_block(areas, years_per_device, generator),
@@ -279,32 +284,41 @@ def multiarea_batches(sys: MultiAreaSystem, policy: str, n_years: int,
                       seed: int = 0,
                       ipm: IPMConfig = IPMConfig(iterations=20),
                       years_per_device: int = 8,
-                      device: torch.device | str = "cuda"):
+                      device: torch.device | str = "cuda", mesh=None):
     """``(loss hours [n_batches, A], curtailment sums [n_batches, A],
-    years a batch)``, float64 numpy: each batch's per-area sums, read
-    once after the last batch. Batch b draws from
-    ``batch_generator(seed, b)``; ``years_per_device`` is capped at
-    ``n_years``, as the reference caps it."""
-    ypb = max(1, min(years_per_device, n_years))
+    years a batch)``, float64 numpy: each batch's per-area sums over
+    every rank of ``mesh`` (None: ``device`` alone), summed on the device
+    in one ``all_reduce`` and read once after the last batch. Rank r's
+    part of batch b draws from ``batch_generator(seed, b, rank=r)``;
+    ``years_per_device`` is capped at ``ceil(n_years / N)`` on N ranks,
+    as the reference caps it (``:280-283``)."""
+    mesh = mesh or meshlib.one_device(device)
+    ypd = max(1, min(years_per_device, -(-n_years // mesh.size)))
+    ypb = ypd * mesh.size
     n_batches = max(1, -(-n_years // ypb))
-    step = make_multiarea_batch_step(sys, ypb, policy, ipm, device)
-    parts = [step(batch_generator(seed, b, device)) for b in range(n_batches)]
-    loss = torch.stack([p[0] for p in parts]).cpu().numpy()
-    eue = torch.stack([p[1] for p in parts]).cpu().numpy()
-    return loss.astype(np.float64), eue.astype(np.float64), ypb
+    step = make_multiarea_batch_step(sys, ypd, policy, ipm, mesh=mesh)
+    parts = [step(batch_generator(seed, b, mesh.device, mesh.rank))
+             for b in range(n_batches)]
+    # Loss hours are counts below 2^24: exact in float32.
+    sums = torch.stack([torch.stack([loss.to(eue.dtype), eue])
+                        for loss, eue in parts])          # [n_batches, 2, A]
+    sums = meshlib.psum(mesh, sums).cpu().numpy().astype(np.float64)
+    return sums[:, 0], sums[:, 1], ypb
 
 
 def run_multiarea_sequential(sys: MultiAreaSystem, policy: str,
                              n_years: int, seed: int = 0,
                              ipm: IPMConfig = IPMConfig(iterations=20),
                              years_per_device: int = 8,
-                             device: torch.device | str = "cuda"):
+                             device: torch.device | str = "cuda",
+                             mesh=None):
     """Sequential multi-area simulation (AdequacyAssessmentII.jl:185-250):
     ``(LOLE [A] h/yr, EUE [A] MWh/yr)`` over whole batches of
-    ``years_per_device`` years (at least ``n_years``). Mirrors reference
-    ``engines/multiarea.py::run_multiarea_sequential`` on one device;
-    device memory is O(years_per_device H A) whatever ``n_years``."""
+    ``years_per_device`` years a rank (at least ``n_years`` in all), on
+    ``device`` or on every rank of ``mesh``. Mirrors reference
+    ``engines/multiarea.py::run_multiarea_sequential``; device memory is
+    O(years_per_device H A) whatever ``n_years``."""
     loss, eue, ypb = multiarea_batches(sys, policy, n_years, seed, ipm,
-                                       years_per_device, device)
+                                       years_per_device, device, mesh)
     total_years = loss.shape[0] * ypb
     return loss.sum(0) / total_years, eue.sum(0) / total_years

@@ -6,7 +6,9 @@ Each batch's partial sums are taken on the device; the host folds them
 into float64 running statistics and evaluates the beta (NSQ) or CoV
 (SEQ) stopping rule. Both host accumulators round-trip through the JSON
 checkpoints of ``runtime/checkpoint.py`` (``state`` / ``from_state``).
-The mesh ``psum`` is not ported (one device; ROADMAP.md Queue 1 item 12).
+On a scenario mesh (``parallel/mesh.py``) ``psum_moments`` sums a
+batch's partials over the ranks in one ``all_reduce`` before the host
+reads them.
 """
 from __future__ import annotations
 
@@ -15,6 +17,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from powersystemsreliabilityassessment_tpu_torch.parallel import (
+    mesh as meshlib)
 
 
 class BatchMoments(NamedTuple):
@@ -68,6 +73,39 @@ def batch_moments(dns_mw, nodal_mw, failure, comp_down, weight=None,
         sum_nodal=nodal_mw.sum(0),
         sum_comp_fail=f @ comp_down.to(dns_mw.dtype),
         sum_flag_raw=f.sum())
+
+
+def pack_moments(m: BatchMoments, *extra) -> torch.Tensor:
+    """``m``'s fields and the scalars ``extra`` as one flat vector: n,
+    sum_dns, sum_dns_sq, sum_flag, sum_flag_raw, ``extra``, sum_nodal,
+    sum_comp_fail (the layout the NSQ study fetches and sums over the
+    mesh)."""
+    return torch.cat([
+        torch.stack([m.n, m.sum_dns, m.sum_dns_sq, m.sum_flag,
+                     m.sum_flag_raw, *extra]),
+        m.sum_nodal, m.sum_comp_fail])
+
+
+def unpack_moments(v, nb: int, n_extra: int = 0):
+    """Inverse of :func:`pack_moments` on a tensor or a numpy vector (the
+    fields are views): ``(BatchMoments, extra tuple)``; ``nb`` is the
+    length of ``sum_nodal``."""
+    k = 5 + n_extra
+    return (BatchMoments(n=v[0], sum_dns=v[1], sum_dns_sq=v[2],
+                         sum_flag=v[3], sum_nodal=v[k:k + nb],
+                         sum_comp_fail=v[k + nb:], sum_flag_raw=v[4]),
+            tuple(v[5:k]))
+
+
+def psum_moments(mesh, m: BatchMoments) -> BatchMoments:
+    """Every field of ``m`` summed over the scenario mesh ``mesh`` in ONE
+    ``all_reduce`` of the packed fields; mirrors reference
+    ``parallel/accumulators.py::psum_moments`` (a ``psum`` per field
+    inside ``shard_map``). ``m`` itself on a mesh without a group."""
+    if mesh.group is None:
+        return m
+    flat = meshlib.psum(mesh, pack_moments(m))
+    return unpack_moments(flat, m.sum_nodal.shape[0])[0]
 
 
 def _f64(a) -> np.ndarray:

@@ -1,15 +1,19 @@
 """HL1 three-engine comparison study (the ``run_full_comparison.jl`` /
 ``PowerSystemAdequacy.jl`` capability).
 
-Port of ``powersystemsreliabilityassessment_tpu/studies/hl1_comparison.py``
-on one device: the analytical COPT convolution (``engines/copt.py``), the
+Port of ``powersystemsreliabilityassessment_tpu/studies/hl1_comparison.py``:
+the analytical COPT convolution (``engines/copt.py``), the
 non-sequential and the sequential copper-sheet Monte Carlo
 (``engines/copper_sheet.py``, ``sampling/chronological.py``) on the same
 fleet and load curve, with a comparison table and convergence histories.
 Each Monte Carlo batch draws from its own ``torch.Generator``, seeded
 from (seed, batch index) as ``hl2_nsq.batch_generator`` seeds a study
 batch (the reference folds the batch index into a threefry key). The
-batches' sums stay on the device and are read once at the end.
+batches' sums stay on the device and are read once at the end. On a
+scenario mesh (``mesh=``, ``parallel/mesh.py``) each rank draws its
+share of every batch from ``batch_generator(seed, b, rank)`` and the
+stacked sums are summed over the ranks in one ``all_reduce`` before that
+read, as the reference ``psum``s them (``:91-100``).
 """
 from __future__ import annotations
 
@@ -23,6 +27,8 @@ import torch
 
 from powersystemsreliabilityassessment_tpu_torch.engines import (
     copper_sheet, copt)
+from powersystemsreliabilityassessment_tpu_torch.parallel import (
+    mesh as meshlib)
 from powersystemsreliabilityassessment_tpu_torch.sampling import chronological
 from powersystemsreliabilityassessment_tpu_torch.studies.hl2_nsq import (
     batch_generator)
@@ -95,11 +101,14 @@ def _fleet(gens, device):
     return caps, fors
 
 
-def _running(sums: list, per_batch: int):
+def _running(sums: list, per_batch: int, mesh=None):
     """(mean LOLE, mean EUE, LOLE history, batch means) from device batch
-    sums, read on the host once and accumulated in float64."""
-    v = torch.stack([torch.stack(p) for p in sums]).cpu().numpy().astype(
-        np.float64)
+    sums, summed over ``mesh`` (one ``all_reduce``), read on the host
+    once and accumulated in float64."""
+    v = torch.stack([torch.stack(p) for p in sums])
+    if mesh is not None:
+        v = meshlib.psum(mesh, v)
+    v = v.cpu().numpy().astype(np.float64)
     n = per_batch * np.arange(1, v.shape[0] + 1)
     tot = np.cumsum(v, axis=0)
     return (float(tot[-1, 0] / n[-1]), float(tot[-1, 1] / n[-1]),
@@ -125,33 +134,43 @@ def run_analytical(gens: list[GeneratorSpec], hourly_load: np.ndarray,
 
 def run_non_sequential_mc(gens: list[GeneratorSpec], hourly_load: np.ndarray,
                           iterations: int, seed: int = 0, batch: int = 1000,
-                          device: torch.device | str = "cuda"
+                          device: torch.device | str = "cuda", mesh=None
                           ) -> MethodResult:
     """Capacity-sampling Monte Carlo, ``batch`` samples a batch until
     ``iterations`` (rounded up to whole batches); mirrors reference
-    ``run_non_sequential_mc`` on one device (PowerSystemAdequacy.jl:
-    169-208)."""
+    ``run_non_sequential_mc`` (PowerSystemAdequacy.jl:169-208). On a
+    ``mesh`` of N ranks each rank draws ``batch // N`` samples a batch
+    (a batch is that times N)."""
     t0 = time.time()
+    mesh = mesh or meshlib.one_device(device)
+    device = mesh.device
     caps, fors = _fleet(gens, device)
     curve = copper_sheet.LoadCurve.build(hourly_load, device=device)
+    bpd = max(1, batch // mesh.size)
+    per_batch = bpd * mesh.size
     sums = []
-    for b in range((iterations + batch - 1) // batch):
+    for b in range((iterations + per_batch - 1) // per_batch):
         lole, eue, _ = copper_sheet.nsq_batch(
-            batch_generator(seed, b, device), caps, fors, curve, batch)
+            batch_generator(seed, b, device, mesh.rank), caps, fors, curve,
+            bpd)
         sums.append((lole.sum(), eue.sum()))
-    lole_m, eue_m, history, means = _running(sums, batch)
+    lole_m, eue_m, history, means = _running(sums, per_batch, mesh)
     return MethodResult("Non-Sequential MC", lole_m, eue_m,
                         time.time() - t0, history, means)
 
 
 def run_sequential_mc(gens: list[GeneratorSpec], hourly_load: np.ndarray,
                       years: int, seed: int = 1, batch: int = 100,
-                      device: torch.device | str = "cuda") -> MethodResult:
+                      device: torch.device | str = "cuda",
+                      mesh=None) -> MethodResult:
     """Chronological copper-sheet Monte Carlo, ``batch`` years a batch
     (``sample_timeline_batch``, ``capacity_series_from_down``,
-    ``hourly_deficit``); mirrors reference ``run_sequential_mc`` on one
-    device (PowerSystemAdequacy.jl:214-269's per-hour countdown)."""
+    ``hourly_deficit``); mirrors reference ``run_sequential_mc``
+    (PowerSystemAdequacy.jl:214-269's per-hour countdown). On a ``mesh``
+    of N ranks each rank simulates ``batch // N`` years a batch."""
     t0 = time.time()
+    mesh = mesh or meshlib.one_device(device)
+    device = mesh.device
     caps, _ = _fleet(gens, device)
     mttf = np.asarray([g.mttf for g in gens])
     mttr = np.asarray([g.mttr for g in gens])
@@ -160,15 +179,17 @@ def run_sequential_mc(gens: list[GeneratorSpec], hourly_load: np.ndarray,
     load_d = torch.as_tensor(hourly_load, device=device)
     mttf_d = torch.as_tensor(mttf, dtype=torch.float32, device=device)
     mttr_d = torch.as_tensor(mttr, dtype=torch.float32, device=device)
+    ypd = max(1, batch // mesh.size)
+    per_batch = ypd * mesh.size
     sums = []
-    for b in range((years + batch - 1) // batch):
+    for b in range((years + per_batch - 1) // per_batch):
         down = chronological.sample_timeline_batch(
-            batch_generator(seed, b, device), mttf_d, mttr_d, hours, k,
-            batch)
+            batch_generator(seed, b, device, mesh.rank), mttf_d, mttr_d,
+            hours, k, ypd)
         cap_series = copper_sheet.capacity_series_from_down(down, caps)
         lole, eens, _ = copper_sheet.hourly_deficit(cap_series, load_d)
         sums.append((lole.sum(), eens.sum()))
-    lole_m, eens_m, history, means = _running(sums, batch)
+    lole_m, eens_m, history, means = _running(sums, per_batch, mesh)
     return MethodResult("Sequential MC", lole_m, eens_m, time.time() - t0,
                         history, means)
 
@@ -191,21 +212,27 @@ def compare_results(results: list[MethodResult]) -> str:
 
 def run_full_comparison(iterations: int = 5000, years: int = 500,
                         seed: int = 0, out_dir: str | None = None,
-                        device: torch.device | str = "cuda"
-                        ) -> dict[str, Any]:
+                        device: torch.device | str = "cuda",
+                        mesh=None) -> dict[str, Any]:
     """The run_full_comparison.jl study: the three engines on the demo
     fleet and its sinusoidal load, and the table, plus the convergence /
     comparison figure ``{out_dir}/hl1_comparison.png`` when ``out_dir`` is
     given (PowerSystemAdequacy.jl:275-298); mirrors reference
-    ``run_full_comparison``."""
+    ``run_full_comparison``. On a ``mesh`` both Monte Carlo engines run on
+    every rank, and rank 0 alone prints and draws."""
+    if mesh is not None:
+        device = mesh.device
     gens = demo_fleet()
     load = sinusoidal_load(seed=seed)
     results = [
         run_analytical(gens, load, device=device),
         run_non_sequential_mc(gens, load, iterations, seed=seed,
-                              device=device),
-        run_sequential_mc(gens, load, years, seed=seed + 1, device=device),
+                              device=device, mesh=mesh),
+        run_sequential_mc(gens, load, years, seed=seed + 1, device=device,
+                          mesh=mesh),
     ]
+    if mesh is not None and mesh.rank != 0:
+        return {r.method: dataclasses.asdict(r) for r in results}
     print(compare_results(results))
     if out_dir is not None:
         from powersystemsreliabilityassessment_tpu_torch.utils import report

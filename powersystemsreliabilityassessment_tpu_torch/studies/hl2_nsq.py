@@ -1,10 +1,10 @@
 """HL2 non-sequential Monte Carlo study (the ``nsqMain.m`` path).
 
-Port of ``powersystemsreliabilityassessment_tpu/studies/hl2_nsq.py`` on
-one device. Per batch, on the device: sample Bernoulli component states
-at fixed peak load (plain, antithetic, importance-sampled with its
-scopes or a cross-entropy proposal, or a defensive mixture over
-component groups), evaluate them with the
+Port of ``powersystemsreliabilityassessment_tpu/studies/hl2_nsq.py``.
+Per batch, on each device of the scenario mesh: sample Bernoulli
+component states at fixed peak load (plain, antithetic,
+importance-sampled with its scopes or a cross-entropy proposal, or a
+defensive mixture over component groups), evaluate them with the
 two-tier DC-OPF evaluator (``engines/dcopf.py``), and reduce the index
 partial sums. The host folds the partial sums into float64 running
 statistics and applies the beta stopping rule (beta < ``beta_limit`` or
@@ -17,14 +17,23 @@ enumeration hybrid (``enum_order``: every state with at most that many
 outages is evaluated once, exactly, by ``sampling/enumeration.py``, and
 the Monte Carlo counts only the deeper tail).
 
-Threefry keys become one ``torch.Generator`` per batch, seeded from
-(study seed, batch index): a batch is reproducible from its index, which
-the grow-and-redo protocol relies on. ``MCSConfig.fused_tier1`` samples
-and first-pass-certifies each batch in the K4 kernel
-(``ops/fused_sampler_cert.py``). A ``runtime.checkpoint.Checkpointer``
-saves the host state every few batches, and a study given one resumes
-from it. Not ported yet (ROADMAP.md Queue 1 item 12): the mesh and
-``psum``.
+Threefry keys become one ``torch.Generator`` per batch and rank, seeded
+from (study seed, batch index, rank): a batch is reproducible from its
+index, which the grow-and-redo protocol relies on. ``MCSConfig.
+fused_tier1`` samples and first-pass-certifies each batch in the K4
+kernel (``ops/fused_sampler_cert.py``). A ``runtime.checkpoint.
+Checkpointer`` saves the host state every few batches, and a study given
+one resumes from it.
+
+On a scenario mesh of N ranks (``parallel/mesh.py``; one process per
+device under torchrun) each rank draws ``batch_size // N`` states a
+batch from its own generator, and the step sums the packed partials
+over the ranks in one ``all_reduce`` before the host reads them, as the
+reference ``psum``s inside ``shard_map``. Every host decision (grow-and-
+redo, the beta stop, ``max_samples``) reads only summed numbers, so
+every rank takes the same branch and issues the same collectives; every
+rank runs the pre-passes and takes rank 0's results
+(``parallel.mesh.from_rank0``), and rank 0 alone writes the checkpoint.
 """
 from __future__ import annotations
 
@@ -40,7 +49,8 @@ from powersystemsreliabilityassessment_tpu_torch.core.system import (
 from powersystemsreliabilityassessment_tpu_torch.engines import copt, dcopf
 from powersystemsreliabilityassessment_tpu_torch.models import twostate
 from powersystemsreliabilityassessment_tpu_torch.ops import fused_sampler_cert
-from powersystemsreliabilityassessment_tpu_torch.parallel import accumulators
+from powersystemsreliabilityassessment_tpu_torch.parallel import (
+    accumulators, mesh as meshlib)
 from powersystemsreliabilityassessment_tpu_torch.runtime.checkpoint import (
     Checkpointer)
 from powersystemsreliabilityassessment_tpu_torch.runtime.host_loop import (
@@ -137,14 +147,26 @@ def _generator(entropy: tuple, device) -> torch.Generator:
     return gen
 
 
-def batch_generator(seed: int, batch_idx: int,
-                    device: torch.device | str) -> torch.Generator:
-    """The generator of batch ``batch_idx`` of a study seeded ``seed``
-    (Philox on CUDA); takes the place of the reference's
-    ``jax.random.fold_in(root, i)`` (``studies/hl2_nsq.py::run_nsq_study``).
-    Deterministic in (seed, batch_idx), so a redo of a batch draws the
-    same states."""
-    return _generator((seed, batch_idx), device)
+# The word that keeps a rank's batch generators apart from every other
+# generator of the port: pilot_generator already derives from (seed,
+# round, chunk), so a rank's (seed, batch, rank) would replay CE pilot
+# and splitting-level streams inside the same study.
+RANK_TAG = 0x52414E4B
+
+
+def batch_generator(seed: int, batch_idx: int, device: torch.device | str,
+                    rank: int = 0) -> torch.Generator:
+    """The generator of batch ``batch_idx`` of a study seeded ``seed`` on
+    mesh rank ``rank`` (Philox on CUDA); takes the place of the
+    reference's ``fold_in(fold_in(root, i), device)``
+    (``studies/hl2_nsq.py::run_nsq_study``, ``device_step``).
+    Deterministic in (seed, batch_idx, rank), so a redo of a batch draws
+    the same states. Rank 0 derives from (seed, batch_idx) alone, so a
+    one-rank study draws what a study without a mesh draws; rank r > 0
+    from (seed, batch_idx, :data:`RANK_TAG`, r)."""
+    if rank == 0:
+        return _generator((seed, batch_idx), device)
+    return _generator((seed, batch_idx, RANK_TAG, rank), device)
 
 
 def pilot_generator(seed: int, round_idx: int, chunk_idx: int,
@@ -283,10 +305,14 @@ def make_nsq_batch_step(sys: System, batch_per_device: int,
                         is_q: np.ndarray | None = None,
                         mix: tuple | None = None,
                         cv_arrays: tuple | None = None,
-                        enum_order: int = 0):
+                        enum_order: int = 0, mesh=None):
     """One-batch step ``generator -> (BatchMoments, n_overflow,
     n_infeasible)``, all device tensors; mirrors reference
-    ``studies/hl2_nsq.py::make_nsq_batch_step`` on one device. At m <= 336
+    ``studies/hl2_nsq.py::make_nsq_batch_step``. On a ``mesh`` with a
+    group (``parallel/mesh.py``) the step packs its partials, sums them
+    over the ranks in one ``all_reduce`` and returns views of the sum
+    (the counts then float32); without one (None: ``sys``'s device alone)
+    it returns its own partials. At m <= 336
     the step only enqueues device work: nothing in it waits for the
     device (``torch.cuda.set_sync_debug_mode("error")`` passes over it).
     At m > 336 tier 1.5 is on (``dcopf.default_pf_buffer``) and the LP
@@ -434,7 +460,14 @@ def make_nsq_batch_step(sys: System, batch_per_device: int,
             c_mw = torch.clamp_min(total_load_mw - gen_up @ gen_cap_mw, 0.0)
             cv = (c_mw, c_mw > compat.nsq_fail_flag_threshold_mw)
         m = accumulators.batch_moments(dns, nodal, failure, down, weight, cv)
-        return m, n_over, res.infeasible.sum()
+        if mesh is None or mesh.group is None:
+            return m, n_over, res.infeasible.sum()
+        # One collective a step, of the packed partials and both counts.
+        flat = meshlib.psum(mesh, accumulators.pack_moments(
+            m, n_over.to(dns.dtype), res.infeasible.sum().to(dns.dtype)))
+        m, (n_over, n_infeas) = accumulators.unpack_moments(
+            flat, sys.n_bus, 2)
+        return m, n_over, n_infeas
 
     return step
 
@@ -463,19 +496,15 @@ def fetched_numpy(fetched) -> np.ndarray:
 
 def _fetch_async(out):
     m, n_over, n_infeas = out
-    return fetch_async(torch.cat([
-        torch.stack([m.n, m.sum_dns, m.sum_dns_sq, m.sum_flag,
-                     m.sum_flag_raw, n_over.to(m.sum_dns.dtype),
-                     n_infeas.to(m.sum_dns.dtype)]),
-        m.sum_nodal, m.sum_comp_fail]))
+    dt = m.sum_dns.dtype
+    return fetch_async(accumulators.pack_moments(m, n_over.to(dt),
+                                                 n_infeas.to(dt)))
 
 
 def _unpack(fetched, nb: int):
-    v = fetched_numpy(fetched)
-    moments = accumulators.BatchMoments(
-        n=v[0], sum_dns=v[1], sum_dns_sq=v[2], sum_flag=v[3],
-        sum_nodal=v[7:7 + nb], sum_comp_fail=v[7 + nb:], sum_flag_raw=v[4])
-    return moments, int(v[5]), int(v[6])
+    moments, (n_over, n_infeas) = accumulators.unpack_moments(
+        fetched_numpy(fetched), nb, 2)
+    return moments, int(n_over), int(n_infeas)
 
 
 @dataclasses.dataclass
@@ -519,10 +548,19 @@ def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
                   checkpointer: Checkpointer | None = None,
                   checkpoint_every: int = 50,
                   control_variate: bool = False,
-                  enum_order: int = 0) -> NSQResult:
-    """HL2 NSQ study on one device (the card unless the caller passes
-    ``device="cpu"``); mirrors reference
-    ``studies/hl2_nsq.py::run_nsq_study``.
+                  enum_order: int = 0, mesh=None) -> NSQResult:
+    """HL2 NSQ study on ``device`` (the card unless the caller passes
+    ``device="cpu"``), or on every rank of ``mesh``
+    (``parallel.mesh.scenario_mesh``, which then gives the device);
+    mirrors reference ``studies/hl2_nsq.py::run_nsq_study``.
+
+    On a mesh of N ranks each rank evaluates ``cfg.batch_size // N``
+    states a batch (a batch is that times N) from
+    ``batch_generator(seed, batch, rank)``, and every rank returns the
+    same result. Every rank takes rank 0's shed-hint calibration, CE
+    pilot, enumeration pre-pass and control-variate means
+    (``parallel.mesh.from_rank0``); rank 0 alone writes the checkpoint
+    and prints.
 
     The sampler comes from ``cfg``: ``antithetic``, ``is_boost`` on
     ``is_boost_scope``, ``fused_tier1``, or ``is_ce``: before the loop a
@@ -565,8 +603,13 @@ def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
     if enum_order > 0 and (control_variate or cfg.fused_tier1):
         raise ValueError("enum_order excludes control_variate (both carry "
                          "exact-mean offsets) and fused_tier1")
-    sys = build_system(case, compat, device)
-    bpd = max(cfg.batch_size, 1)
+    mesh = mesh or meshlib.one_device(device)
+    if mesh.rank != 0:
+        log_every = 0
+    say = print if mesh.rank == 0 else (lambda *a, **k: None)
+    sys = build_system(case, compat, mesh.device)
+    bpd = max(cfg.batch_size // mesh.size, 1)
+    global_batch = bpd * mesh.size
     pf_tier = dcopf.default_pf_buffer(sys, bpd) is not None
     if max_lp is None and not cfg.is_ce:
         max_lp = default_max_lp(bpd, cfg.nodal_mode, cfg.is_boost,
@@ -578,11 +621,16 @@ def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
         gen_cap_mw = np.asarray(case.gen_pmax, np.float32)
         total_load_mw = np.float32(np.sum(np.asarray(case.bus_pd,
                                                      np.float64)))
-        mu_e, mu_l, _, _ = copt.copper_cv_means(
-            gen_cap_mw.astype(np.float64),
-            twostate.unavailability(case)[:case.n_gen],
-            np.asarray([total_load_mw], np.float64),
-            thresh_mw=compat.nsq_fail_flag_threshold_mw)
+
+        def cv_means():
+            mu_e, mu_l, _, _ = copt.copper_cv_means(
+                gen_cap_mw.astype(np.float64),
+                twostate.unavailability(case)[:case.n_gen],
+                np.asarray([total_load_mw], np.float64),
+                thresh_mw=compat.nsq_fail_flag_threshold_mw)
+            return np.asarray([mu_e, mu_l], np.float64)
+
+        mu_e, mu_l = meshlib.from_rank0(mesh, cv_means, 2)
         cv_arrays = (gen_cap_mw, total_load_mw, mu_e, mu_l)
         stats.mu_dns, stats.mu_flag = float(mu_e), float(mu_l)
         if log_every:
@@ -600,23 +648,33 @@ def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
         max_lp = int(restored.get("max_lp", max_lp))
         enum_info = restored.get("enum")
     elif enum_order > 0:
-        exact = enumeration.enumerate_exact(sys, compat, ipm,
-                                            cfg.nodal_mode, enum_order,
-                                            log_every=log_every)
-        stats.mu_dns, stats.mu_flag = exact.edns_mw, exact.pfail
-        stats.mu_flag_raw = exact.pfail
-        stats.mu_nodal, stats.mu_comp_fail = exact.nodal_mw, exact.comp_fail
-        enum_info = {"order": enum_order, "n_states": exact.n_states,
-                     "mass": exact.mass, "edns_exact": exact.edns_mw}
-        if log_every:
-            print(f"enumeration order {enum_order}: {exact.n_states:,} "
-                  f"states, mass {exact.mass:.6f} (tail "
-                  f"{exact.tail_mass:.2e}), exact EDNS part "
-                  f"{exact.edns_mw:.4f} MW, exact PLC part "
-                  f"{exact.pfail:.6f}")
+        def enum_pass():
+            exact = enumeration.enumerate_exact(sys, compat, ipm,
+                                                cfg.nodal_mode, enum_order,
+                                                log_every=log_every)
+            if log_every:
+                print(f"enumeration order {enum_order}: {exact.n_states:,} "
+                      f"states, mass {exact.mass:.6f} (tail "
+                      f"{exact.tail_mass:.2e}), exact EDNS part "
+                      f"{exact.edns_mw:.4f} MW, exact PLC part "
+                      f"{exact.pfail:.6f}")
+            return np.concatenate([
+                [exact.edns_mw, exact.pfail, exact.n_states, exact.mass],
+                exact.nodal_mw, exact.comp_fail])
+
+        v = meshlib.from_rank0(mesh, enum_pass, 4 + sys.n_bus + sys.n_comp)
+        stats.mu_dns, stats.mu_flag = float(v[0]), float(v[1])
+        stats.mu_flag_raw = float(v[1])
+        stats.mu_nodal = v[4:4 + sys.n_bus]
+        stats.mu_comp_fail = v[4 + sys.n_bus:]
+        enum_info = {"order": enum_order, "n_states": int(v[2]),
+                     "mass": float(v[3]), "edns_exact": float(v[0])}
     # Static shed-direction calibration: the first certificate pass then
     # closes ~99.96% of lanes. Correctness never depends on the hint.
-    shed_hint = dcopf.calibrate_shed_hint(sys)
+    shed_hint = meshlib.from_rank0(
+        mesh, lambda: dcopf.calibrate_shed_hint(sys), sys.n_load)
+    if shed_hint is not None:
+        shed_hint = np.asarray(shed_hint, np.float32)
     if log_every and shed_hint is None:
         print("shed-hint calibration: too few repairable lanes; keeping "
               "the load-proportional candidate")
@@ -626,19 +684,26 @@ def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
         if restored["is_q"] is not None:
             is_q = np.asarray(restored["is_q"], np.float32)
     elif cfg.is_ce:
-        is_q, ce_diag = calibrate_ce_proposal(
-            sys, compat, ipm, batch=cfg.ce_batch, rounds=cfg.ce_rounds,
-            boost0=cfg.ce_boost0, smoothing=cfg.ce_smoothing,
-            seed=cfg.seed + 90210, shed_hint=shed_hint,
-            log_every=log_every)
-        if is_q is not None and cfg.ce_top_k is not None:
-            is_q = sparsify_ce_proposal(is_q, sys, top_k=cfg.ce_top_k,
-                                        q_cap=cfg.ce_q_cap)
+        def ce_pass():
+            q, diag = calibrate_ce_proposal(
+                sys, compat, ipm, batch=cfg.ce_batch, rounds=cfg.ce_rounds,
+                boost0=cfg.ce_boost0, smoothing=cfg.ce_smoothing,
+                seed=cfg.seed + 90210, shed_hint=shed_hint,
+                log_every=log_every)
+            if q is None:
+                return None
+            if cfg.ce_top_k is not None:
+                q = sparsify_ce_proposal(q, sys, top_k=cfg.ce_top_k,
+                                         q_cap=cfg.ce_q_cap)
+            return np.concatenate([[diag["rounds"][-1]["events"]], q])
+
+        v = meshlib.from_rank0(mesh, ce_pass, 1 + sys.n_comp)
+        is_q = None if v is None else np.asarray(v[1:], np.float32)
         if log_every and is_q is None:
             print("CE calibration saw too few deficit events; keeping the "
                   "configured sampler")
         if max_lp is None and is_q is not None:
-            frac = ce_diag["rounds"][-1]["events"] / cfg.ce_batch
+            frac = float(v[0]) / cfg.ce_batch
             need = int(1.5 * frac * bpd) + 64
             max_lp = min(bpd, ((need + 127) // 128) * 128)
             if log_every:
@@ -653,7 +718,7 @@ def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
         antithetic=cfg.antithetic,
         is_boost=0.0 if is_q is not None else cfg.is_boost,
         is_boost_scope=cfg.is_boost_scope, is_q=is_q, cv_arrays=cv_arrays,
-        enum_order=enum_order)
+        enum_order=enum_order, mesh=mesh)
     step = make_nsq_batch_step(sys, bpd, compat, ipm, max_lp=max_lp,
                                **step_kwargs)
 
@@ -667,8 +732,8 @@ def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
             grown = 2 * max_lp
             if grown <= lp_cap:
                 max_lp = grown
-                print(f"LP buffer overflow ({n_over}); growing max_lp to "
-                      f"{max_lp} and redoing batch")
+                say(f"LP buffer overflow ({n_over}); growing max_lp to "
+                    f"{max_lp} and redoing batch")
                 step = make_nsq_batch_step(sys, bpd, compat, ipm,
                                            max_lp=max_lp, **step_kwargs)
                 return True
@@ -684,7 +749,8 @@ def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
             print(f"samples {int(stats.n):7d}: beta={stats.beta:.6f} "
                   f"EDNS={stats.edns:.4f} MW LOLE={stats.lole(hours):.2f} "
                   f"hr/yr")
-        if checkpointer is not None and n_batches % checkpoint_every == 0:
+        if (checkpointer is not None and mesh.rank == 0
+                and n_batches % checkpoint_every == 0):
             checkpointer.save({"stats": stats.state(),
                                "histories": histories,
                                "batch_idx": next_idx, "overflow": overflow,
@@ -695,9 +761,9 @@ def run_nsq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
 
     double_buffered_loop(
         dispatch=lambda i: _fetch_async(
-            step(batch_generator(cfg.seed, i, sys.device))),
+            step(batch_generator(cfg.seed, i, sys.device, mesh.rank))),
         consume=consume,
-        should_continue=lambda i: (i * bpd < cfg.max_samples
+        should_continue=lambda i: (i * global_batch < cfg.max_samples
                                    and stats.beta > cfg.beta_limit),
         start_idx=batch_idx)
 

@@ -1,7 +1,8 @@
 """HL2 sequential (chronological) Monte Carlo study (the ``seqMain.m`` path).
 
-Port of ``powersystemsreliabilityassessment_tpu/studies/hl2_seq.py`` on one
-device. Per batch of ``years_per_device`` simulated years, on the device:
+Port of ``powersystemsreliabilityassessment_tpu/studies/hl2_seq.py``. Per
+batch of ``years_per_device`` simulated years, on each device of the
+scenario mesh:
 
 1. draw the block's per-component chronological timelines
    (``sampling/chronological.py``) from the batch's generator
@@ -27,8 +28,14 @@ depend on the buffer); three redone batches in a row promote the size.
 ``control_variate`` adjusts each year by its copper-sheet deficit and
 that deficit's exact stationary mean (a float64 COPT).
 ``scheduled_maintenance`` takes each generator out for its levelized
-maintenance weeks (``engines/planning.py``). Not ported yet (ROADMAP.md
-Queue 1): the mesh (item 12).
+maintenance weeks (``engines/planning.py``).
+
+On a scenario mesh of N ranks (``parallel/mesh.py``) a batch is
+``years_per_device`` years on every rank, each from its own generator;
+the step sums its packed outputs over the ranks in one ``all_reduce``,
+the per-year vectors in rank-owned slots of zeros, which gives the
+reference's ``all_gather(tiled=True)`` in rank order exactly. Redo and
+promotion read the summed overflow count, so every rank decides alike.
 """
 from __future__ import annotations
 
@@ -45,6 +52,8 @@ from powersystemsreliabilityassessment_tpu_torch.core.system import (
 from powersystemsreliabilityassessment_tpu_torch.engines import (
     copper_sheet, copt, dcopf, planning)
 from powersystemsreliabilityassessment_tpu_torch.models import twostate
+from powersystemsreliabilityassessment_tpu_torch.parallel import (
+    mesh as meshlib)
 from powersystemsreliabilityassessment_tpu_torch.parallel.accumulators import (
     AnnualStats)
 from powersystemsreliabilityassessment_tpu_torch.runtime.checkpoint import (
@@ -161,13 +170,16 @@ def make_seq_batch_step(sys: System, years_per_device: int,
                         n_draws: int, max_lp: int, factors,
                         nodal_mode: str = "lp", stationary: bool = False,
                         cv_arrays: tuple | None = None,
-                        maint_down: np.ndarray | None = None):
+                        maint_down: np.ndarray | None = None, mesh=None):
     """One-batch step ``generator -> (ens [Y], plc [Y], nlc [Y], dlc [Y],
     edns [Y], nodal_sum [nb], comp_fail_sum [n_comp], loss_hours,
     n_over, n_infeasible)``, all device tensors, followed by ``(c_ens [Y],
     c_dlc [Y])`` when ``cv_arrays = (loads_mw [H], gen_cap_mw [ng])``
     (host arrays, copied to the device here) is given; mirrors reference
-    ``studies/hl2_seq.py::make_seq_batch_step`` on one device.
+    ``studies/hl2_seq.py::make_seq_batch_step``. On a ``mesh`` with a
+    group the outputs are summed over its N ranks in one ``all_reduce``
+    and the per-year vectors hold the N Y years of every rank, rank 0's
+    first (the counts then float32).
     ``max_lp`` is per year; ``maint_down`` (host bool ``[H, n_comp]``,
     copied to the device here) is the maintenance schedule of
     :func:`maintenance_down`. At m <= 72 (RTS-24) the step only enqueues
@@ -194,31 +206,50 @@ def make_seq_batch_step(sys: System, years_per_device: int,
                           maint_down)
         (ens, plc, nlc, dlc, edns, nodal, comp_fail, loss_h, n_over,
          n_infeas) = out[:10]
-        return (ens, plc, nlc, dlc, edns, nodal.sum(0), comp_fail.sum(0),
-                loss_h.sum(), n_over, n_infeas) + out[10:]
+        out = (ens, plc, nlc, dlc, edns, nodal.sum(0), comp_fail.sum(0),
+               loss_h.sum(), n_over, n_infeas) + out[10:]
+        if mesh is None or mesh.group is None:
+            return out
+        flat = meshlib.psum(mesh, _pack(out, mesh))
+        per_year, nodal, comp_fail, loss_h, n_over, n_infeas = _fields(
+            flat, years_per_device * mesh.size, sys.n_bus, len(out) - 5)
+        return (*per_year[:5], nodal, comp_fail, loss_h, n_over,
+                n_infeas, *per_year[5:])
 
     return step
 
 
-def _pack(out) -> torch.Tensor:
+def _pack(out, mesh=None) -> torch.Tensor:
     """One step's outputs as one float32 vector: loss hours, n_over,
     n_infeasible, the per-year vectors (five, or seven with the control
-    variates), nodal and component sums."""
+    variates), nodal and component sums. With ``mesh`` each per-year
+    vector sits in this rank's slot (``parallel.mesh.slot``)."""
     (ens, plc, nlc, dlc, edns, nodal, comp_fail, loss_h, n_over,
      n_infeas) = out[:10]
     dt = ens.dtype
+    per_year = torch.stack([ens, plc, nlc, dlc, edns, *out[10:]])
+    if mesh is not None:
+        per_year = meshlib.slot(mesh, per_year)
     return torch.cat([torch.stack([loss_h, n_over.to(dt), n_infeas.to(dt)]),
-                      ens, plc, nlc, dlc, edns, *out[10:], nodal, comp_fail])
+                      per_year.reshape(-1), nodal, comp_fail])
+
+
+def _fields(v, years: int, nb: int, n_per_year: int):
+    """:func:`_pack`'s fields of ``v`` (a tensor or a numpy vector; views):
+    (per-year vectors, nodal, comp_fail, loss_hours, n_over,
+    n_infeasible)."""
+    per_year = v[3:3 + n_per_year * years].reshape(n_per_year, years)
+    rest = v[3 + n_per_year * years:]
+    return tuple(per_year), rest[:nb], rest[nb:], v[0], v[1], v[2]
 
 
 def _unpack(v: np.ndarray, years: int, nb: int, n_per_year: int = 5):
     """Inverse of :func:`_pack` on the host's float64 copy: (per-year
     vectors (ens, plc, nlc, dlc, edns[, c_ens, c_dlc]), nodal, comp_fail,
     loss_hours, n_over, n_infeasible)."""
-    per_year = v[3:3 + n_per_year * years].reshape(n_per_year, years)
-    rest = v[3 + n_per_year * years:]
-    return (tuple(per_year), rest[:nb], rest[nb:], v[0], int(v[1]),
-            int(v[2]))
+    per_year, nodal, comp_fail, loss_h, n_over, n_infeas = _fields(
+        v, years, nb, n_per_year)
+    return per_year, nodal, comp_fail, loss_h, int(n_over), int(n_infeas)
 
 
 @dataclasses.dataclass
@@ -312,10 +343,15 @@ def run_seq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
                   log_every: int = 5,
                   sampling: str = "reference",
                   control_variate: bool = False,
-                  load_scale: float = 1.0) -> SEQResult:
-    """HL2 SEQ study on one device (the card unless the caller passes
-    ``device="cpu"``); mirrors reference
-    ``studies/hl2_seq.py::run_seq_study`` without the mesh.
+                  load_scale: float = 1.0, mesh=None) -> SEQResult:
+    """HL2 SEQ study on ``device`` (the card unless the caller passes
+    ``device="cpu"``), or on every rank of ``mesh``
+    (``parallel.mesh.scenario_mesh``, which then gives the device);
+    mirrors reference ``studies/hl2_seq.py::run_seq_study``. On a mesh of
+    N ranks a batch is ``years_per_device`` years a rank, N of them in
+    all, rank r's from ``batch_generator(seed, batch, rank=r)``; every
+    rank takes rank 0's control-variate means, rank 0 alone writes the
+    checkpoint and prints, and every rank returns the same result.
 
     ``years_per_device`` years a batch; ``max_lp`` LP lanes a year (the
     step's buffer is ``max_lp * years_per_device``); ``hours`` a year
@@ -350,7 +386,11 @@ def run_seq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
                          "scheduled maintenance breaks stationarity")
     stationary = sampling == "stationary"
 
-    sys = build_system(case, compat, device)
+    mesh = mesh or meshlib.one_device(device)
+    if mesh.rank != 0:
+        log_every = 0
+    say = print if mesh.rank == 0 else (lambda *a, **k: None)
+    sys = build_system(case, compat, mesh.device)
     if log_every:
         dcopf.print_baseline(sys)
     hours = hours or compat.hours_per_year_seq
@@ -365,11 +405,13 @@ def run_seq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
         # see the same load values.
         loads_mw = (np.asarray(factors, np.float64)
                     * total_load_mw).astype(np.float32)
-        mu_eens, mu_lole, _, _ = copt.copper_cv_means(
-            gen_cap_mw.astype(np.float64),
-            twostate.unavailability(case)[:case.n_gen],
-            loads_mw.astype(np.float64),
-            thresh_mw=compat.seq_curtail_threshold_mw)
+        mu_eens, mu_lole = meshlib.from_rank0(mesh, lambda: np.asarray(
+            copt.copper_cv_means(
+                gen_cap_mw.astype(np.float64),
+                twostate.unavailability(case)[:case.n_gen],
+                loads_mw.astype(np.float64),
+                thresh_mw=compat.seq_curtail_threshold_mw)[:2],
+            np.float64), 2)
         cv_arrays = (loads_mw, gen_cap_mw)
         if log_every:
             print(f"control variate: mu_EENS {mu_eens:.3f} MWh/yr, "
@@ -382,9 +424,10 @@ def run_seq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
     mt = twostate.mean_times(case)
     n_draws = chronological.default_num_draws(mt[:, 0], mt[:, 1], hours)
     Y = years_per_device
+    years_per_batch = Y * mesh.size
     lp_cap = seq_lp_cap(sys.n_bus + sys.n_branch, hours, Y)
     if max_lp > lp_cap:
-        print(f"max_lp {max_lp}/yr exceeds the large-m cap; clamping to "
+        say(f"max_lp {max_lp}/yr exceeds the large-m cap; clamping to "
               f"{lp_cap}/yr (years_per_device={Y})")
         max_lp = lp_cap
 
@@ -408,7 +451,7 @@ def run_seq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
             steps[lp] = make_seq_batch_step(
                 sys, Y, compat, ipm, hours, n_draws, lp, factors,
                 nodal_mode=cfg.nodal_mode, stationary=stationary,
-                cv_arrays=cv_arrays, maint_down=maint_down)
+                cv_arrays=cv_arrays, maint_down=maint_down, mesh=mesh)
         return steps[lp]
 
     # Transient grow-and-redo: chronological outages cluster, so a batch
@@ -424,19 +467,20 @@ def run_seq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
 
     def dispatch(i: int):
         lp = redo_lp.get(i, max_lp)
-        out = step_for(lp)(batch_generator(cfg.seed, i, sys.device))
+        out = step_for(lp)(batch_generator(cfg.seed, i, sys.device,
+                                           mesh.rank))
         return i, lp, fetch_async(_pack(out))
 
     def consume(dispatched, next_idx) -> bool:
         nonlocal overflow, infeasible, cap_warned, consec_over, max_lp
         idx, lp_used, fetched = dispatched
         per_year, nodal, comp_fail, loss_h, n_over, n_infeas = _unpack(
-            fetched_numpy(fetched), Y, sys.n_bus,
+            fetched_numpy(fetched), years_per_batch, sys.n_bus,
             5 if cv_arrays is None else 7)
         if n_over > 0 and lp_used < lp_cap:
             redo_lp[idx] = min(2 * lp_used, lp_cap)
-            print(f"LP buffer overflow ({n_over} h); redoing batch {idx} "
-                  f"with a transient {redo_lp[idx]}/yr buffer")
+            say(f"LP buffer overflow ({n_over} h); redoing batch {idx} "
+                f"with a transient {redo_lp[idx]}/yr buffer")
             return True
         if n_over > 0:
             # At the cap: the hours that did not fit keep their certified
@@ -445,16 +489,16 @@ def run_seq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
             consec_over = 0
             if not cap_warned:
                 cap_warned = True
-                print(f"LP buffer at its cap ({lp_used}/yr x {Y}); "
-                      f"{n_over} overflow hours keep certified deficit "
-                      "bounds (counted in overflow_hours)")
+                say(f"LP buffer at its cap ({lp_used}/yr x {Y}); "
+                    f"{n_over} overflow hours keep certified deficit "
+                    "bounds (counted in overflow_hours)")
         elif idx in redo_lp:
             consec_over += 1
             size = redo_lp.pop(idx)
             if consec_over >= 3 and size > max_lp:
                 max_lp = size
-                print(f"3 consecutive overflow redos; promoting max_lp "
-                      f"{max_lp}/yr to the base step")
+                say(f"3 consecutive overflow redos; promoting max_lp "
+                    f"{max_lp}/yr to the base step")
         else:
             consec_over = 0
         if cv_arrays is not None:
@@ -474,7 +518,8 @@ def run_seq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
         if log_every and n_batches % log_every == 0:
             print(f"year {stats.years:5d} | EENS {stats.eens:9.2f} MWh/yr "
                   f"| CoV {stats.cov:.4f}")
-        if checkpointer is not None and n_batches % checkpoint_every == 0:
+        if (checkpointer is not None and mesh.rank == 0
+                and n_batches % checkpoint_every == 0):
             checkpointer.save({
                 "stats": stats.state(), "cov_history": cov_history,
                 "eens_history": eens_history, "batch_idx": next_idx,
@@ -484,7 +529,7 @@ def run_seq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
 
     double_buffered_loop(
         dispatch=dispatch, consume=consume,
-        should_continue=lambda i: (i * Y < cfg.max_years
+        should_continue=lambda i: (i * years_per_batch < cfg.max_years
                                    and stats.cov > cfg.cov_threshold),
         start_idx=batch_idx)
 

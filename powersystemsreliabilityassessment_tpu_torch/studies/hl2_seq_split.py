@@ -1,8 +1,8 @@
 """Multilevel-splitting (RESTART) variance reduction for the sequential
 HL2 study, the chronological counterpart of NSQ importance sampling.
 
-Port of ``powersystemsreliabilityassessment_tpu/studies/hl2_seq_split.py``
-on one device. Splitting biases nothing: it spends extra samples on the
+Port of ``powersystemsreliabilityassessment_tpu/studies/hl2_seq_split.py``.
+Splitting biases nothing: it spends extra samples on the
 conditional tail of years that approach failure, with the copper margin
 as the importance function. Per parent year, one splitting level:
 
@@ -35,7 +35,11 @@ Every uniform of a batch comes from its generator
 (``hl2_nsq.batch_generator``: deterministic in (seed, batch index)),
 parents first, so a same-draws redo is exact and a resumed study equals
 an uninterrupted one. The step reads nothing on the host; the study reads
-one packed vector a batch.
+one packed vector a batch. On a scenario mesh (``parallel/mesh.py``)
+every rank splits its own ``years_per_device`` parents under its own
+clone budget, and the step sums the packed vector over the ranks in one
+``all_reduce`` (per-year vectors in rank-owned slots, as in
+``hl2_seq``); every rank takes rank 0's level.
 
 STATUS (the reference's round-3 measurement): splitting has not shown a
 winning niche. On RTS-24 the copper control variate beats it ~20x
@@ -58,6 +62,8 @@ from powersystemsreliabilityassessment_tpu_torch.core.system import (
 from powersystemsreliabilityassessment_tpu_torch.engines import (
     copper_sheet, dcopf)
 from powersystemsreliabilityassessment_tpu_torch.models import twostate
+from powersystemsreliabilityassessment_tpu_torch.parallel import (
+    mesh as meshlib)
 from powersystemsreliabilityassessment_tpu_torch.parallel.accumulators import (
     AnnualStats)
 from powersystemsreliabilityassessment_tpu_torch.runtime.checkpoint import (
@@ -349,13 +355,17 @@ def split_combine(draw: SplitDraw, dns_p: torch.Tensor,
 def make_split_batch_step(sys: System, years_per_device: int,
                           compat: CompatFlags, ipm: IPMConfig, hours: int,
                           n_draws: int, max_lp: int, factors,
-                          split: SplitConfig, nodal_mode: str = "lp"):
+                          split: SplitConfig, nodal_mode: str = "lp",
+                          mesh=None):
     """One-batch step ``generator -> packed float32 vector`` (see
     :func:`_unpack`): :func:`split_sample`, :func:`split_evaluate`,
     :func:`split_combine`, then the batch sums; mirrors reference
-    ``make_split_batch_step`` on one device. ``max_lp`` is LP lanes a
-    year (parent or clone tail); ``split.level_mw`` must be set. The step
-    only enqueues device work."""
+    ``make_split_batch_step``. ``max_lp`` is LP lanes a year (parent or
+    clone tail); ``split.level_mw`` must be set. On a ``mesh`` with a
+    group the vector is summed over its N ranks in one ``all_reduce``,
+    its per-year vectors then N ``years_per_device`` long, rank 0's
+    years first. The step only enqueues device work (gloo's
+    ``all_reduce`` of a CUDA tensor excepted)."""
     fac_h = np.asarray(factors, np.float32)
     fac = torch.as_tensor(fac_h, device=sys.device)
     fac_pad = torch.as_tensor(_pad_shift_table(fac_h), device=sys.device)
@@ -375,11 +385,15 @@ def make_split_batch_step(sys: System, years_per_device: int,
             split.k_clones, thresh, hours)
         n_entered = draw.entered.sum()
         n_split_over = torch.clamp_min(n_entered - draw.pidx.shape[0], 0)
-        return torch.cat([
+        per_year = torch.stack([ens, plc, nlc, dlc, edns])
+        if mesh is not None:
+            per_year = meshlib.slot(mesh, per_year)
+        flat = torch.cat([
             torch.stack([dlc.sum(), n_over.to(ens.dtype),
                          n_split_over.to(ens.dtype),
                          n_entered.to(ens.dtype)]),
-            ens, plc, nlc, dlc, edns, nodal.sum(0), comp.sum(0)])
+            per_year.reshape(-1), nodal.sum(0), comp.sum(0)])
+        return flat if mesh is None else meshlib.psum(mesh, flat)
 
     return step
 
@@ -405,13 +419,17 @@ def run_seq_split_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
                         load_scale: float = 1.0,
                         checkpointer: Checkpointer | None = None,
                         checkpoint_every: int = 10,
-                        log_every: int = 5) -> SEQResult:
-    """SEQ study with multilevel splitting on one device (the card unless
-    the caller passes ``device="cpu"``); returns an ``SEQResult`` with
+                        log_every: int = 5, mesh=None) -> SEQResult:
+    """SEQ study with multilevel splitting on ``device`` (the card unless
+    the caller passes ``device="cpu"``) or on every rank of ``mesh``
+    (``parallel.mesh.scenario_mesh``); returns an ``SEQResult`` with
     ``split_entered`` (parents that reached the level) and
     ``split_overflow`` (entering parents past the clone budget, which kept
     their plain estimate). Mirrors reference
-    ``studies/hl2_seq_split.py::run_seq_split_study`` without the mesh.
+    ``studies/hl2_seq_split.py::run_seq_split_study``. On a mesh of N
+    ranks a batch is N ``years_per_device`` years, rank r's from
+    ``batch_generator(seed, batch, rank=r)``; every rank takes rank 0's
+    calibrated level, and rank 0 alone writes the checkpoint and prints.
 
     ``split.level_mw=None`` calibrates the level first
     (:func:`calibrate_level` at ``cfg.seed``). ``load_scale`` multiplies
@@ -423,7 +441,11 @@ def run_seq_split_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
     ``max_lp`` are saved, and a study whose checkpointer holds a state
     resumes from it, equal to an uninterrupted one.
     """
-    sys = build_system(case, compat, device)
+    mesh = mesh or meshlib.one_device(device)
+    if mesh.rank != 0:
+        log_every = 0
+    say = print if mesh.rank == 0 else (lambda *a, **k: None)
+    sys = build_system(case, compat, mesh.device)
     hours = hours or compat.hours_per_year_seq
     factors = load_profile.load_factors(hours, compat.weekday_mode)
     factors = factors * load_scale
@@ -431,9 +453,10 @@ def run_seq_split_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
     n_draws = chronological.default_num_draws(mt[:, 0], mt[:, 1], hours)
 
     if split.level_mw is None:
-        level = calibrate_level(sys, factors, hours, n_draws,
-                                split.entry_target, split.pilot_years,
-                                cfg.seed)
+        level = float(meshlib.from_rank0(mesh, lambda: np.asarray([
+            calibrate_level(sys, factors, hours, n_draws,
+                            split.entry_target, split.pilot_years,
+                            cfg.seed)]), 1)[0])
         if log_every:
             print(f"auto-calibrated splitting level: {level:.1f} MW "
                   f"(target entry {split.entry_target:.0%}, "
@@ -441,6 +464,7 @@ def run_seq_split_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
         split = dataclasses.replace(split, level_mw=level)
 
     Y = years_per_device
+    years_per_batch = Y * mesh.size
     stats = AnnualStats()
     cov_history, eens_history = [], []
     batch_idx, overflow, split_overflow, entered_total = 0, 0, 0, 0
@@ -457,20 +481,22 @@ def run_seq_split_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
 
     make = lambda lp: make_split_batch_step(  # noqa: E731
         sys, Y, compat, ipm, hours, n_draws, lp, factors, split,
-        nodal_mode=cfg.nodal_mode)
+        nodal_mode=cfg.nodal_mode, mesh=mesh)
     step = make(max_lp)
 
     def dispatch(i: int):
-        return fetch_async(step(batch_generator(cfg.seed, i, sys.device)))
+        return fetch_async(step(batch_generator(cfg.seed, i, sys.device,
+                                                mesh.rank)))
 
     def consume(fetched, next_idx) -> bool:
         nonlocal max_lp, step, overflow, split_overflow, entered_total
         (per_year, nodal, comp, loss_h, n_over, n_sover,
-         n_entered) = _unpack(fetched_numpy(fetched), Y, sys.n_bus)
+         n_entered) = _unpack(fetched_numpy(fetched), years_per_batch,
+                              sys.n_bus)
         if n_over > 0 and max_lp < hours:
             max_lp = min(2 * max_lp, hours)
-            print(f"LP buffer overflow ({n_over} h); growing max_lp to "
-                  f"{max_lp} and redoing batch")
+            say(f"LP buffer overflow ({n_over} h); growing max_lp to "
+                f"{max_lp} and redoing batch")
             step = make(max_lp)
             return True
         stats.update_years(*per_year, nodal, comp, loss_h)
@@ -483,7 +509,8 @@ def run_seq_split_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
         if log_every and n_batches % log_every == 0:
             print(f"year {stats.years:5d} | EENS {stats.eens:9.3f} "
                   f"| CoV {stats.cov:.4f} | split-over {split_overflow}")
-        if checkpointer is not None and n_batches % checkpoint_every == 0:
+        if (checkpointer is not None and mesh.rank == 0
+                and n_batches % checkpoint_every == 0):
             checkpointer.save({
                 "stats": stats.state(), "cov_history": cov_history,
                 "eens_history": eens_history, "batch_idx": next_idx,
@@ -493,7 +520,7 @@ def run_seq_split_study(case: CaseData, cfg: MCSConfig = MCSConfig(),
 
     double_buffered_loop(
         dispatch=dispatch, consume=consume,
-        should_continue=lambda i: (i * Y < cfg.max_years
+        should_continue=lambda i: (i * years_per_batch < cfg.max_years
                                    and stats.cov > cfg.cov_threshold),
         start_idx=batch_idx)
 

@@ -7,7 +7,8 @@ area of 5 x 400 MW and a "poor" one of 5 x 200 MW joined by a 200 MW
 tie; interconnection must lower both areas' risk), on any case that
 carries a per-bus area assignment (RTS-96's three areas, the N-area
 ring of tiled RTS-24s). Every entry point runs on the card unless the
-caller passes ``device="cpu"``.
+caller passes ``device="cpu"``, or on every rank of a scenario mesh
+(``mesh=``, ``parallel/mesh.py``), where rank 0 alone prints the tables.
 """
 from __future__ import annotations
 
@@ -39,21 +40,23 @@ def demo_system(hours: int = 8760) -> multiarea.MultiAreaSystem:
 
 
 def _both_policies(sys, n_years: int, seed: int,
-                   device: torch.device | str) -> dict:
+                   device: torch.device | str, mesh=None) -> dict:
     out = {}
     for policy in POLICIES:
         lole, eue = multiarea.run_multiarea_sequential(
-            sys, policy, n_years, seed=seed, device=device)
+            sys, policy, n_years, seed=seed, device=device, mesh=mesh)
         out[policy] = {"lole": lole.tolist(), "eue": eue.tolist()}
     return out
 
 
 def run_demo(n_years: int = 100, seed: int = 0, hours: int = 8760,
-             device: torch.device | str = "cuda") -> dict:
+             device: torch.device | str = "cuda", mesh=None) -> dict:
     """Both policies on :func:`demo_system`, with the reference's table;
     mirrors reference ``run_demo``."""
     sys = demo_system(hours)
-    results = _both_policies(sys, n_years, seed, device)
+    results = _both_policies(sys, n_years, seed, device, mesh)
+    if mesh is not None and mesh.rank != 0:
+        return results
     print("\n=== MULTI-AREA COMPARISON ===")
     print(f"{'Policy':<15} | {'Area':<10} | {'LOLE (h/yr)':>11} | "
           f"{'EUE (MWh/yr)':>12}")
@@ -78,11 +81,12 @@ def case_system(case, hours: int = 8736) -> multiarea.MultiAreaSystem:
 
 
 def run_case_hl15(case, n_years: int = 50, seed: int = 0,
-                  hours: int = 8736,
-                  device: torch.device | str = "cuda") -> dict:
+                  hours: int = 8736, device: torch.device | str = "cuda",
+                  mesh=None) -> dict:
     """ISOLATED against INTERCONNECTED on any area-carrying case; mirrors
     reference ``run_case_hl15``."""
-    return _both_policies(case_system(case, hours), n_years, seed, device)
+    return _both_policies(case_system(case, hours), n_years, seed, device,
+                          mesh)
 
 
 def rts96_three_area_system(hours: int = 8736) -> multiarea.MultiAreaSystem:
@@ -100,12 +104,14 @@ def ring_system(n_areas: int,
 
 
 def run_nring_demo(n_areas: int = 4, n_years: int = 50, seed: int = 0,
-                   hours: int = 8736,
-                   device: torch.device | str = "cuda") -> dict:
+                   hours: int = 8736, device: torch.device | str = "cuda",
+                   mesh=None) -> dict:
     """ISOLATED against INTERCONNECTED on an N-area ring (N > 2); mirrors
     reference ``run_nring_demo``."""
     sys = ring_system(n_areas, hours)
-    out = _both_policies(sys, n_years, seed, device)
+    out = _both_policies(sys, n_years, seed, device, mesh)
+    if mesh is not None and mesh.rank != 0:
+        return out
     print(f"\n=== {n_areas}-AREA RING ===")
     for policy, res in out.items():
         for a, name in enumerate(sys.area_names):
@@ -115,8 +121,8 @@ def run_nring_demo(n_areas: int = 4, n_years: int = 50, seed: int = 0,
 
 
 def run_rts96_hl15(n_years: int = 50, seed: int = 0, hours: int = 8736,
-                   device: torch.device | str = "cuda") -> dict:
+                   device: torch.device | str = "cuda", mesh=None) -> dict:
     """Three-area generation adequacy on the RTS-96 topology; mirrors
     reference ``run_rts96_hl15``."""
     return _both_policies(rts96_three_area_system(hours), n_years, seed,
-                          device)
+                          device, mesh)

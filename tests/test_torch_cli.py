@@ -260,8 +260,12 @@ def test_lazy_api_lists_and_resolves_the_reference_names():
     import importlib
     import powersystemsreliabilityassessment_tpu as ref
     import powersystemsreliabilityassessment_tpu_torch as port
-    assert set(ref._LAZY) == set(port._LAZY)
-    assert set(ref._LAZY) <= set(dir(port))
+    # The port adds the scenario mesh, which the reference reaches as
+    # parallel.mesh.scenario_mesh.
+    assert set(port._LAZY) - set(ref._LAZY) == {"scenario_mesh"}
+    assert set(port._LAZY) <= set(dir(port))
+    from powersystemsreliabilityassessment_tpu_torch.parallel import mesh
+    assert port.scenario_mesh is mesh.scenario_mesh
     for name, mod in ref._LAZY.items():
         target = importlib.import_module(
             mod.replace("powersystemsreliabilityassessment_tpu",

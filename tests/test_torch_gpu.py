@@ -19,7 +19,9 @@ and the energy-limited-unit Monte Carlo on the card against the CPU, and
 the multi-area, ELU and maintenance SEQ steps without a host sync; the
 multilevel-splitting SEQ study's K = 1 reduction to the never-split
 estimate and its step without a host sync, the command line's
-``nsq`` on the card, and a case300s SEQ step with tier 1.5 in it.
+``nsq`` on the card, a case300s SEQ step with tier 1.5 in it, and the
+NSQ step on a one-rank NCCL scenario mesh bit-equal to the one-device
+step.
 
 Tests that need a card carry the ``gpu`` marker and skip without one.
 The file imports neither JAX nor the JAX package, so it also runs where
@@ -1950,3 +1952,40 @@ def test_cli_nsq_on_card(cuda, tmp_path, capsys):
     data = json.loads((tmp_path / "nsq_results.json").read_text())
     assert data["samples"] == 16384 and data["edns_mw"] == line["edns"]
     assert math.isfinite(line["edns"]) and line["edns"] > 0
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_mesh_step_equals_one_device_step(cuda, tmp_path):
+    # A process group of one NCCL rank puts the real all_reduce in the
+    # step: the packed partials must be the one-device step's, bit for
+    # bit, and the step must not wait for the device.
+    import torch.distributed as dist
+    from powersystemsreliabilityassessment_tpu_torch.parallel import (
+        accumulators, mesh as meshlib)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1, timeout=meshlib.TIMEOUT)
+    try:
+        mesh = meshlib.scenario_mesh("cuda:0")
+        assert (mesh.size, mesh.group) == (1, dist.group.WORLD)
+        sys_ = build_system(cases.rts24(), device=mesh.device)
+        kw = dict(max_lp=256, nodal_mode="proportional",
+                  shed_hint=dcopf.calibrate_shed_hint(sys_))
+        one = hl2_nsq.make_nsq_batch_step(sys_, 8192, CompatFlags(),
+                                          IPMConfig(), **kw)
+        on_mesh = hl2_nsq.make_nsq_batch_step(sys_, 8192, CompatFlags(),
+                                              IPMConfig(), mesh=mesh, **kw)
+        pack = lambda out: accumulators.pack_moments(  # noqa: E731
+            out[0], out[1].float(), out[2].float())
+        on_mesh(hl2_nsq.batch_generator(0, 0, cuda))  # kernels, communicator
+        torch.cuda.synchronize()
+        before = ipm_fused.launches["fused_ipm_iterations"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = pack(on_mesh(hl2_nsq.batch_generator(0, 1, cuda)))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert ipm_fused.launches["fused_ipm_iterations"] > before
+        want = pack(one(hl2_nsq.batch_generator(0, 1, cuda)))
+        assert torch.equal(got, want) and float(got[0]) == 8192
+    finally:
+        dist.destroy_process_group()

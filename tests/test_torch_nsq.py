@@ -206,9 +206,9 @@ def test_default_woodbury_k_matches_reference():
 
 
 def test_run_nsq_study_defaults_match_reference():
-    # Every argument both studies take has the reference's default; the
-    # port's ``device`` stands in for the reference's ``mesh``, and every
-    # other argument of the reference is the port's too.
+    # Every argument both studies take has the reference's default (the
+    # mesh None: a study on one device); every argument of the reference
+    # is the port's too, and the port adds ``device``.
     import dataclasses
     import inspect
     ref = inspect.signature(ref_nsq.run_nsq_study).parameters
@@ -216,8 +216,9 @@ def test_run_nsq_study_defaults_match_reference():
     shared = (set(ref) & set(got)) - {"case"}
     assert shared >= {"cfg", "compat", "ipm", "checkpointer",
                       "checkpoint_every", "log_every", "max_lp",
-                      "control_variate", "enum_order"}
-    assert set(ref) - set(got) == {"mesh"}
+                      "control_variate", "enum_order", "mesh"}
+    assert set(ref) - set(got) == set()
+    assert set(got) - set(ref) == {"device"}
     for name in shared:
         a, b = got[name].default, ref[name].default
         if dataclasses.is_dataclass(a):

@@ -714,7 +714,7 @@ class _ScriptedStep:
 
     def make(self, sys, years, compat, ipm, hours, n_draws, max_lp,
              factors, nodal_mode="lp", stationary=False, cv_arrays=None,
-             maint_down=None):
+             maint_down=None, mesh=None):
         def step(i):
             self.calls.append((i, max_lp))
             over = max(self.need.get(i, 0) - max_lp, 0) * self.years
@@ -729,7 +729,7 @@ def _scripted_study(monkeypatch, need, batches, cap=None, max_lp=4,
                     checkpointer=None, checkpoint_every=20):
     script = _ScriptedStep(need, years=2)
     monkeypatch.setattr(hl2_seq, "make_seq_batch_step", script.make)
-    monkeypatch.setattr(hl2_seq, "batch_generator", lambda s, i, d: i)
+    monkeypatch.setattr(hl2_seq, "batch_generator", lambda s, i, d, r=0: i)
     if cap is not None:
         monkeypatch.setattr(hl2_seq, "seq_lp_cap", lambda m, h, y: cap)
     res = hl2_seq.run_seq_study(
