@@ -63,6 +63,8 @@ from powersystemsreliabilityassessment_tpu_torch.ops.ipm_fused import (
     build_structure)
 from powersystemsreliabilityassessment_tpu_torch.utils.config import (
     CompatFlags, IPMConfig)
+from powersystemsreliabilityassessment_tpu_torch.utils.profiling import (
+    count, span, traced)
 
 
 class EvalResult(NamedTuple):
@@ -307,6 +309,7 @@ def _topk_lanes(need: torch.Tensor, k: int) -> torch.Tensor:
     return torch.topk(score, k).indices
 
 
+@traced("tier1.certify")
 def certify_states(sys: System, comp_down: torch.Tensor,
                    load_pu: torch.Tensor, shed_hint=None,
                    repair_iters: int = 3, repair_buffer: int | None = None,
@@ -472,6 +475,7 @@ def apply_island_blackout(sys: System, comp_down: torch.Tensor,
     return comp_down, torch.where(load_reach, load_pu, 0.0), nodal
 
 
+@traced("tier1.island_pf")
 def certify_island_pf(sys: System, comp_down: torch.Tensor,
                       load_pu: torch.Tensor,
                       theta_cap: float = 6.0) -> Certificate:
@@ -700,6 +704,7 @@ def default_pf_buffer(sys: System, batch: int) -> int | None:
     return min(batch, 256)
 
 
+@traced("tier1.finish")
 def certify_finish(sys: System, comp_down: torch.Tensor,
                    load_pu: torch.Tensor, deficit: torch.Tensor,
                    shed: torch.Tensor, ok1: torch.Tensor, finish_buffer: int,
@@ -990,32 +995,40 @@ def _solve_batch(sys: System, comp_down, load_pu, compat: CompatFlags,
     + K3, at 72 < m <= 336). Returns (shed, pg, quality)."""
     ng, nd, nl = sys.n_gen, sys.n_load, sys.n_branch
     n_vars = ng + nd + nl + sys.n_bus
-    up = 1.0 - comp_down.to(_fdt(sys))
-    gen_up, br_up = up[:, :ng], up[:, ng:ng + nl].contiguous()
-    if sys.n_bus + nl <= lp_ipm_batched._PALLAS_MAX_M:
-        c, b, l, u, colscale = build_state_lp_vectors(
-            sys, gen_up, br_up, load_pu, compat, ipm.theta_max)
+    structured = sys.n_bus + nl <= lp_ipm_batched._PALLAS_MAX_M
+    large_ops = (not structured and ipm.structured_gram
+                 and sys.n_bus + nl > lp_ipm_batched._BLOCKED_MAX_M)
+    with span("lp.build"):
+        up = 1.0 - comp_down.to(_fdt(sys))
+        gen_up, br_up = up[:, :ng], up[:, ng:ng + nl].contiguous()
+        if structured or large_ops:
+            c, b, l, u, colscale = build_state_lp_vectors(
+                sys, gen_up, br_up, load_pu, compat, ipm.theta_max)
+        else:
+            c, A, b, l, u = build_state_lp(sys, gen_up, br_up, load_pu,
+                                           compat, ipm.theta_max)
+        if large_ops:
+            lops = make_dc_linops(sys, colscale[:, :ng], br_up)
+    if structured:
         sol = lp_ipm_structured.solve_box_lp_structured(
             build_structure(sys), colscale, br_up, c, b, l, u, ipm)
-    elif (ipm.structured_gram
-          and sys.n_bus + nl > lp_ipm_batched._BLOCKED_MAX_M):
-        c, b, l, u, colscale = build_state_lp_vectors(
-            sys, gen_up, br_up, load_pu, compat, ipm.theta_max)
-        lops = make_dc_linops(sys, colscale[:, :ng], br_up)
+    elif large_ops:
         sol = lp_ipm_batched.solve_box_lp_ops(c, b, l, u, lops, ipm)
     else:
-        c, A, b, l, u = build_state_lp(sys, gen_up, br_up, load_pu, compat,
-                                       ipm.theta_max)
         sol = lp_ipm_batched.solve_box_lp_batched(c, A, b, l, u, ipm)
     # Lane quality: primal infeasibility plus the duality-gap bound 2n*mu.
     quality = sol.primal_residual + 2 * n_vars * sol.duality_gap
     return sol.x[:, ng:ng + nd], sol.x[:, :ng], quality
 
 
+@traced("lp.finalize")
 def _finalize(sys: System, compat: CompatFlags, shed, pg, res, comp_down,
-              load_pu, woodbury_k: int = 2) -> EvalResult:
+              load_pu, woodbury_k: int = 2, valid=None) -> EvalResult:
     """Certificate override, quality guard and noise floors; mirrors
-    reference ``engines/dcopf.py::_finalize``."""
+    reference ``engines/dcopf.py::_finalize``. The counter
+    ``lp.guard_fallback`` takes the lanes the guard sends back to the
+    certificate's bound among ``valid`` ([B] bool: a padded buffer's real
+    lanes; None: every lane)."""
     cert = certify_states(sys, comp_down, load_pu, shed_hint=shed,
                           woodbury_k=woodbury_k)
     shed = torch.where(cert.certified[:, None], cert.shed, shed)
@@ -1025,6 +1038,7 @@ def _finalize(sys: System, compat: CompatFlags, shed, pg, res, comp_down,
     # Untrustworthy LP lanes (large residual or gap, NaN included) fall
     # back to the copper-sheet bound and the certificate's pattern.
     bad = (~cert.certified) & ~(res <= 5e-3)
+    count("lp.guard_fallback", bad, valid, reduce=_real_lanes)
     dns = torch.where(bad, cert.deficit * base, dns)
     shed = torch.where(bad[:, None], cert.shed, shed)
     nodal = (shed * base) @ sys.load_onehot.T
@@ -1038,11 +1052,20 @@ def _finalize(sys: System, compat: CompatFlags, shed, pg, res, comp_down,
                                                     compat))
 
 
+def _real_lanes(flags: torch.Tensor, valid) -> int:
+    """Lanes of ``flags`` among ``valid`` (None: every lane)."""
+    return int((flags if valid is None else flags & valid).sum())
+
+
+def _clamped(n: torch.Tensor, cap: int) -> int:
+    return min(int(n), cap)
+
+
 def evaluate_states(sys: System, comp_down: torch.Tensor,
                     load_pu: torch.Tensor,
                     compat: CompatFlags = CompatFlags(),
                     ipm: IPMConfig = IPMConfig(),
-                    woodbury_k: int = 2) -> EvalResult:
+                    woodbury_k: int = 2, valid=None) -> EvalResult:
     """Evaluate a batch of states: the LP on every lane plus the
     certificate override; mirrors reference
     ``engines/dcopf.py::evaluate_states``.
@@ -1050,7 +1073,8 @@ def evaluate_states(sys: System, comp_down: torch.Tensor,
     ``comp_down`` [B, n_comp] bool (True = failed); ``load_pu`` [B, n_load].
     With ``compat.island_blackout`` the states first go through
     :func:`apply_island_blackout`, and the islanded loads are added to
-    DNS and nodal shed.
+    DNS and nodal shed. ``valid`` ([B] bool, for a padded buffer) names
+    the real lanes, which alone the guard's counter counts.
     """
     extra_nodal = None
     if compat.island_blackout:
@@ -1058,7 +1082,7 @@ def evaluate_states(sys: System, comp_down: torch.Tensor,
             sys, comp_down, load_pu)
     shed, pg, res = _solve_batch(sys, comp_down, load_pu, compat, ipm)
     out = _finalize(sys, compat, shed, pg, res, comp_down, load_pu,
-                    woodbury_k)
+                    woodbury_k, valid=valid)
     if extra_nodal is not None:
         dns = out.dns_mw + extra_nodal.sum(1)
         dns = torch.where(dns < compat.dns_noise_floor_mw, 0.0, dns)
@@ -1172,24 +1196,30 @@ def evaluate_states_screened(sys: System, comp_down: torch.Tensor,
                           dispatch=dispatch)
         need_lp = _needs_lp(pre, nodal_mode)
 
-    idx = _topk_lanes(need_lp, min(max_lp, B))
-    if idx.shape[0] < max_lp:
-        idx = torch.cat([idx, torch.zeros(max_lp - idx.shape[0],
-                                          dtype=idx.dtype,
-                                          device=idx.device)])
-    valid = (torch.arange(max_lp, device=idx.device) < need_lp.sum()) \
-        & need_lp[idx]
+    with span("loop.compact"):
+        n_need = need_lp.sum()
+        idx = _topk_lanes(need_lp, min(max_lp, B))
+        if idx.shape[0] < max_lp:
+            idx = torch.cat([idx, torch.zeros(max_lp - idx.shape[0],
+                                              dtype=idx.dtype,
+                                              device=idx.device)])
+        valid = (torch.arange(max_lp, device=idx.device) < n_need) \
+            & need_lp[idx]
+        down_lp, load_lp = comp_down[idx], load_pu[idx]
+    count("lp.buffer_lanes", max_lp)
+    count("lp.real_lanes", n_need, max_lp, reduce=_clamped)
 
-    sub = evaluate_states(sys, comp_down[idx], load_pu[idx], compat, ipm,
-                          woodbury_k)
+    sub = evaluate_states(sys, down_lp, load_lp, compat, ipm, woodbury_k,
+                          valid=valid)
 
-    base = sys.base_mva
-    dns = _scatter_valid(pre.deficit * base, idx, valid, sub.dns_mw)
-    nodal = _scatter_valid((pre.shed * base) @ sys.load_onehot.T, idx,
-                           valid, sub.nodal_mw)
-    pg = _scatter_valid(pre.dispatch, idx, valid, sub.gen_dispatch)
-    res = _scatter_valid(torch.zeros_like(dns), idx, valid,
-                         sub.primal_residual)
+    with span("loop.scatter"):
+        base = sys.base_mva
+        dns = _scatter_valid(pre.deficit * base, idx, valid, sub.dns_mw)
+        nodal = _scatter_valid((pre.shed * base) @ sys.load_onehot.T, idx,
+                               valid, sub.nodal_mw)
+        pg = _scatter_valid(pre.dispatch, idx, valid, sub.gen_dispatch)
+        res = _scatter_valid(torch.zeros_like(dns), idx, valid,
+                             sub.primal_residual)
     if extra_nodal is not None:
         dns = dns + extra_nodal.sum(1)
         nodal = nodal + extra_nodal
@@ -1197,7 +1227,7 @@ def evaluate_states_screened(sys: System, comp_down: torch.Tensor,
     dns = torch.where(dns < compat.dns_noise_floor_mw, 0.0, dns)
     nodal = torch.where((nodal > compat.nodal_noise_threshold_mw)
                         & (dns[:, None] > 0), nodal, 0.0)
-    n_overflow = torch.clamp_min(need_lp.sum() - max_lp, 0)
+    n_overflow = torch.clamp_min(n_need - max_lp, 0)
     return EvalResult(dns_mw=dns, nodal_mw=nodal,
                       failure=dns > compat.nsq_fail_flag_threshold_mw,
                       primal_residual=res, gen_dispatch=pg,

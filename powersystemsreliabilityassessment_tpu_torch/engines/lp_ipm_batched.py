@@ -27,6 +27,7 @@ from powersystemsreliabilityassessment_tpu_torch.ops import (
     batched_chol as bc, blocked_chol, ipm_fused, xla_chol)
 from powersystemsreliabilityassessment_tpu_torch.utils.config import (
     IPMConfig)
+from powersystemsreliabilityassessment_tpu_torch.utils.profiling import span
 
 
 class LPBatchSolution(NamedTuple):
@@ -348,8 +349,10 @@ def solve_box_lp_batched(c, A, b, l, u, cfg: IPMConfig = IPMConfig(),
 
 def _gate(score: torch.Tensor, tol: float) -> bool:
     """The reference's ``lax.cond`` predicate ``any(score > tol)``, read
-    on the host (one device sync)."""
-    return bool((score > tol).any())
+    on the host (one device sync, in a ``psra.lp.wait`` span)."""
+    flag = (score > tol).any()
+    with span("lp.wait"):
+        return bool(flag)
 
 
 def solve_box_lp_ops(c, b, l, u, ops: LinOps, cfg: IPMConfig = IPMConfig(),

@@ -24,6 +24,8 @@ from powersystemsreliabilityassessment_tpu_torch.ops.ipm_fused import (  # noqa:
     LPStructure, mtv, mv, normal_matrix)
 from powersystemsreliabilityassessment_tpu_torch.utils.config import (
     IPMConfig)
+from powersystemsreliabilityassessment_tpu_torch.utils.profiling import (
+    count, span, traced)
 
 # Lanes of each solve that the warm rescue solves again: the worst by
 # quality score after the polish. On the 29 hard SEQ lanes of
@@ -35,6 +37,11 @@ from powersystemsreliabilityassessment_tpu_torch.utils.config import (
 RESCUE_LANES = 16
 
 
+def _past(score: torch.Tensor, tol: float) -> int:
+    return int((score > tol).sum())
+
+
+@traced("lp.polish")
 def polish_structured(st: LPStructure, state, colscale, br_up, c, b, l, u,
                       cfg: IPMConfig = IPMConfig()) -> LPBatchSolution:
     """``polish_box_lp`` of an iteration ``state`` (the six outputs of
@@ -57,11 +64,14 @@ def solve_box_lp_structured(st: LPStructure, colscale, br_up, c, b, l, u,
     are float32 tensors on one device, batch-major."""
     lanes = (colscale, br_up, c, b, l, u)
     iterate = lp_kernels(c.device, st.m).iterate
-    sol = polish_structured(st, iterate(st, *lanes, cfg), *lanes, cfg)
+    with span("lp.k1"):
+        state = iterate(st, *lanes, cfg)
+    sol = polish_structured(st, state, *lanes, cfg)
     k = min(RESCUE_LANES, c.shape[0])
     return _warm_rescue(st, iterate, lanes, cfg, sol, k) if k > 0 else sol
 
 
+@traced("lp.rescue")
 def _warm_rescue(st: LPStructure, iterate, lanes, cfg: IPMConfig,
                  sol: LPBatchSolution, k: int) -> LPBatchSolution:
     """Solve the ``k`` lanes of worst quality score (primal residual +
@@ -73,8 +83,11 @@ def _warm_rescue(st: LPStructure, iterate, lanes, cfg: IPMConfig,
     result through :func:`lp_ipm_batched._merge_lanes` only where its
     first-pass score exceeded ``cfg.escalate_tol``, so a lane that passed
     the guard keeps its bits. Constant shapes and no host read: the step
-    stays free of device syncs."""
+    stays free of device syncs. The counter ``lp.rescue_demand`` takes
+    the lanes whose first-pass score exceeds ``cfg.escalate_tol``, of
+    which the rescue takes at most ``k``."""
     quality = _quality(sol)
+    count("lp.rescue_demand", quality, cfg.escalate_tol, reduce=_past)
     idx = torch.topk(quality, k).indices
     sub = tuple(t[idx] for t in lanes)
     l, u = sub[4], sub[5]
@@ -84,7 +97,8 @@ def _warm_rescue(st: LPStructure, iterate, lanes, cfg: IPMConfig,
         if frac is None:
             continue
         start = torch.clamp(x0, l + frac * width, u - frac * width)
-        state = iterate(st, *sub, cfg, x_init=start)
+        with span("lp.k1"):
+            state = iterate(st, *sub, cfg, x_init=start)
         x0 = state[5]
     if state is None:
         return sol

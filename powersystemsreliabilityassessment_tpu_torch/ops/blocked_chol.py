@@ -31,6 +31,7 @@ import torch
 
 from powersystemsreliabilityassessment_tpu_torch.ops import (
     batched_chol as bc, cuda_build)
+from powersystemsreliabilityassessment_tpu_torch.utils.profiling import span
 
 # Widest diagonal panel (reference PANEL = 56, sized for the TPU's VMEM;
 # RTS-96's m = 191 splits 56 + 56 + 56 + 23). The kernels take P <= 64.
@@ -194,8 +195,9 @@ def blocked_cholesky(M: torch.Tensor):
     ``M`` is kept for the refinement in :func:`blocked_cho_solve`. The
     probe (:func:`_probe`) flags lanes whose factor lost positive
     definiteness past the lift; their indices are read on the host (the
-    one sync per factorization), and when there are any, those lanes are
-    factored once more by ``torch.linalg.cholesky_ex``. Lanes whose
+    one sync per factorization, in a ``psra.lp.wait`` span), and when
+    there are any, those lanes are factored once more by
+    ``torch.linalg.cholesky_ex``. Lanes whose
     ``cholesky_ex`` succeeded (info == 0) get their panels from that
     factor; a lane that fails both keeps the blocked factor, and the
     evaluator's quality guard downstream decides it, as in the reference.
@@ -204,7 +206,9 @@ def blocked_cholesky(M: torch.Tensor):
     """
     panels, Ls, Loff = _factor_once(M)
     rescues["lanes_factored"] += M.shape[0]
-    idx = torch.nonzero(_probe(panels, Ls, Loff, M)).flatten()
+    flagged = _probe(panels, Ls, Loff, M)
+    with span("lp.wait"):
+        idx = torch.nonzero(flagged).flatten()
     if idx.numel():
         Lx, info = torch.linalg.cholesky_ex(M[idx])
         ok = (info == 0)[:, None, None]

@@ -60,6 +60,8 @@ from powersystemsreliabilityassessment_tpu_torch.sampling.state import (
     sample_states, sample_states_importance, sample_states_mixture)
 from powersystemsreliabilityassessment_tpu_torch.utils.config import (
     CompatFlags, IPMConfig, MCSConfig)
+from powersystemsreliabilityassessment_tpu_torch.utils.profiling import (
+    span, traced)
 
 
 # The LP buffer's cap where tier 1.5 is on (m > 336): the reference's
@@ -419,30 +421,33 @@ def make_nsq_batch_step(sys: System, batch_per_device: int,
     def step(generator: torch.Generator):
         pre, weight = None, None
         unavail, up = sys.unavail, sys.always_up_nsq
+        with span("sampling.states"):
+            if fused_tier1:
+                down, ok1, deficit, shed = \
+                    fused_sampler_cert.sample_certify_quick(
+                        generator, sys, batch_per_device,
+                        shed_hint=shed_hint, operands=quick_ops)
+            elif is_q is not None:
+                down, weight = sample_states_importance(
+                    generator, unavail, up, batch_per_device, 0.0,
+                    q_override=q_dev)
+            elif mix is not None:
+                down, weight = sample_states_mixture(
+                    generator, unavail, up, batch_per_device, mix_masks,
+                    mix_boost, mix_alpha0)
+            elif is_boost > 0:
+                down, weight = sample_states_importance(
+                    generator, unavail, up, batch_per_device, is_boost,
+                    boost_mask=boost_mask)
+            elif antithetic:
+                down = sample_states(generator, unavail, up,
+                                     batch_per_device, antithetic=True)
+            else:
+                down = sample_states(generator, unavail, up,
+                                     batch_per_device)
         if fused_tier1:
-            down, ok1, deficit, shed = \
-                fused_sampler_cert.sample_certify_quick(
-                    generator, sys, batch_per_device, shed_hint=shed_hint,
-                    operands=quick_ops)
             pre = dcopf.certify_finish(sys, down, load, deficit, shed, ok1,
                                        finish_buffer, woodbury_k=woodbury_k)
-        elif is_q is not None:
-            down, weight = sample_states_importance(
-                generator, unavail, up, batch_per_device, 0.0,
-                q_override=q_dev)
-        elif mix is not None:
-            down, weight = sample_states_mixture(
-                generator, unavail, up, batch_per_device, mix_masks,
-                mix_boost, mix_alpha0)
-        elif is_boost > 0:
-            down, weight = sample_states_importance(
-                generator, unavail, up, batch_per_device, is_boost,
-                boost_mask=boost_mask)
-        elif antithetic:
-            down = sample_states(generator, unavail, up, batch_per_device,
-                                 antithetic=True)
-        else:
-            down = sample_states(generator, unavail, up, batch_per_device)
         res, n_over = dcopf.evaluate_states_screened(
             sys, down, load, max_lp, compat, ipm, nodal_mode,
             repair_buffer=repair_buffer, woodbury_k=woodbury_k,
@@ -459,12 +464,16 @@ def make_nsq_batch_step(sys: System, batch_per_device: int,
             gen_up = 1.0 - down[:, :sys.n_gen].to(dns.dtype)
             c_mw = torch.clamp_min(total_load_mw - gen_up @ gen_cap_mw, 0.0)
             cv = (c_mw, c_mw > compat.nsq_fail_flag_threshold_mw)
-        m = accumulators.batch_moments(dns, nodal, failure, down, weight, cv)
+        with span("loop.reduce"):
+            m = accumulators.batch_moments(dns, nodal, failure, down, weight,
+                                           cv)
         if mesh is None or mesh.group is None:
             return m, n_over, res.infeasible.sum()
         # One collective a step, of the packed partials and both counts.
-        flat = meshlib.psum(mesh, accumulators.pack_moments(
-            m, n_over.to(dns.dtype), res.infeasible.sum().to(dns.dtype)))
+        with span("loop.reduce"):
+            packed = accumulators.pack_moments(
+                m, n_over.to(dns.dtype), res.infeasible.sum().to(dns.dtype))
+        flat = meshlib.psum(mesh, packed)
         m, (n_over, n_infeas) = accumulators.unpack_moments(
             flat, sys.n_bus, 2)
         return m, n_over, n_infeas
@@ -472,6 +481,7 @@ def make_nsq_batch_step(sys: System, batch_per_device: int,
     return step
 
 
+@traced("loop.reduce")
 def fetch_async(flat: torch.Tensor):
     """Start copying a step's packed outputs ``flat`` to the host. Returns
     (host tensor, CUDA event or None); the event completes when this
@@ -490,15 +500,17 @@ def fetched_numpy(fetched) -> np.ndarray:
     """Wait for one :func:`fetch_async` copy; its values as float64."""
     host, event = fetched
     if event is not None:
-        event.synchronize()
+        with span("loop.wait"):
+            event.synchronize()
     return host.numpy().astype(np.float64)
 
 
 def _fetch_async(out):
     m, n_over, n_infeas = out
     dt = m.sum_dns.dtype
-    return fetch_async(accumulators.pack_moments(m, n_over.to(dt),
-                                                 n_infeas.to(dt)))
+    with span("loop.reduce"):
+        flat = accumulators.pack_moments(m, n_over.to(dt), n_infeas.to(dt))
+    return fetch_async(flat)
 
 
 def _unpack(fetched, nb: int):

@@ -65,8 +65,11 @@ from powersystemsreliabilityassessment_tpu_torch.studies.hl2_nsq import (
     batch_generator, fetch_async, fetched_numpy)
 from powersystemsreliabilityassessment_tpu_torch.utils.config import (
     CompatFlags, IPMConfig, MCSConfig)
+from powersystemsreliabilityassessment_tpu_torch.utils.profiling import (
+    span, traced)
 
 
+@traced("sampling.years")
 def sample_years(generator: torch.Generator, sys: System, years: int,
                  hours: int, n_draws: int,
                  stationary: bool = False) -> torch.Tensor:
@@ -127,28 +130,32 @@ def evaluate_years(sys: System, compat: CompatFlags, ipm: IPMConfig,
         sys, down_h.reshape(Y * H, -1), load, max_lp, compat, ipm,
         nodal_mode, repair_buffer=max(4096, (Y * H) // 16),
         pf_buffer=dcopf.default_pf_buffer(sys, Y * H))
-    dns = res.dns_mw.reshape(Y, H)
-    flag = dns > compat.seq_curtail_threshold_mw
-    flag_f = flag.to(dns.dtype)
-    ens = dns.sum(1)
-    dlc = flag_f.sum(1)
-    nlc = copper_sheet.count_curtailment_events(flag).to(dns.dtype)
-    nodal = torch.where(flag[:, :, None], res.nodal_mw.reshape(Y, H, -1),
-                        0.0).sum(1)
-    # 0/1 sums below 2^24: exact in float32 (TF32 is off package-wide).
-    comp_fail = torch.einsum("yh,yhc->yc", flag_f, down_h.to(dns.dtype))
-    # PLC as the reference's mean computes it (XLA: the sum times 1 / H).
-    outs = (ens, dlc * (1.0 / H), nlc, dlc, ens / H, nodal, comp_fail, dlc,
-            n_over, res.infeasible.sum())
-    if cv_arrays is not None:
-        # Integer-valued float32 capacities: the capacity sums are exact
-        # (TF32 is off), so the host's exact means see the same deficits.
-        loads_mw, gen_cap_mw = cv_arrays
-        gen_up = 1.0 - down[:, :sys.n_gen, :].to(dns.dtype)
-        cap_mw = torch.einsum("ygh,g->yh", gen_up, gen_cap_mw)
-        deficit = torch.clamp_min(loads_mw[None, :] - cap_mw, 0.0)
-        outs = outs + (deficit.sum(1), (
-            deficit > compat.seq_curtail_threshold_mw).to(dns.dtype).sum(1))
+    with span("loop.reduce"):
+        dns = res.dns_mw.reshape(Y, H)
+        flag = dns > compat.seq_curtail_threshold_mw
+        flag_f = flag.to(dns.dtype)
+        ens = dns.sum(1)
+        dlc = flag_f.sum(1)
+        nlc = copper_sheet.count_curtailment_events(flag).to(dns.dtype)
+        nodal = torch.where(flag[:, :, None],
+                            res.nodal_mw.reshape(Y, H, -1), 0.0).sum(1)
+        # 0/1 sums below 2^24: exact in float32 (TF32 is off package-wide).
+        comp_fail = torch.einsum("yh,yhc->yc", flag_f, down_h.to(dns.dtype))
+        # PLC as the reference's mean computes it (XLA: the sum times
+        # 1 / H).
+        outs = (ens, dlc * (1.0 / H), nlc, dlc, ens / H, nodal, comp_fail,
+                dlc, n_over, res.infeasible.sum())
+        if cv_arrays is not None:
+            # Integer-valued float32 capacities: the capacity sums are
+            # exact (TF32 is off), so the host's exact means see the same
+            # deficits.
+            loads_mw, gen_cap_mw = cv_arrays
+            gen_up = 1.0 - down[:, :sys.n_gen, :].to(dns.dtype)
+            cap_mw = torch.einsum("ygh,g->yh", gen_up, gen_cap_mw)
+            deficit = torch.clamp_min(loads_mw[None, :] - cap_mw, 0.0)
+            outs = outs + (deficit.sum(1), (
+                deficit > compat.seq_curtail_threshold_mw).to(
+                    dns.dtype).sum(1))
     return outs
 
 
@@ -206,8 +213,9 @@ def make_seq_batch_step(sys: System, years_per_device: int,
                           maint_down)
         (ens, plc, nlc, dlc, edns, nodal, comp_fail, loss_h, n_over,
          n_infeas) = out[:10]
-        out = (ens, plc, nlc, dlc, edns, nodal.sum(0), comp_fail.sum(0),
-               loss_h.sum(), n_over, n_infeas) + out[10:]
+        with span("loop.reduce"):
+            out = (ens, plc, nlc, dlc, edns, nodal.sum(0), comp_fail.sum(0),
+                   loss_h.sum(), n_over, n_infeas) + out[10:]
         if mesh is None or mesh.group is None:
             return out
         flat = meshlib.psum(mesh, _pack(out, mesh))
@@ -219,6 +227,7 @@ def make_seq_batch_step(sys: System, years_per_device: int,
     return step
 
 
+@traced("loop.reduce")
 def _pack(out, mesh=None) -> torch.Tensor:
     """One step's outputs as one float32 vector: loss hours, n_over,
     n_infeasible, the per-year vectors (five, or seven with the control

@@ -222,28 +222,6 @@ def test_orbax_and_bench_exit_2(argv, needle, capsys):
 
 # --- utils/profiling.py ---------------------------------------------------
 
-def test_timings_report_equals_reference(monkeypatch):
-    from powersystemsreliabilityassessment_tpu.utils import (
-        profiling as ref_prof)
-    from powersystemsreliabilityassessment_tpu_torch.utils import profiling
-    reports = []
-    for mod in (profiling, ref_prof):
-        ticks = iter([0.0, 1.25, 2.0, 2.5, 3.0, 7.5, 10.0, 10.001])
-        monkeypatch.setattr(mod.time, "perf_counter", lambda: next(ticks))
-        t = mod.Timings()
-        with t.section("sample", items=4096):
-            pass
-        with t.section("evaluate"):
-            pass
-        with t.section("sample", items=4096):
-            pass
-        with t.section("fold", items=10):
-            pass
-        reports.append(t.report())
-    assert reports[0] == reports[1]
-    assert reports[0].splitlines()[1].startswith("sample")
-
-
 def test_device_trace_writes_a_chrome_trace(tmp_path):
     import torch
     from powersystemsreliabilityassessment_tpu_torch.utils import profiling
@@ -252,6 +230,40 @@ def test_device_trace_writes_a_chrome_trace(tmp_path):
     data = json.loads((tmp_path / "trace" / "trace.json").read_text())
     assert data["traceEvents"]
     assert any("mm" in e.key for e in prof.key_averages())
+
+
+def test_device_trace_of_a_step_holds_the_program_spans(tmp_path):
+    # An NSQ batch of the fused sampler-certificate path (K4's plain
+    # version on the CPU, then certify_finish), two K1 iterations and one
+    # rescue stage to keep the trace short.
+    import torch
+    from powersystemsreliabilityassessment_tpu_torch.core import cases
+    from powersystemsreliabilityassessment_tpu_torch.core.system import (
+        build_system)
+    from powersystemsreliabilityassessment_tpu_torch.studies import hl2_nsq
+    from powersystemsreliabilityassessment_tpu_torch.utils import profiling
+    from powersystemsreliabilityassessment_tpu_torch.utils.config import (
+        CompatFlags, IPMConfig)
+    sys_ = build_system(cases.rts24(), CompatFlags(), "cpu")
+    step = hl2_nsq.make_nsq_batch_step(
+        sys_, 256, CompatFlags(),
+        IPMConfig(iterations=2, rescue_stages=(0.02,)), max_lp=8,
+        fused_tier1=True)
+    with profiling.device_trace(str(tmp_path / "trace")):
+        flat, _ = hl2_nsq._fetch_async(
+            step(hl2_nsq.batch_generator(1, 0, "cpu")))
+    got = profiling.counters()
+    profiling.reset_counters()
+    data = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    names = {e["name"] for e in data["traceEvents"]
+             if str(e.get("name", "")).startswith("psra.")}
+    assert names == {
+        "psra.sampling.states", "psra.tier1.finish", "psra.tier1.certify",
+        "psra.loop.compact", "psra.lp.build", "psra.lp.k1",
+        "psra.lp.polish", "psra.lp.rescue", "psra.lp.finalize",
+        "psra.loop.scatter", "psra.loop.reduce"}
+    assert got["lp.buffer_lanes"] == 8 and flat.shape[0] > 0
+    assert {f"span_ns.{n[5:]}" for n in names} <= set(got)
 
 
 # --- the lazy top-level API -----------------------------------------------

@@ -6,7 +6,8 @@ path on the card against the same path on the CPU, an RTS-96 step that
 must launch K2 and K3, K2a and K3 at the case300s block-Schur shapes and
 the case300s LP path on eight deep contingencies, tier 1.5
 (``certify_island_pf``) on the card against the CPU, the fused sampler-certificate step and the SEQ
-step without a host sync, the 98-state golden replay on the card
+step without a host sync (and with the program's spans on, no launch
+more), the 98-state golden replay on the card
 (tests/test_torch_nsq.py runs it on the CPU through the same helper),
 and the NSQ samplers (antithetic, importance, mixture) on the card
 against their marginals on the CPU, with each sampler's RTS-24 step
@@ -1485,6 +1486,64 @@ def test_seq_step_never_waits_for_the_device(cuda):
         before["fused_ipm_iterations"] + 1 + warm
     assert bc.launches["cholesky"] == before["cholesky"] + 2 * 2
     assert bc.launches["cho_solve"] == before["cho_solve"] + 3 * 2
+
+
+@pytest.mark.gpu
+def test_seq_step_spans_add_no_launch_and_no_sync(cuda, monkeypatch,
+                                                  tmp_path):
+    """The benchmark's SEQ step (4 years, 256 LP lanes a year) under
+    torch.profiler, the program's spans and counters on, then off (their
+    flag check stubbed): both pass the sync check, launch the same
+    kernels and give the same bits; the counters are read after the
+    profiler stops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from powersystemsreliabilityassessment_tpu_torch.utils import profiling
+    sys_ = build_system(cases.rts24(), device=cuda)
+    hours = 8736
+    mt = twostate.mean_times(cases.rts24())
+    k = chronological.default_num_draws(mt[:, 0], mt[:, 1], hours)
+    step = hl2_seq.make_seq_batch_step(
+        sys_, 4, CompatFlags(), IPMConfig(), hours, k, 256,
+        load_profile.load_factors(hours))
+    step(hl2_nsq.batch_generator(0, 0, cuda))      # builds the kernels
+    torch.cuda.synchronize()
+
+    def traced(spans_on):
+        profiling.reset_counters()
+        with monkeypatch.context() as m:
+            if not spans_on:
+                m.setattr(profiling, "_profiler_enabled", lambda: False)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out = hl2_seq._pack(step(hl2_nsq.batch_generator(
+                        0, 1, cuda)))
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+        got = profiling.counters()
+        profiling.reset_counters()
+        path = tmp_path / f"trace{int(spans_on)}.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        kernels = sorted(e["name"] for e in events
+                         if e.get("cat") == "kernel")
+        spans = {e["name"] for e in events
+                 if str(e.get("name", "")).startswith("psra.")}
+        return out, kernels, spans, got
+
+    on, k_on, spans_on, got_on = traced(True)
+    off, k_off, spans_off, got_off = traced(False)
+    assert k_on == k_off and len(k_on) > 100
+    assert torch.equal(on, off)
+    assert {"psra.sampling.years", "psra.tier1.certify", "psra.lp.k1",
+            "psra.lp.rescue", "psra.lp.finalize",
+            "psra.loop.reduce"} <= spans_on
+    assert not spans_off and got_off == {}
+    assert got_on["lp.buffer_lanes"] == 1024
+    assert 0 <= got_on["lp.guard_fallback"] <= got_on["lp.real_lanes"]
 
 
 @pytest.mark.gpu

@@ -326,3 +326,55 @@ def test_rescue_writes_back_only_flagged_lanes():
     assert not bool((changed & ~flagged).any())
     assert int(changed.sum()) <= saved
     assert bool(changed[flagged].all())
+
+
+@pytest.mark.parametrize("rescue_lanes", [16, 4])
+def test_lp_counters_on_the_hard_lanes(rescue_lanes, monkeypatch):
+    """The screened evaluator's LP counters under a profiler, on the 29
+    hard SEQ lanes in a 40-lane buffer (11 padding lanes, copies of the
+    first), against counts made here from the solver's own pieces:
+    ``lp.real_lanes`` the LP queue clamped to the buffer,
+    ``lp.rescue_demand`` the buffer lanes past ``escalate_tol`` after
+    K1 and the polish, ``lp.guard_fallback`` the real lanes that
+    ``_finalize``'s 5e-3 guard sends back to the certificate's bound. The
+    padding lanes are hard too and take some of the rescue's lanes, so
+    real lanes stay past the guard at either rescue size."""
+    from powersystemsreliabilityassessment_tpu_torch.utils import profiling
+    monkeypatch.setattr(lp_ipm_structured, "RESCUE_LANES", rescue_lanes)
+    d = np.load(pathlib.Path(__file__).parent / "golden"
+                / "seq_hard_lanes.npz")
+    sys_ = from_reference(ref_build_system(ref_cases.rts24()), device="cpu")
+    down = torch.as_tensor(d["down"])
+    load = torch.as_tensor(d["load"])
+    max_lp, cfg = 40, IPMConfig()
+    profiling.reset_counters()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        dcopf.evaluate_states_screened(sys_, down, load, max_lp,
+                                       CompatFlags(), cfg)
+    got = profiling.counters()
+    profiling.reset_counters()
+
+    pre = dcopf.certify_states(sys_, down, load)
+    need = ~(pre.certified & (pre.deficit <= 0))
+    real = int(need.sum())
+    # The buffer: the needy lanes in order, then the rest, then padding.
+    order = [i for i in range(len(need)) if need[i]] + \
+        [i for i in range(len(need)) if not need[i]]
+    buf = torch.tensor(order[:max_lp] + [0] * (max_lp - len(order)))
+    valid = torch.arange(max_lp) < real
+    shed, pg, quality = dcopf._solve_batch(sys_, down[buf], load[buf],
+                                           CompatFlags(), cfg)
+    cert = dcopf.certify_states(sys_, down[buf], load[buf], shed_hint=shed)
+    guard = ~cert.certified & ~(quality <= 5e-3)
+    monkeypatch.setattr(lp_ipm_structured, "RESCUE_LANES", 0)
+    first = dcopf._solve_batch(sys_, down[buf], load[buf], CompatFlags(),
+                               cfg)[2]
+
+    assert got["lp.buffer_lanes"] == max_lp
+    assert got["lp.real_lanes"] == min(real, max_lp) == 29
+    assert got["lp.rescue_demand"] == int((first > cfg.escalate_tol).sum())
+    assert got["lp.guard_fallback"] == int((guard & valid).sum())
+    # Lanes on both sides of the guard, padding lanes past it uncounted.
+    assert 0 < got["lp.guard_fallback"] < real
+    assert bool(guard[~valid].any())

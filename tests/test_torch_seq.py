@@ -26,6 +26,11 @@ marginal at every hour, the flat block against year by year, the
 estimate against the LP buffer (grow, redo, promote), the host policy
 of the redo loop on a scripted step, resume against an uninterrupted run
 for SEQ and NSQ, the Checkpointer round trip, and the exports.
+
+The program's spans and counters (``utils/profiling.py``) on a small
+step under ``torch.profiler``: every span of the step with its nesting,
+the loop's batch indices, the same bits as without a profiler, and
+nothing kept and no ``record_function`` made without one.
 """
 import csv
 import dataclasses
@@ -60,15 +65,19 @@ from powersystemsreliabilityassessment_tpu_torch.core import (
 from powersystemsreliabilityassessment_tpu_torch.core.system import (
     from_reference)
 from powersystemsreliabilityassessment_tpu_torch.engines import (
-    copper_sheet, dcopf, lp_ipm_structured)
+    copper_sheet, dcopf, lp_ipm_batched, lp_ipm_structured)
 from powersystemsreliabilityassessment_tpu_torch.models import twostate
 from powersystemsreliabilityassessment_tpu_torch.parallel import accumulators
 from powersystemsreliabilityassessment_tpu_torch.runtime.checkpoint import (
     Checkpointer)
+from powersystemsreliabilityassessment_tpu_torch.runtime.host_loop import (
+    double_buffered_loop)
 from powersystemsreliabilityassessment_tpu_torch.sampling import chronological
 from powersystemsreliabilityassessment_tpu_torch.studies import (
     hl2_nsq, hl2_seq)
-from powersystemsreliabilityassessment_tpu_torch.utils import report
+from powersystemsreliabilityassessment_tpu_torch.ops import blocked_chol
+from powersystemsreliabilityassessment_tpu_torch.utils import (
+    profiling, report)
 from powersystemsreliabilityassessment_tpu_torch.utils.config import (
     CompatFlags, IPMConfig, MCSConfig)
 
@@ -941,3 +950,181 @@ def test_stationary_study_runs(capsys):
     assert np.mean(res.annual_dlc) == res.lole_hr_yr
     assert np.mean(res.annual_nlc) == res.lolf_occ_yr
     assert "annual_dlc" not in res.to_dict()
+
+
+# -- the program's spans and counters (utils/profiling.py) -------------------
+
+# The spans of one RTS-24 SEQ batch run through the host loop; the other
+# spans of the table are emitted by the NSQ step, tier 1.5, the larger-m
+# LP paths and the card's event wait (below and in test_torch_cli.py).
+SEQ_SPANS = {"loop.dispatch", "loop.consume", "sampling.years",
+             "tier1.certify", "loop.compact", "lp.build", "lp.k1",
+             "lp.polish", "lp.rescue", "lp.finalize", "loop.scatter",
+             "loop.reduce"}
+SPAN_YEARS, SPAN_HOURS, SPAN_LP = 2, 168, 24
+
+
+def _seq_batches(port_sys, batches=1):
+    """``batches`` batches of a 2-year, 168-hour step (24 LP lanes a
+    year) through the host loop, as the study runs them; the host's
+    copies by batch index."""
+    mt = twostate.mean_times(cases.rts24())
+    k = chronological.default_num_draws(mt[:, 0], mt[:, 1], SPAN_HOURS)
+    fac = torch.as_tensor(load_profile.load_factors(SPAN_HOURS) * 1.3,
+                          dtype=torch.float32)
+    step = hl2_seq.make_seq_batch_step(
+        port_sys, SPAN_YEARS, CompatFlags(), IPMConfig(), SPAN_HOURS, k,
+        SPAN_LP, fac)
+    got = {}
+
+    def dispatch(i):
+        out = step(hl2_nsq.batch_generator(5, i, port_sys.device))
+        return i, hl2_nsq.fetch_async(hl2_seq._pack(out))
+
+    def consume(dispatched, next_idx):
+        got[dispatched[0]] = hl2_nsq.fetched_numpy(dispatched[1])
+        return False
+
+    double_buffered_loop(dispatch, consume, lambda i: i < batches)
+    return got
+
+
+def _trace_spans(prof, tmp_path):
+    """The ``psra.`` ranges of an exported trace, names without the
+    prefix."""
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    return [dict(e, name=e["name"][len(profiling.PREFIX):]) for e in events
+            if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+            and str(e.get("name", "")).startswith(profiling.PREFIX)]
+
+
+@pytest.fixture(scope="module")
+def traced_seq(port_sys, tmp_path_factory):
+    """The step's batch without a profiler, then under one: (plain
+    outputs, traced outputs, spans, counters, indices)."""
+    profiling.reset_counters()
+    plain = _seq_batches(port_sys)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        traced = _seq_batches(port_sys)
+    spans = _trace_spans(prof, tmp_path_factory.mktemp("seq_trace"))
+    out = plain, traced, spans, profiling.counters(), profiling.indices()
+    profiling.reset_counters()
+    return out
+
+
+def _inside(inner, outer) -> bool:
+    return (inner.get("tid") == outer.get("tid")
+            and outer["ts"] <= inner["ts"]
+            and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"])
+
+
+def test_seq_step_emits_its_spans_nested(traced_seq):
+    _, _, spans, _, idx = traced_seq
+    names = {s["name"] for s in spans}
+    assert names == SEQ_SPANS
+    by = lambda n: [s for s in spans if s["name"] == n]  # noqa: E731
+    dispatch, consume = by("loop.dispatch"), by("loop.consume")
+    assert len(dispatch) == len(consume) == 1
+    for s in spans:
+        if s["name"] not in ("loop.dispatch", "loop.consume"):
+            assert any(_inside(s, d) for d in dispatch + consume), s
+    # The LP tier's certificate pass inside _finalize, the rescue's K1
+    # passes (one a float stage) inside the rescue, the first pass's K1
+    # beside them.
+    finalize, rescue = by("lp.finalize"), by("lp.rescue")
+    assert len(finalize) == len(rescue) == 1
+    certify = by("tier1.certify")
+    assert sum(_inside(c, finalize[0]) for c in certify) == 1
+    assert len(certify) == 2
+    k1 = by("lp.k1")
+    stages = sum(f is not None for f in IPMConfig().rescue_stages)
+    assert sum(_inside(k, rescue[0]) for k in k1) == stages
+    assert len(k1) == stages + 1
+    assert any(_inside(p, rescue[0]) for p in by("lp.polish"))
+    assert idx == {"loop.dispatch": [0], "loop.consume": [0]}
+
+
+def test_seq_step_counters_under_a_profiler(traced_seq, port_sys):
+    _, traced, _, got, _ = traced_seq
+    lanes = SPAN_YEARS * SPAN_LP
+    assert got["lp.buffer_lanes"] == lanes
+    assert 0 < got["lp.real_lanes"] <= lanes
+    # The packed sums' LP overflow is the queue beyond the buffer.
+    assert int(traced[0][1]) == 0
+    assert 0 <= got["lp.guard_fallback"] <= got["lp.real_lanes"]
+    assert 0 <= got["lp.rescue_demand"] <= lanes
+    # The host time of the layers: the LP tier's inside its spans, each
+    # layer's outermost spans no longer than the batch's dispatch.
+    for layer in profiling.LAYERS:
+        assert 0 < got[f"host_ns.{layer}"] <= got["span_ns.loop.dispatch"]
+    assert got["host_ns.lp"] >= got["span_ns.lp.finalize"]
+    assert got["host_ns.tier1"] < got["span_ns.tier1.certify"]
+
+
+def test_seq_step_outputs_are_the_same_bits_under_a_profiler(traced_seq):
+    plain, traced, _, _, _ = traced_seq
+    assert sorted(plain) == sorted(traced) == [0]
+    np.testing.assert_array_equal(plain[0], traced[0])
+    assert plain[0][3:].sum() > 0         # the batch sheds
+
+
+def test_no_profiler_no_record_function_and_nothing_kept(port_sys,
+                                                         monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) called")
+
+    monkeypatch.setattr(profiling, "record_function", refuse)
+    profiling.reset_counters()
+    got = _seq_batches(port_sys)
+    assert sorted(got) == [0]
+    assert profiling.counters() == {} and profiling.indices() == {}
+    assert profiling.span("lp.k1") is profiling.span("loop.wait", 3)
+    # The stand-in does refuse once a profiler records.
+    with pytest.raises(AssertionError, match="called"):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            with profiling.span("lp.k1"):
+                pass
+    profiling.reset_counters()
+
+
+class _DoneEvent:
+    """Stands in for a CUDA event that has completed."""
+
+    def synchronize(self):
+        pass
+
+
+def _spd(batch, m):
+    g = torch.Generator().manual_seed(m)
+    a = torch.randn(batch, m, m, generator=g)
+    return a @ a.transpose(1, 2) + m * torch.eye(m)
+
+
+# Spans the small SEQ step does not reach on the CPU, each from its call.
+OTHER_SPANS = {
+    "loop.wait": lambda sys_: hl2_nsq.fetched_numpy(
+        (torch.zeros(3), _DoneEvent())),
+    "lp.wait.gate": lambda sys_: lp_ipm_batched._gate(
+        torch.tensor([0.1, 1.0]), 0.5),
+    "lp.wait.blocked_chol": lambda sys_: blocked_chol.blocked_cholesky(
+        _spd(2, 60)),
+    "tier1.island_pf": lambda sys_: dcopf.certify_island_pf(
+        sys_, torch.arange(4 * sys_.n_comp).reshape(4, -1) % 7 == 0,
+        sys_.load_pd[None].expand(4, -1)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(OTHER_SPANS))
+def test_span_of_each_other_call(case, port_sys, tmp_path):
+    profiling.reset_counters()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        OTHER_SPANS[case](port_sys)
+    name = ".".join(case.split(".")[:2])
+    assert [s["name"] for s in _trace_spans(prof, tmp_path)] == [name]
+    assert profiling.counters()[f"span_ns.{name}"] > 0
+    profiling.reset_counters()
