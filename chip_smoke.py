@@ -1096,8 +1096,8 @@ def _guard_counter():
     orig = ls._warm_rescue
     acc = torch.zeros(2, dtype=torch.int64, device="cuda")
 
-    def rescue(st, iterate, lanes, cfg, sol, k):
-        out = orig(st, iterate, lanes, cfg, sol, k)
+    def rescue(st, iterate, cfg, chain, sol, pick):
+        out = orig(st, iterate, cfg, chain, sol, pick)
         acc.add_(torch.stack([(~(lpb._quality(s) <= LP_QUALITY_GUARD)).sum()
                               for s in (sol, out)]))
         return out

@@ -51,6 +51,7 @@ network-free DNS lower bound.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -1025,10 +1026,30 @@ def _solve_batch(sys: System, comp_down, load_pu, compat: CompatFlags,
 def _finalize(sys: System, compat: CompatFlags, shed, pg, res, comp_down,
               load_pu, woodbury_k: int = 2, valid=None) -> EvalResult:
     """Certificate override, quality guard and noise floors; mirrors
-    reference ``engines/dcopf.py::_finalize``. The counter
-    ``lp.guard_fallback`` takes the lanes the guard sends back to the
-    certificate's bound among ``valid`` ([B] bool: a padded buffer's real
-    lanes; None: every lane)."""
+    reference ``engines/dcopf.py::_finalize``, as the segment
+    :func:`_finalize_lanes` (a CUDA graph where
+    ``lp_ipm_structured.lp_chain`` gives one: the card, m <= 72). The
+    counter ``lp.guard_fallback`` takes the lanes the guard sends back to
+    the certificate's bound among ``valid`` ([B] bool: a padded buffer's
+    real lanes; None: every lane)."""
+    chain = lp_ipm_structured.lp_chain(
+        ("finalize", id(sys), compat, woodbury_k), comp_down.device,
+        sys.n_bus + sys.n_branch, comp_down.shape[0], sys)
+    *out, bad = chain.run("finalize", functools.partial(
+        _finalize_lanes, sys, compat, woodbury_k),
+        shed, pg, res, comp_down, load_pu)
+    count("lp.guard_fallback", bad, valid, reduce=_real_lanes,
+          copy=chain.graphed)
+    dns, nodal, failure, pg, infeasible = map(chain.fresh, out)
+    return EvalResult(dns_mw=dns, nodal_mw=nodal, failure=failure,
+                      primal_residual=res, gen_dispatch=pg,
+                      infeasible=infeasible)
+
+
+def _finalize_lanes(sys: System, compat: CompatFlags, woodbury_k: int,
+                    shed, pg, res, comp_down, load_pu) -> tuple:
+    """:func:`_finalize`'s work: (dns, nodal, failure, dispatch,
+    infeasible, and the lanes the guard sent back)."""
     cert = certify_states(sys, comp_down, load_pu, shed_hint=shed,
                           woodbury_k=woodbury_k)
     shed = torch.where(cert.certified[:, None], cert.shed, shed)
@@ -1038,18 +1059,14 @@ def _finalize(sys: System, compat: CompatFlags, shed, pg, res, comp_down,
     # Untrustworthy LP lanes (large residual or gap, NaN included) fall
     # back to the copper-sheet bound and the certificate's pattern.
     bad = (~cert.certified) & ~(res <= 5e-3)
-    count("lp.guard_fallback", bad, valid, reduce=_real_lanes)
     dns = torch.where(bad, cert.deficit * base, dns)
     shed = torch.where(bad[:, None], cert.shed, shed)
     nodal = (shed * base) @ sys.load_onehot.T
     dns = torch.where(dns < compat.dns_noise_floor_mw, 0.0, dns)
     nodal = torch.where((nodal > compat.nodal_noise_threshold_mw)
                         & (dns[:, None] > 0), nodal, 0.0)
-    return EvalResult(dns_mw=dns, nodal_mw=nodal,
-                      failure=dns > compat.nsq_fail_flag_threshold_mw,
-                      primal_residual=res, gen_dispatch=pg,
-                      infeasible=overgen_infeasible(sys, comp_down, load_pu,
-                                                    compat))
+    return (dns, nodal, dns > compat.nsq_fail_flag_threshold_mw, pg,
+            overgen_infeasible(sys, comp_down, load_pu, compat), bad)
 
 
 def _real_lanes(flags: torch.Tensor, valid) -> int:

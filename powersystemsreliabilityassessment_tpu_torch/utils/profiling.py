@@ -112,11 +112,16 @@ def traced(name: str):
     return wrap
 
 
-def count(name: str, *values, reduce=None) -> None:
+def count(name: str, *values, reduce=None, copy: bool = False) -> None:
     """Add to counter ``name``: ``int(values[0])``, or ``reduce(*values)``,
     worked out when :func:`counters` is called. ``values`` are kept by
-    reference: host ints, or tensors the caller never writes again."""
+    reference: host ints, or tensors the caller never writes again;
+    ``copy`` keeps copies of the tensors instead (a CUDA graph's outputs,
+    which its next replay overwrites)."""
     if _profiler_enabled():
+        if copy:
+            values = tuple(v.clone() if isinstance(v, torch.Tensor) else v
+                           for v in values)
         _totals.kept.setdefault(name, []).append((reduce, values))
 
 
