@@ -985,7 +985,7 @@ def copper_sheet_bound(sys: System, comp_down: torch.Tensor,
 
 
 def _solve_batch(sys: System, comp_down, load_pu, compat: CompatFlags,
-                 ipm: IPMConfig):
+                 ipm: IPMConfig, valid=None):
     """LP tier on every lane; mirrors reference
     ``engines/dcopf.py::_solve_batch`` (any batch size, no padding): m <=
     72 takes the structured route (K1 + polish); m > 336 with
@@ -993,7 +993,8 @@ def _solve_batch(sys: System, comp_down, load_pu, compat: CompatFlags,
     (:func:`make_dc_linops`) through ``solve_box_lp_ops`` (block-Schur
     bulk pass on K2a and K3, then the rescue ladder); otherwise the
     materialized-A solver ``solve_box_lp_batched`` (blocked Cholesky, K2
-    + K3, at 72 < m <= 336). Returns (shed, pg, quality)."""
+    + K3, at 72 < m <= 336, then the rescue of every lane of ``valid``
+    past the guard). Returns (shed, pg, quality)."""
     ng, nd, nl = sys.n_gen, sys.n_load, sys.n_branch
     n_vars = ng + nd + nl + sys.n_bus
     structured = sys.n_bus + nl <= lp_ipm_batched._PALLAS_MAX_M
@@ -1016,7 +1017,8 @@ def _solve_batch(sys: System, comp_down, load_pu, compat: CompatFlags,
     elif large_ops:
         sol = lp_ipm_batched.solve_box_lp_ops(c, b, l, u, lops, ipm)
     else:
-        sol = lp_ipm_batched.solve_box_lp_batched(c, A, b, l, u, ipm)
+        sol = lp_ipm_batched.solve_box_lp_batched(c, A, b, l, u, ipm,
+                                                  valid=valid)
     # Lane quality: primal infeasibility plus the duality-gap bound 2n*mu.
     quality = sol.primal_residual + 2 * n_vars * sol.duality_gap
     return sol.x[:, ng:ng + nd], sol.x[:, :ng], quality
@@ -1091,13 +1093,15 @@ def evaluate_states(sys: System, comp_down: torch.Tensor,
     With ``compat.island_blackout`` the states first go through
     :func:`apply_island_blackout`, and the islanded loads are added to
     DNS and nodal shed. ``valid`` ([B] bool, for a padded buffer) names
-    the real lanes, which alone the guard's counter counts.
+    the real lanes, which alone the guard's counter counts and, at 72 < m
+    <= 336, the LP's rescue takes.
     """
     extra_nodal = None
     if compat.island_blackout:
         comp_down, load_pu, extra_nodal = apply_island_blackout(
             sys, comp_down, load_pu)
-    shed, pg, res = _solve_batch(sys, comp_down, load_pu, compat, ipm)
+    shed, pg, res = _solve_batch(sys, comp_down, load_pu, compat, ipm,
+                                 valid=valid)
     out = _finalize(sys, compat, shed, pg, res, comp_down, load_pu,
                     woodbury_k, valid=valid)
     if extra_nodal is not None:

@@ -27,7 +27,8 @@ from powersystemsreliabilityassessment_tpu_torch.ops import (
     batched_chol as bc, blocked_chol, ipm_fused, xla_chol)
 from powersystemsreliabilityassessment_tpu_torch.utils.config import (
     IPMConfig)
-from powersystemsreliabilityassessment_tpu_torch.utils.profiling import span
+from powersystemsreliabilityassessment_tpu_torch.utils.profiling import (
+    count, span)
 
 
 class LPBatchSolution(NamedTuple):
@@ -210,7 +211,7 @@ def _schur_solvers(mv_fn, mtv_fn, schur_factor, schur_solve, delta: float):
 
 
 def polish_box_lp(state, c, b, l, u, cfg: IPMConfig, mv_fn, mtv_fn,
-                  gram_fn, schur=None) -> LPBatchSolution:
+                  gram_fn, schur=None, kernels=None) -> LPBatchSolution:
     """Post-iteration polish; mirrors reference
     ``engines/lp_ipm_batched.py::polish_box_lp``.
 
@@ -218,7 +219,9 @@ def polish_box_lp(state, c, b, l, u, cfg: IPMConfig, mv_fn, mtv_fn,
     operator comes as ``mv_fn(v) -> A v``, ``mtv_fn(y) -> A' y`` and
     ``gram_fn(w) -> A diag(w) A'``; ``schur``, a ``(schur_factor,
     schur_solve)`` pair, takes the block-Schur route for the m x m
-    solves (:func:`_schur_solvers`) in place of the dense factor. Steps:
+    solves (:func:`_schur_solvers`) in place of the dense factor;
+    ``kernels`` (an :class:`LPKernels`) replaces :func:`lp_kernels`'s
+    route for m (None: that route). Steps:
     best-iterate selection, projection onto Ax = b, a Woodbury crossover
     snap toward the active bounds kept only when it does not worsen
     feasibility or objective, and the final residual and duality-gap
@@ -233,7 +236,8 @@ def polish_box_lp(state, c, b, l, u, cfg: IPMConfig, mv_fn, mtv_fn,
                                          cfg.regularization)
         chol_aat = nfactor(torch.ones_like(x))
     else:
-        factor, chol_solve = _make_chol_ops(x.device, m)
+        factor, chol_solve = (_make_chol_ops(x.device, m) if kernels is None
+                              else kernels[:2])
 
         def fsolve(chol_s, rhs):
             return _eq_solve(chol_solve, chol_s, rhs)
@@ -340,11 +344,13 @@ def dense_linops(A: torch.Tensor) -> LinOps:
 
 
 def solve_box_lp_batched(c, A, b, l, u, cfg: IPMConfig = IPMConfig(),
-                         x_init=None) -> LPBatchSolution:
+                         x_init=None, valid=None) -> LPBatchSolution:
     """Solve a batch of LPs min c'x s.t. Ax = b, l <= x <= u; c, l, u
     [B, n], A [B, m, n], b [B, m], float32 on one device. Mirrors
-    reference ``engines/lp_ipm_batched.py::solve_box_lp_batched``."""
-    return solve_box_lp_ops(c, b, l, u, dense_linops(A), cfg, x_init=x_init)
+    reference ``engines/lp_ipm_batched.py::solve_box_lp_batched``
+    (``valid``: see :func:`solve_box_lp_ops`)."""
+    return solve_box_lp_ops(c, b, l, u, dense_linops(A), cfg, x_init=x_init,
+                            valid=valid)
 
 
 def _gate(score: torch.Tensor, tol: float) -> bool:
@@ -356,7 +362,8 @@ def _gate(score: torch.Tensor, tol: float) -> bool:
 
 
 def solve_box_lp_ops(c, b, l, u, ops: LinOps, cfg: IPMConfig = IPMConfig(),
-                     x_init=None) -> LPBatchSolution:
+                     x_init=None, valid=None,
+                     kernels=None) -> LPBatchSolution:
     """Batched Mehrotra IPM over a constraint operator, then the polish;
     mirrors reference ``engines/lp_ipm_batched.py::solve_box_lp_ops``.
 
@@ -366,7 +373,8 @@ def solve_box_lp_ops(c, b, l, u, ops: LinOps, cfg: IPMConfig = IPMConfig(),
     or on a non-finite step, best-iterate tracking and
     :func:`polish_box_lp`. Every normal matrix goes through
     :func:`_make_chol_ops` (blocked Cholesky at 72 < m <= 336, the dense
-    ``xla_chol`` factor above), or, at m > 336 when ``ops`` has the
+    ``xla_chol`` factor above; ``kernels`` replaces that route), or, at
+    m > 336 when ``ops`` has the
     block-Schur fields and ``cfg.large_m_schur``, through
     :func:`_schur_solvers` (two [B, nb, nb] explicit inverses on K2a and
     K3).
@@ -381,10 +389,20 @@ def solve_box_lp_ops(c, b, l, u, ops: LinOps, cfg: IPMConfig = IPMConfig(),
     to ``escalate_passes`` full-buffer warm passes (insets 0.05, 0.1),
     each run only while a lane still exceeds ``escalate_tol``. The gates
     read their flag on the host (:func:`_gate`).
+
+    At 72 < m <= 336 with ``kernels`` None (the ladder's own sub-solves
+    pass theirs), every lane past ``escalate_tol`` after the pass goes
+    through the same ladder, on the dense factor
+    (:func:`_rescue_flagged`), however many there are;
+    ``valid`` ([B] bool, a padded buffer's real lanes; None: every lane)
+    limits it to the lanes whose answers are kept. This differs on purpose
+    from the reference, which rescues nothing at this route (ROADMAP.md
+    Queue 3, fault G).
     """
     B, n = c.shape
     m = b.shape[1]
     large = m > _BLOCKED_MAX_M
+    rescue_all = kernels is None and _PALLAS_MAX_M < m <= _BLOCKED_MAX_M
     use_schur = ops.schur_factor is not None and large and cfg.large_m_schur
     width = u - l
     margin = 1e-9 * _pos(width)
@@ -398,7 +416,8 @@ def solve_box_lp_ops(c, b, l, u, ops: LinOps, cfg: IPMConfig = IPMConfig(),
         def nfactor(d):
             return s_factor(1.0 / d)
     else:
-        factor, chol_solve = _make_chol_ops(c.device, m)
+        factor, chol_solve = (_make_chol_ops(c.device, m) if kernels is None
+                              else kernels[:2])
 
         def nfactor(d):
             return _equilibrated_factor(factor, ops.normal(d),
@@ -489,12 +508,17 @@ def solve_box_lp_ops(c, b, l, u, ops: LinOps, cfg: IPMConfig = IPMConfig(),
             (x, y, zl, zu, best_score, best_x), c, b, l, u, cfg,
             mv_fn=ops.mv, mtv_fn=ops.mtv, gram_fn=ops.gram,
             schur=((ops.schur_factor, ops.schur_solve) if use_schur
-                   else None))
+                   else None), kernels=kernels)
 
     def inset(xv, frac):
         return torch.clamp(xv, l + frac * width, u - frac * width)
 
-    sol = one_pass(0.5 * (l + u) if x_init is None else x_init)
+    x0 = 0.5 * (l + u) if x_init is None else x_init
+    if rescue_all:
+        with span("lp.pass"):
+            sol = one_pass(x0)
+    else:
+        sol = one_pass(x0)
     n_restarts = (cfg.restarts if cfg.restarts is not None
                   else (1 if large else 0))
     # A buffer no larger than restart_compact takes the whole-buffer
@@ -517,11 +541,13 @@ def solve_box_lp_ops(c, b, l, u, ops: LinOps, cfg: IPMConfig = IPMConfig(),
             break
         sol = _merge_lanes(one_pass(inset(sol.x, (0.05, 0.1)[min(i, 1)])),
                            sol)
+    if rescue_all:
+        sol = _rescue_flagged(c, b, l, u, ops, cfg, sol, valid)
     return sol
 
 
 def _rescue(c, b, l, u, ops: LinOps, cfg: IPMConfig, sol: LPBatchSolution,
-            score: torch.Tensor, k: int) -> LPBatchSolution:
+            score: torch.Tensor, k: int, flagged=None) -> LPBatchSolution:
     """The compacted rescue ladder of reference ``solve_box_lp_ops``
     (``run_rescue``): the ``k`` worst lanes by ``score`` are solved again
     on the dense factor (no Schur, no restarts or escalation of their
@@ -531,7 +557,9 @@ def _rescue(c, b, l, u, ops: LinOps, cfg: IPMConfig, sol: LPBatchSolution,
     side branch from the box midpoint, which feeds only the merge. Each
     stage runs only while the best-so-far worst score exceeds
     ``escalate_tol``; results merge lane by lane (:func:`_merge_lanes`)
-    and go back into the buffer through the same merge."""
+    and go back into the buffer through the same merge. ``flagged`` ([B]
+    bool, or None for every lane) names the lanes whose scores the stage
+    gates read."""
     sub_cfg = dataclasses.replace(
         cfg, restart_compact=0, large_m_schur=False, restarts=0,
         escalate_passes=0,
@@ -545,15 +573,77 @@ def _rescue(c, b, l, u, ops: LinOps, cfg: IPMConfig, sol: LPBatchSolution,
     cs, bs = c[idx], b[idx]
     best = LPBatchSolution(*(t[idx] for t in sol))
     probe_x = best.x
+    gated = None if flagged is None else flagged[idx]
     for frac in cfg.rescue_stages:
-        if not _gate(_quality(best), cfg.escalate_tol):
+        q = _quality(best)
+        if not _gate(q if gated is None else torch.where(gated, q, 0.0),
+                     cfg.escalate_tol):
             break
         x0 = (0.5 * (li + ui) if frac is None
               else torch.clamp(probe_x, li + frac * wid, ui - frac * wid))
-        s = solve_box_lp_ops(cs, bs, li, ui, sub_ops, sub_cfg, x_init=x0)
+        s = solve_box_lp_ops(cs, bs, li, ui, sub_ops, sub_cfg, x_init=x0,
+                             kernels=_LARGE_KERNELS)
         if frac is not None:
             probe_x = s.x
         best = _merge_lanes(s, best)
     cand = LPBatchSolution(*(t.index_copy(0, idx, v)
                              for t, v in zip(sol, best)))
     return _merge_lanes(cand, sol)
+
+
+# The blocked route's rescue (72 < m <= 336). The lanes past the guard are
+# rounded up to a power of two of at least RESCUE_MIN_LANES (capped at the
+# buffer), so the sub-solves see few shapes; the next-worst lanes fill the
+# rounding. The ladder's sub-solves take the dense factor of the m > 336
+# route (_LARGE_KERNELS: one cuSOLVER Cholesky a factor, two refinement
+# steps a solve): a sub-solve of a few dozen lanes is bound by its
+# launches, and the blocked factor's panels, probe and substitutions
+# launch several times more. On an NVIDIA H100 80GB HBM3 at 700 W, the 30
+# lanes past the guard in 60 steps of the RTS-96 SEQ cell (two seeds),
+# solved again 32 at a time through the whole ladder (3-4 sub-solves of 16
+# iterations), took 0.61-1.05 s on the blocked factor and 0.24-0.35 s on
+# the dense one; both cleared every lane, the widest gap to float64 HiGHS
+# 1.0e-3 and 2.0e-3 p.u. (PERF.md §6).
+RESCUE_MIN_LANES = 32
+
+
+def rescue_size(n_past: int, B: int) -> int:
+    """Lanes the blocked route's ladder runs for ``n_past`` lanes past the
+    guard in a buffer of ``B``: 0 for none, else the next power of two of
+    at least RESCUE_MIN_LANES, capped at ``B``."""
+    if n_past <= 0:
+        return 0
+    return min(B, max(RESCUE_MIN_LANES, 1 << (n_past - 1).bit_length()))
+
+
+def _rescue_flagged(c, b, l, u, ops: LinOps, cfg: IPMConfig,
+                    sol: LPBatchSolution, valid) -> LPBatchSolution:
+    """72 < m <= 336: every lane of ``valid`` (None: every lane) whose
+    quality score is past ``escalate_tol`` (NaN included) after the pass
+    goes through :func:`_rescue`, warm from the polished point, its
+    sub-solves on the dense factor; one host read counts them (in
+    ``psra.lp.wait``), and a clean buffer does no more. Only those lanes
+    take the ladder's answer: the lanes that fill the rounding, as every
+    lane that passed the guard, keep their bits. The counters
+    ``lp.rescue_demand`` (those lanes) and ``lp.rescue_lanes`` (the
+    ladder's lanes, after :func:`rescue_size`) take each call. A lane the
+    ladder leaves past the guard falls back in ``dcopf._finalize`` as
+    before."""
+    score = torch.nan_to_num(_quality(sol), nan=float("inf"))
+    past = ~(score <= cfg.escalate_tol)
+    if valid is not None:
+        past = past & valid
+        score = torch.where(valid, score, -float("inf"))
+    n_past = past.sum()
+    with span("lp.wait"):
+        n_past = int(n_past)
+    k = rescue_size(n_past, c.shape[0])
+    count("lp.rescue_demand", n_past)
+    count("lp.rescue_lanes", k)
+    if k == 0:
+        return sol
+    with span("lp.rescue"):
+        got = _rescue(c, b, l, u, ops, cfg, sol, score, k, flagged=past)
+        return LPBatchSolution(*(
+            torch.where(past[:, None] if a.dim() == 2 else past, a, o)
+            for a, o in zip(got, sol)))

@@ -172,10 +172,12 @@ def test_evaluate_states_rts96_matches_reference_and_oracle(rts96):
     np.testing.assert_array_equal(got.failure.numpy(),
                                   np.asarray(ref.failure))
     assert (dns > 0).sum() >= 16
-    # Lanes the quality guard degrades to the copper bound are the same
-    # in both packages; every other lane matches the float64 oracle.
+    # Every lane the reference trusts, the port trusts too. The port also
+    # trusts the lanes that its rescue on the blocked route cleared, which
+    # the reference degrades to the copper bound (ROADMAP.md Queue 3,
+    # fault G); every lane the port trusts matches the float64 oracle.
     res, res_ref = got.primal_residual.numpy(), np.asarray(ref.primal_residual)
-    np.testing.assert_array_equal(res <= 5e-3, res_ref <= 5e-3)
+    assert not ((res_ref <= 5e-3) & ~(res <= 5e-3)).any()
     _, lp = _both_lps(ref_sys, sys_, down, load)
     checked = 0
     for lane in np.flatnonzero(res <= 5e-3):
