@@ -62,6 +62,7 @@ from powersystemsreliabilityassessment_tpu_torch.engines import (
     lp_ipm_batched, lp_ipm_structured)
 from powersystemsreliabilityassessment_tpu_torch.ops.ipm_fused import (
     build_structure)
+from powersystemsreliabilityassessment_tpu_torch.runtime import graphs
 from powersystemsreliabilityassessment_tpu_torch.utils.config import (
     CompatFlags, IPMConfig)
 from powersystemsreliabilityassessment_tpu_torch.utils.profiling import (
@@ -310,11 +311,36 @@ def _topk_lanes(need: torch.Tensor, k: int) -> torch.Tensor:
     return torch.topk(score, k).indices
 
 
+# Tier-1 chains kept: a study uses one (its system, batch and options).
+TIER1_CHAINS = 4
+_tier1_chains = graphs.ChainCache(TIER1_CHAINS)
+
+
+def tier1_chain(sys: System, device, lanes: int, repair_iters: int,
+                repair_buffer: int | None, woodbury_k: int, hinted: bool):
+    """The graph chain of the screened evaluator's tier-1 pass over
+    ``lanes`` lanes (``runtime/graphs.py``), or ``graphs.EAGER``: a chain
+    only on a CUDA device, at m <= 72 (as ``lp_ipm_structured.lp_chain``:
+    there the LP tier reads nothing on the host and the host's launches
+    pace the step) and while no capture is under way (``_finalize``'s
+    pass runs inside the LP tier's own graph). The key names every
+    option that fixes the pass's shapes and work; the chain keeps
+    ``sys``, whose identity the key names."""
+    dev = torch.device(device)
+    if (dev.type != "cuda"
+            or sys.n_bus + sys.n_branch > lp_ipm_batched._PALLAS_MAX_M
+            or torch.cuda.is_current_stream_capturing()):
+        return graphs.EAGER
+    key = (id(sys), dev, lanes, repair_iters, repair_buffer, woodbury_k,
+           hinted)
+    return _tier1_chains.get(key, lambda: graphs.Chain(dev, "tier1", sys))
+
+
 @traced("tier1.certify")
 def certify_states(sys: System, comp_down: torch.Tensor,
                    load_pu: torch.Tensor, shed_hint=None,
                    repair_iters: int = 3, repair_buffer: int | None = None,
-                   woodbury_k: int = 2) -> Certificate:
+                   woodbury_k: int = 2, chain=graphs.EAGER) -> Certificate:
     """Tier-1 exact bound certificate (batch); mirrors reference
     ``engines/dcopf.py::certify_states``.
 
@@ -325,7 +351,26 @@ def certify_states(sys: System, comp_down: torch.Tensor,
     outages via the rank-k Woodbury update. ``repair_buffer`` compacts
     the repair descent onto that many needy lanes (same results while
     the buffer covers them; excess lanes stay uncertified).
+    ``shed_hint``: [n_load] (one pattern for every lane) or [B, n_load].
+
+    ``chain``: the whole pass runs as its one segment ``"certify"``
+    (:func:`tier1_chain`; the default ``graphs.EAGER`` is a plain call).
+    A graph chain's ``Certificate`` is the graph's static outputs, valid
+    until the chain's next call: a reader that outlives it takes a copy.
     """
+    hint = () if shed_hint is None else (shed_hint,)
+    return Certificate(*chain.run("certify", functools.partial(
+        _certify_lanes, sys, repair_iters, repair_buffer, woodbury_k),
+        comp_down, load_pu, *hint))
+
+
+def _certify_lanes(sys: System, repair_iters: int, repair_buffer: int | None,
+                   woodbury_k: int, comp_down, load_pu,
+                   shed_hint=None) -> tuple:
+    """:func:`certify_states`' work: (certified, deficit, shed,
+    dispatch)."""
+    if shed_hint is not None and shed_hint.dim() == 1:
+        shed_hint = shed_hint[None, :].expand(load_pu.shape)
     ng = sys.n_gen
     dt = _fdt(sys)
     gen_up = 1.0 - comp_down[:, :ng].to(dt)
@@ -389,8 +434,7 @@ def certify_states(sys: System, comp_down: torch.Tensor,
             post_flows(flows), best_ok)
     certified = (eligible & best_ok) | _woodbury_multi_ok(
         sys, flows, br_down, n_out, rate_ok, woodbury_k)
-    return Certificate(certified=certified, deficit=deficit, shed=cand,
-                       dispatch=dispatch)
+    return certified, deficit, cand, dispatch
 
 
 def _island_rebalance(R: torch.Tensor, x: torch.Tensor, caps: torch.Tensor,
@@ -1154,7 +1198,9 @@ def evaluate_states_screened(sys: System, comp_down: torch.Tensor,
     sampler-certificate path: ``ops/fused_sampler_cert.py`` then
     :func:`certify_finish`) replaces the internal tier-1 pass;
     ``shed_hint`` is then ignored (the kernel applied its own
-    candidate).
+    candidate). Without ``pre``, on the card at m <= 72 the tier-1 pass
+    replays as one CUDA graph a call (:func:`tier1_chain`); its
+    certificate is read only within this call.
 
     ``pf_buffer``: tier 1.5. That many of the lanes tier 1 leaves for the
     LP go through :func:`certify_island_pf` first; a lane it certifies
@@ -1186,14 +1232,14 @@ def evaluate_states_screened(sys: System, comp_down: torch.Tensor,
             sys, comp_down, load_pu)
         compat = dataclasses.replace(compat, island_blackout=False)
     if pre is None:
-        hint_b = None
-        if shed_hint is not None:
-            hint = torch.as_tensor(shed_hint, dtype=load_pu.dtype,
-                                   device=load_pu.device)
-            hint_b = hint[None, :].expand(load_pu.shape)
-        pre = certify_states(sys, comp_down, load_pu, shed_hint=hint_b,
-                             repair_buffer=repair_buffer,
-                             woodbury_k=woodbury_k)
+        hint = None if shed_hint is None else torch.as_tensor(
+            shed_hint, dtype=load_pu.dtype, device=load_pu.device)
+        opts = dict(repair_iters=3, repair_buffer=repair_buffer,
+                    woodbury_k=woodbury_k)
+        chain = tier1_chain(sys, comp_down.device, B, hinted=hint is not None,
+                            **opts)
+        pre = certify_states(sys, comp_down, load_pu, shed_hint=hint,
+                             chain=chain, **opts)
     need_lp = _needs_lp(pre, nodal_mode)
 
     if pf_buffer:

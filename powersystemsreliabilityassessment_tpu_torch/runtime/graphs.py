@@ -1,8 +1,9 @@
 """CUDA graphs of fixed-shape chains of small operations.
 
 A step of the m <= 72 LP tier enqueues hundreds of small PyTorch
-operations between its hand-written kernels' launches, and the host, not
-the card, sets the pace. A :class:`Chain` runs each such segment as a
+operations between its hand-written kernels' launches, the screened
+evaluator's tier-1 pass hundreds more, and the host, not the card, sets
+the pace. A :class:`Chain` runs each such segment as a
 CUDA graph: the first call of a segment runs it once eagerly on a side
 stream (cuBLAS handles, workspaces and lazy set-up), captures it, and
 every call replays it. Whatever runs between the segments (the
@@ -18,8 +19,8 @@ takes :meth:`Chain.fresh` copies of whatever it hands on.
 
 :data:`EAGER` has the same interface and runs each segment as a plain
 call, so one code path serves both. The caller picks one or the other
-(``engines/lp_ipm_structured.lp_chain``) and keys the chains in a
-bounded :class:`ChainCache`.
+(``engines/lp_ipm_structured.lp_chain``, ``engines/dcopf.tier1_chain``)
+and keys the chains in a bounded :class:`ChainCache`.
 """
 from __future__ import annotations
 
