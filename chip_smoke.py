@@ -4789,9 +4789,9 @@ def phase_plan():
 @contextlib.contextmanager
 def _capturing_k1(store: list, warm: bool = False):
     """While active, the inputs of every K1 call on the LP path
-    (``lp_kernels(...).iterate``) from the box midpoint, or with
-    ``warm`` every call with a start point (the warm rescue's; the start
-    appended as a seventh input), are appended to ``store``."""
+    (``lp_route(m).kernels(device).iterate``) from the box midpoint, or
+    with ``warm`` every call with a start point (the warm rescue's; the
+    start appended as a seventh input), are appended to ``store``."""
     from powersystemsreliabilityassessment_tpu_torch.engines import (
         lp_ipm_batched as lpb)
     kernels = lpb._DIRECT_KERNELS["cuda"]

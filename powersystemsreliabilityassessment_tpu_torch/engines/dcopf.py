@@ -19,21 +19,21 @@ overload a line.
                box bounds on every variable
 
 solved on the lanes tier 1 leaves, compacted into a ``max_lp`` buffer
-(``evaluate_states_screened``): for m <= 72 by
+(``evaluate_states_screened``), by the route of the LP's row count m
+(``lp_ipm_batched.lp_route``): structured (m <= 72) by
 ``lp_ipm_structured.solve_box_lp_structured`` (the fused K1 kernel on
-CUDA), for 72 < m <= 336 by ``lp_ipm_batched.solve_box_lp_batched`` on
-the materialized A (the blocked Cholesky, K2 + K3 on CUDA). For m > 336
-(``case300s``, m = 792) ``evaluate_states`` solves every lane through
-``lp_ipm_batched.solve_box_lp_ops`` on the structured operator
-``make_dc_linops`` (block-Schur bulk pass on K2a and K3, dense rescue
-ladder).
+CUDA); blocked (72 < m <= 336) by ``lp_ipm_batched.solve_box_lp_batched``
+on the materialized A (the blocked Cholesky, K2 + K3 on CUDA); large
+(``case300s``, m = 792) by ``lp_ipm_batched.solve_box_lp_ops`` on the
+structured operator ``make_dc_linops`` (block-Schur bulk pass on K2a and
+K3, dense rescue ladder).
 
 **Tier 1.5 — island-aware power-flow certificate**
 (``certify_island_pf``): with ``pf_buffer`` the screened evaluator
 compacts tier 1's misses into that many lanes and certifies the deep
 multi-branch and islanding states among them on the reduced network
-before the LP buffer is filled; ``default_pf_buffer`` turns it on at
-m > 336.
+before the LP buffer is filled; ``default_pf_buffer`` turns it on where
+the route says (the large route).
 
 The fused sampler-certificate path (``ops/fused_sampler_cert.py``)
 hands tier 1's work to ``certify_finish`` and its result to
@@ -319,21 +319,16 @@ _tier1_chains = graphs.ChainCache(TIER1_CHAINS)
 def tier1_chain(sys: System, device, lanes: int, repair_iters: int,
                 repair_buffer: int | None, woodbury_k: int, hinted: bool):
     """The graph chain of the screened evaluator's tier-1 pass over
-    ``lanes`` lanes (``runtime/graphs.py``), or ``graphs.EAGER``: a chain
-    only on a CUDA device, at m <= 72 (as ``lp_ipm_structured.lp_chain``:
-    there the LP tier reads nothing on the host and the host's launches
-    pace the step) and while no capture is under way (``_finalize``'s
-    pass runs inside the LP tier's own graph). The key names every
-    option that fixes the pass's shapes and work; the chain keeps
-    ``sys``, whose identity the key names."""
-    dev = torch.device(device)
-    if (dev.type != "cuda"
-            or sys.n_bus + sys.n_branch > lp_ipm_batched._PALLAS_MAX_M
-            or torch.cuda.is_current_stream_capturing()):
-        return graphs.EAGER
-    key = (id(sys), dev, lanes, repair_iters, repair_buffer, woodbury_k,
-           hinted)
-    return _tier1_chains.get(key, lambda: graphs.Chain(dev, "tier1", sys))
+    ``lanes`` lanes (``runtime/graphs.py``), or ``graphs.EAGER``, by
+    ``graphs.chain_for``'s rule with the LP route of ``sys`` (graphs at m
+    <= 72, where the LP tier reads nothing on the host and the host's
+    launches pace the step) and no lane cap. The key names every option
+    that fixes the pass's shapes and work; the chain keeps ``sys``, whose
+    identity the key names."""
+    key = (id(sys), repair_iters, repair_buffer, woodbury_k, hinted)
+    route = lp_ipm_batched.lp_route(sys.n_bus + sys.n_branch)
+    return graphs.chain_for(_tier1_chains, key, device, "tier1",
+                            route.graphs, lanes, keep=sys)
 
 
 @traced("tier1.certify")
@@ -738,13 +733,14 @@ def default_finish_buffer(batch: int, hinted: bool = False) -> int:
 
 def default_pf_buffer(sys: System, batch: int) -> int | None:
     """Tier-1.5 (:func:`certify_island_pf`) buffer policy; mirrors
-    reference ``engines/dcopf.py::default_pf_buffer``: on only past the
-    mid-m LP path (m > 336), where one LP lane costs milliseconds and the
-    tier-1 misses are mostly deep multi-branch and islanding states that
-    the island certificate closes (84% of them at case300s,
-    results/r4_miss.json), with ``min(batch, 256)`` lanes. None below,
-    where a miss is cheap to solve."""
-    if sys.n_bus + sys.n_branch <= lp_ipm_batched._BLOCKED_MAX_M:
+    reference ``engines/dcopf.py::default_pf_buffer``: on only where the
+    LP route says (``island_pf``: the large route, m > 336), where one LP
+    lane costs milliseconds and the tier-1 misses are mostly deep
+    multi-branch and islanding states that the island certificate closes
+    (84% of them at case300s, results/r4_miss.json), with ``min(batch,
+    256)`` lanes. None on the other routes, where a miss is cheap to
+    solve."""
+    if not lp_ipm_batched.lp_route(sys.n_bus + sys.n_branch).island_pf:
         return None
     return min(batch, 256)
 
@@ -1031,34 +1027,32 @@ def copper_sheet_bound(sys: System, comp_down: torch.Tensor,
 def _solve_batch(sys: System, comp_down, load_pu, compat: CompatFlags,
                  ipm: IPMConfig, valid=None):
     """LP tier on every lane; mirrors reference
-    ``engines/dcopf.py::_solve_batch`` (any batch size, no padding): m <=
-    72 takes the structured route (K1 + polish); m > 336 with
-    ``ipm.structured_gram`` the structured operator
-    (:func:`make_dc_linops`) through ``solve_box_lp_ops`` (block-Schur
-    bulk pass on K2a and K3, then the rescue ladder); otherwise the
-    materialized-A solver ``solve_box_lp_batched`` (blocked Cholesky, K2
-    + K3, at 72 < m <= 336, then the rescue of every lane of ``valid``
-    past the guard). Returns (shed, pg, quality)."""
+    ``engines/dcopf.py::_solve_batch`` (any batch size, no padding), by
+    the LP's route (``lp_ipm_batched.lp_route``): structured, K1 and the
+    polish on the shared structure; blocked, the materialized-A solver
+    ``solve_box_lp_batched`` (blocked Cholesky, K2 + K3, then the rescue
+    of every lane of ``valid`` past the guard); large, the structured
+    operator (:func:`make_dc_linops`) through ``solve_box_lp_ops``
+    (block-Schur bulk pass on K2a and K3, then the rescue ladder).
+    Returns (shed, pg, quality)."""
     ng, nd, nl = sys.n_gen, sys.n_load, sys.n_branch
     n_vars = ng + nd + nl + sys.n_bus
-    structured = sys.n_bus + nl <= lp_ipm_batched._PALLAS_MAX_M
-    large_ops = (not structured and ipm.structured_gram
-                 and sys.n_bus + nl > lp_ipm_batched._BLOCKED_MAX_M)
+    route = lp_ipm_batched.lp_route(sys.n_bus + nl)
     with span("lp.build"):
         up = 1.0 - comp_down.to(_fdt(sys))
         gen_up, br_up = up[:, :ng], up[:, ng:ng + nl].contiguous()
-        if structured or large_ops:
-            c, b, l, u, colscale = build_state_lp_vectors(
-                sys, gen_up, br_up, load_pu, compat, ipm.theta_max)
-        else:
+        if route is lp_ipm_batched.BLOCKED:
             c, A, b, l, u = build_state_lp(sys, gen_up, br_up, load_pu,
                                            compat, ipm.theta_max)
-        if large_ops:
+        else:
+            c, b, l, u, colscale = build_state_lp_vectors(
+                sys, gen_up, br_up, load_pu, compat, ipm.theta_max)
+        if route is lp_ipm_batched.LARGE:
             lops = make_dc_linops(sys, colscale[:, :ng], br_up)
-    if structured:
+    if route is lp_ipm_batched.STRUCTURED:
         sol = lp_ipm_structured.solve_box_lp_structured(
             build_structure(sys), colscale, br_up, c, b, l, u, ipm)
-    elif large_ops:
+    elif route is lp_ipm_batched.LARGE:
         sol = lp_ipm_batched.solve_box_lp_ops(c, b, l, u, lops, ipm)
     else:
         sol = lp_ipm_batched.solve_box_lp_batched(c, A, b, l, u, ipm,
@@ -1074,7 +1068,8 @@ def _finalize(sys: System, compat: CompatFlags, shed, pg, res, comp_down,
     """Certificate override, quality guard and noise floors; mirrors
     reference ``engines/dcopf.py::_finalize``, as the segment
     :func:`_finalize_lanes` (a CUDA graph where
-    ``lp_ipm_structured.lp_chain`` gives one: the card, m <= 72). The
+    ``lp_ipm_structured.lp_chain`` gives one: the card, the structured
+    route). The
     counter ``lp.guard_fallback`` takes the lanes the guard sends back to
     the certificate's bound among ``valid`` ([B] bool: a padded buffer's
     real lanes; None: every lane)."""

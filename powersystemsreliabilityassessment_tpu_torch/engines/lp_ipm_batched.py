@@ -1,4 +1,4 @@
-"""Batched box-LP interior-point solver and the LP kernel routes.
+"""Batched box-LP interior-point solver and the LP routes.
 
 Port of ``powersystemsreliabilityassessment_tpu/engines/lp_ipm_batched.py``,
 all of it: ``LPBatchSolution``, ``_pos``, ``_merge_lanes``,
@@ -6,9 +6,11 @@ all of it: ``LPBatchSolution``, ``_pos``, ``_merge_lanes``,
 with its block-Schur fields and ``take``, ``dense_linops``,
 ``solve_box_lp_batched``, ``solve_box_lp_ops`` with the large-m warm
 restarts, compacted rescue ladder and escalation) and the backend choice
-``_make_chol_ops``. The reference picks its backend in several places
-(``on_tpu`` branches here and in ``dcopf._solve_batch``); the port has
-one place, :func:`lp_kernels`, that every LP caller reads.
+``_make_chol_ops``. The reference decides by the LP's row count m in
+several places (``on_tpu`` and m branches here, in ``dcopf`` and in the
+studies); the port decides once, in the route table (:class:`LPRoute`,
+:func:`lp_route`; ``_make_chol_ops`` is its ``kernels``), which every LP
+caller reads.
 
 The reference's ``jax.lax.cond`` gates of the large-m ladder (run a
 stage only while some lane's quality score exceeds ``escalate_tol``)
@@ -18,7 +20,7 @@ iteration.
 """
 from __future__ import annotations
 
-import dataclasses
+from contextlib import nullcontext
 from typing import Callable, NamedTuple
 
 import torch
@@ -77,14 +79,58 @@ class LPKernels(NamedTuple):
     iterate: Callable | None  # fused Mehrotra loop (ops/ipm_fused.py), m <= 72
 
 
-# Largest m of the fused and direct batched-Cholesky kernels (reference
-# _PALLAS_MAX_M = _FUSED_MAX_M = 72: a TPU VMEM budget, not yet measured
-# again on the H100 — PERF.md, Open questions), and of the blocked
-# Cholesky (reference _BLOCKED_MAX_M = 336, a TPU crossover).
-_PALLAS_MAX_M = bc.MAX_M
-_BLOCKED_MAX_M = 336
+class LPRoute(NamedTuple):
+    """How the port solves an LP of m rows: everything that depends on m,
+    one value per route (:data:`STRUCTURED`, :data:`BLOCKED`,
+    :data:`LARGE`), chosen by :func:`lp_route`."""
+    name: str
+    max_m: int | None   # the route's largest m; None: no bound
+    graphs: bool        # the LP tier's and tier 1's small-op chains may
+    #                     run as CUDA graphs on the card (runtime/graphs)
+    rescue: str         # after the pass: "warm" (lp_ipm_structured.
+    #                     _warm_rescue), "flagged" (_rescue_flagged),
+    #                     "ladder" (_rescue, restarts and escalation)
+    island_pf: bool     # tier 1.5 runs (dcopf.default_pf_buffer)
+    seq_block_lanes: int | None  # SEQ LP lanes a year block
+    #                     (hl2_seq.seq_lp_cap); None: the whole year
 
-# m <= 72, device type -> kernels: on CUDA the hand-written K1 fused IPM
+    def kernels(self, device) -> LPKernels:
+        """The route's kernels on ``device``, read from the module's
+        tables at each call (a caller may swap an entry after import)."""
+        if self is not STRUCTURED:
+            return _BLOCKED_KERNELS if self is BLOCKED else _LARGE_KERNELS
+        dev = torch.device(device).type
+        if dev not in _DIRECT_KERNELS:
+            raise NotImplementedError(f"no LP kernels for device {device}")
+        return _DIRECT_KERNELS[dev]
+
+
+# m <= 72 (the fused and direct batched-Cholesky kernels' range; reference
+# _PALLAS_MAX_M = _FUSED_MAX_M = 72, a TPU VMEM budget not yet measured
+# again on the H100, PERF.md Open questions): K1 on the shared LP
+# structure, the polish, the warm rescue of the 16 worst lanes.
+STRUCTURED = LPRoute("structured", bc.MAX_M, graphs=True, rescue="warm",
+                     island_pf=False, seq_block_lanes=None)
+# 72 < m <= 336 (the blocked factor's range): the blocked Cholesky on the
+# materialized A, then the rescue of every lane past the guard.
+BLOCKED = LPRoute("blocked", blocked_chol.MAX_M, graphs=False,
+                  rescue="flagged", island_pf=False, seq_block_lanes=None)
+# m > 336 (case300s): the block-Schur pass on the structured operator,
+# the rescue ladder and escalation; tier 1.5 first, where one LP lane
+# costs milliseconds. A SEQ step holds 4,096 LP lanes a block: on an 80 GB
+# H100 a case300s step at 4,096 lanes peaks at 26.2 GB at Y = 2 and 26.3
+# GB at Y = 4 (chip_smoke.py seq300full, scripts/torch_seq300_step.py).
+LARGE = LPRoute("large", None, graphs=False, rescue="ladder",
+                island_pf=True, seq_block_lanes=4096)
+
+
+def lp_route(m: int) -> LPRoute:
+    """The route of an LP of ``m`` rows: the first whose range holds m."""
+    return next(r for r in (STRUCTURED, BLOCKED, LARGE)
+                if r.max_m is None or m <= r.max_m)
+
+
+# STRUCTURED, device type -> kernels: on CUDA the hand-written K1 fused IPM
 # and K2 batched Cholesky, on the CPU their plain PyTorch versions.
 _DIRECT_KERNELS = {
     "cuda": LPKernels(bc.cholesky, bc.cho_solve,
@@ -92,7 +138,7 @@ _DIRECT_KERNELS = {
     "cpu": LPKernels(bc.cholesky_plain, bc.cho_solve_plain,
                      ipm_fused.fused_ipm_iterations_plain),
 }
-# 72 < m <= 336, any device: the panel-blocked Cholesky of
+# BLOCKED, any device: the panel-blocked Cholesky of
 # ops/blocked_chol.py, whose K2 and K3 wrappers launch the kernels on
 # CUDA tensors and run the plain versions on CPU tensors. This differs on
 # purpose from the reference's CPU route, which takes jnp.linalg.cholesky
@@ -132,30 +178,11 @@ def _large_solve(LM, r: torch.Tensor) -> torch.Tensor:
     return dy
 
 
-# m > 336, any device: the dense factor (cuSOLVER on the card), used by
-# the rescue ladder's sub-solves and by large_m_schur=False. The
-# block-Schur bulk pass of solve_box_lp_ops runs K2a and K3 instead
+# LARGE, any device: the dense factor (cuSOLVER on the card), used by a
+# dense operator's pass and by every rescue-ladder sub-solve. The
+# block-Schur pass of a structured operator runs K2a and K3 instead
 # (ops/blocked_chol.explicit_spd_inv).
 _LARGE_KERNELS = LPKernels(_large_factor, _large_solve, None)
-
-
-def lp_kernels(device: torch.device, m: int) -> LPKernels:
-    """The LP kernels for ``device`` and row count ``m``."""
-    if m > _BLOCKED_MAX_M:
-        return _LARGE_KERNELS
-    if m > _PALLAS_MAX_M:
-        return _BLOCKED_KERNELS
-    dev = torch.device(device).type
-    if dev not in _DIRECT_KERNELS:
-        raise NotImplementedError(f"no LP kernels for device {device}")
-    return _DIRECT_KERNELS[dev]
-
-
-def _make_chol_ops(device: torch.device, m: int):
-    """(factor, solve) for ``device`` and ``m``; mirrors reference
-    ``lp_ipm_batched.py::_make_chol_ops`` through :func:`lp_kernels`."""
-    k = lp_kernels(device, m)
-    return k.factor, k.solve
 
 
 def _bdot(p, q):
@@ -220,8 +247,8 @@ def polish_box_lp(state, c, b, l, u, cfg: IPMConfig, mv_fn, mtv_fn,
     ``gram_fn(w) -> A diag(w) A'``; ``schur``, a ``(schur_factor,
     schur_solve)`` pair, takes the block-Schur route for the m x m
     solves (:func:`_schur_solvers`) in place of the dense factor;
-    ``kernels`` (an :class:`LPKernels`) replaces :func:`lp_kernels`'s
-    route for m (None: that route). Steps:
+    ``kernels`` (an :class:`LPKernels`; None: those of m's route) factor
+    and solve them otherwise. Steps:
     best-iterate selection, projection onto Ax = b, a Woodbury crossover
     snap toward the active bounds kept only when it does not worsen
     feasibility or objective, and the final residual and duality-gap
@@ -236,8 +263,7 @@ def polish_box_lp(state, c, b, l, u, cfg: IPMConfig, mv_fn, mtv_fn,
                                          cfg.regularization)
         chol_aat = nfactor(torch.ones_like(x))
     else:
-        factor, chol_solve = (_make_chol_ops(x.device, m) if kernels is None
-                              else kernels[:2])
+        factor, chol_solve = (kernels or lp_route(m).kernels(x.device))[:2]
 
         def fsolve(chol_s, rhs):
             return _eq_solve(chol_solve, chol_s, rhs)
@@ -362,53 +388,90 @@ def _gate(score: torch.Tensor, tol: float) -> bool:
 
 
 def solve_box_lp_ops(c, b, l, u, ops: LinOps, cfg: IPMConfig = IPMConfig(),
-                     x_init=None, valid=None,
-                     kernels=None) -> LPBatchSolution:
-    """Batched Mehrotra IPM over a constraint operator, then the polish;
-    mirrors reference ``engines/lp_ipm_batched.py::solve_box_lp_ops``.
+                     x_init=None, valid=None) -> LPBatchSolution:
+    """Batched Mehrotra IPM over a constraint operator, then the polish,
+    then the rescue of m's route (:func:`lp_route`); mirrors reference
+    ``engines/lp_ipm_batched.py::solve_box_lp_ops``.
 
-    One pass: the box-midpoint start (or ``x_init``, strictly inside the
-    box), ``cfg.iterations`` predictor-corrector steps (damped pure
-    centering once mu < ``center_tol``), per-lane freezing at ``mu_tol``
-    or on a non-finite step, best-iterate tracking and
-    :func:`polish_box_lp`. Every normal matrix goes through
-    :func:`_make_chol_ops` (blocked Cholesky at 72 < m <= 336, the dense
-    ``xla_chol`` factor above; ``kernels`` replaces that route), or, at
-    m > 336 when ``ops`` has the
-    block-Schur fields and ``cfg.large_m_schur``, through
-    :func:`_schur_solvers` (two [B, nb, nb] explicit inverses on K2a and
-    K3).
+    The pass (:func:`_ipm`) starts at the box midpoint (or ``x_init``,
+    strictly inside the box). Its normal matrices go through the route's
+    kernels, or, on the large route when ``ops`` has the block-Schur
+    fields, through :func:`_schur_solvers` (two [B, nb, nb] explicit
+    inverses on K2a and K3).
 
-    At m > 336 the rescue ladder follows the pass (``cfg.restarts``,
-    None = 1 there): the ``restart_compact`` worst lanes by quality score
-    are solved again, on the dense factor, through the stages of
-    ``cfg.rescue_stages`` (warm 2%, cold, two warm 1e-3 restorations),
-    each stage run only while some lane's best score exceeds
-    ``escalate_tol``, and merged back lane by lane (:func:`_merge_lanes`);
-    with ``restart_compact`` 0, full-buffer warm restarts instead. Then up
-    to ``escalate_passes`` full-buffer warm passes (insets 0.05, 0.1),
-    each run only while a lane still exceeds ``escalate_tol``. The gates
-    read their flag on the host (:func:`_gate`).
+    After the pass, ``cfg.restarts`` (None: 1 on the large route, else 0)
+    full-length warm passes from the polished solution, 2% inside the
+    box, merged lane by lane (:func:`_merge_lanes`). Then the route's
+    rescue:
 
-    At 72 < m <= 336 with ``kernels`` None (the ladder's own sub-solves
-    pass theirs), every lane past ``escalate_tol`` after the pass goes
-    through the same ladder, on the dense factor
-    (:func:`_rescue_flagged`), however many there are;
-    ``valid`` ([B] bool, a padded buffer's real lanes; None: every lane)
-    limits it to the lanes whose answers are kept. This differs on purpose
-    from the reference, which rescues nothing at this route (ROADMAP.md
-    Queue 3, fault G).
+    * ``"ladder"`` (m > 336): the compacted rescue ladder (:func:`_rescue`)
+      on the ``restart_compact`` worst lanes by quality score replaces
+      the restarts (``restart_compact`` 0 keeps them), run only while some
+      lane's score exceeds ``escalate_tol``; then up to
+      ``escalate_passes`` full-buffer warm passes (insets 0.05, 0.1), each
+      run only while a lane still exceeds it. The gates read their flag
+      on the host (:func:`_gate`).
+    * ``"flagged"`` (72 < m <= 336): every lane past ``escalate_tol``
+      goes through the same ladder, however many there are
+      (:func:`_rescue_flagged`); ``valid`` ([B] bool, a padded buffer's
+      real lanes; None: every lane) limits it to the lanes whose answers
+      are kept. This differs on purpose from the reference, which
+      rescues nothing at this route (ROADMAP.md Queue 3, fault G). Only
+      this route opens the ``psra.lp.pass`` span around the pass.
+    * the structured route's warm K1 rescue belongs to its own solver
+      (``lp_ipm_structured``); here m <= 72 (dense operators: the
+      multi-area LP, the tests) runs the pass alone.
     """
-    B, n = c.shape
-    m = b.shape[1]
-    large = m > _BLOCKED_MAX_M
-    rescue_all = kernels is None and _PALLAS_MAX_M < m <= _BLOCKED_MAX_M
-    use_schur = ops.schur_factor is not None and large and cfg.large_m_schur
+    route = lp_route(b.shape[1])
+    ladder = route.rescue == "ladder"
+    schur = ladder and ops.schur_factor is not None
+    run = _ipm(c, b, l, u, ops, cfg,
+               None if schur else route.kernels(c.device), cfg.iterations)
+    x0 = 0.5 * (l + u) if x_init is None else x_init
+    with span("lp.pass") if route.rescue == "flagged" else nullcontext():
+        sol = run(x0)
     width = u - l
-    margin = 1e-9 * _pos(width)
+
+    def inset(xv, frac):
+        return torch.clamp(xv, l + frac * width, u - frac * width)
+
+    n_restarts = int(ladder) if cfg.restarts is None else cfg.restarts
+    # A buffer no larger than restart_compact takes the whole-buffer
+    # "compacted" restart: a full restart, but through the dense rescue
+    # sub-solve, which must not share the Schur bulk pass's failure mode.
+    k = min(cfg.restart_compact, c.shape[0])
+    if ladder and n_restarts > 0 and k > 0:
+        score = _quality(sol)
+        if _gate(score, cfg.escalate_tol):
+            sol = _rescue(c, b, l, u, ops, cfg, sol, score, k)
+        n_restarts = 0   # the rescue ladder replaces the full restarts
+    for _ in range(n_restarts):
+        sol = _merge_lanes(run(inset(sol.x, 0.02)), sol)
+    # Escalation: further warm passes, deeper inside the box each time,
+    # while some lane stays past the evaluator's trust tolerance.
+    for i in range(cfg.escalate_passes if ladder else 0):
+        if not _gate(_quality(sol), cfg.escalate_tol):
+            break
+        sol = _merge_lanes(run(inset(sol.x, (0.05, 0.1)[min(i, 1)])), sol)
+    if route.rescue == "flagged":
+        sol = _rescue_flagged(c, b, l, u, ops, cfg, sol, valid)
+    return sol
+
+
+def _ipm(c, b, l, u, ops: LinOps, cfg: IPMConfig, kernels: LPKernels | None,
+         iterations: int) -> Callable[[torch.Tensor], LPBatchSolution]:
+    """One pass of the IPM as a function of its start point x (strictly
+    inside the box): ``iterations`` predictor-corrector steps (damped pure
+    centering once mu < ``cfg.center_tol``), per-lane freezing at
+    ``cfg.mu_tol`` or on a non-finite step, best-iterate tracking and
+    :func:`polish_box_lp`. ``kernels`` factor and solve every normal
+    matrix; None takes the block-Schur solve of ``ops``
+    (:func:`_schur_solvers`) instead."""
+    B, n = c.shape
+    margin = 1e-9 * _pos(u - l)
     tau = cfg.tau
 
-    if use_schur:
+    if kernels is None:
         s_factor, nsolve = _schur_solvers(
             ops.mv, ops.mtv, ops.schur_factor, ops.schur_solve,
             cfg.regularization)
@@ -416,8 +479,7 @@ def solve_box_lp_ops(c, b, l, u, ops: LinOps, cfg: IPMConfig = IPMConfig(),
         def nfactor(d):
             return s_factor(1.0 / d)
     else:
-        factor, chol_solve = (_make_chol_ops(c.device, m) if kernels is None
-                              else kernels[:2])
+        factor, chol_solve = kernels[:2]
 
         def nfactor(d):
             return _equilibrated_factor(factor, ops.normal(d),
@@ -455,7 +517,7 @@ def solve_box_lp_ops(c, b, l, u, ops: LinOps, cfg: IPMConfig = IPMConfig(),
         best_score = torch.full((B,), float("inf"), dtype=c.dtype,
                                 device=c.device)
         best_x = x
-        for _ in range(cfg.iterations):
+        for _ in range(iterations):
             sl = _pos(x - l)
             su = _pos(u - x)
             rp = b - ops.mv(x)
@@ -507,51 +569,20 @@ def solve_box_lp_ops(c, b, l, u, ops: LinOps, cfg: IPMConfig = IPMConfig(),
         return polish_box_lp(
             (x, y, zl, zu, best_score, best_x), c, b, l, u, cfg,
             mv_fn=ops.mv, mtv_fn=ops.mtv, gram_fn=ops.gram,
-            schur=((ops.schur_factor, ops.schur_solve) if use_schur
+            schur=((ops.schur_factor, ops.schur_solve) if kernels is None
                    else None), kernels=kernels)
 
-    def inset(xv, frac):
-        return torch.clamp(xv, l + frac * width, u - frac * width)
-
-    x0 = 0.5 * (l + u) if x_init is None else x_init
-    if rescue_all:
-        with span("lp.pass"):
-            sol = one_pass(x0)
-    else:
-        sol = one_pass(x0)
-    n_restarts = (cfg.restarts if cfg.restarts is not None
-                  else (1 if large else 0))
-    # A buffer no larger than restart_compact takes the whole-buffer
-    # "compacted" restart: a full restart, but through the dense rescue
-    # sub-solve, which must not share the Schur bulk pass's failure mode.
-    k = min(cfg.restart_compact, B)
-    if n_restarts > 0 and large and k > 0:
-        score = _quality(sol)
-        if _gate(score, cfg.escalate_tol):
-            sol = _rescue(c, b, l, u, ops, cfg, sol, score, k)
-        n_restarts = 0   # the rescue ladder replaces the full restarts
-    for _ in range(n_restarts):
-        # A full-length warm pass from the polished solution, 2% inside
-        # the box with fresh duals, merged lane by lane.
-        sol = _merge_lanes(one_pass(inset(sol.x, 0.02)), sol)
-    # Escalation: further warm passes, deeper inside the box each time,
-    # while some lane stays past the evaluator's trust tolerance.
-    for i in range(cfg.escalate_passes if large else 0):
-        if not _gate(_quality(sol), cfg.escalate_tol):
-            break
-        sol = _merge_lanes(one_pass(inset(sol.x, (0.05, 0.1)[min(i, 1)])),
-                           sol)
-    if rescue_all:
-        sol = _rescue_flagged(c, b, l, u, ops, cfg, sol, valid)
-    return sol
+    return one_pass
 
 
 def _rescue(c, b, l, u, ops: LinOps, cfg: IPMConfig, sol: LPBatchSolution,
             score: torch.Tensor, k: int, flagged=None) -> LPBatchSolution:
     """The compacted rescue ladder of reference ``solve_box_lp_ops``
     (``run_rescue``): the ``k`` worst lanes by ``score`` are solved again
-    on the dense factor (no Schur, no restarts or escalation of their
-    own), through ``cfg.rescue_stages``. A float stage is a warm
+    by passes of :func:`_ipm` on the dense factor (``_LARGE_KERNELS``; no
+    Schur, no restarts or escalation of their own) of
+    ``cfg.rescue_iterations`` (None: ``cfg.iterations``) iterations,
+    through ``cfg.rescue_stages``. A float stage is a warm
     sub-solve from the trajectory point clipped that fraction of the box
     width inside (its result is the next stage's start); None is the cold
     side branch from the box midpoint, which feeds only the merge. Each
@@ -560,12 +591,6 @@ def _rescue(c, b, l, u, ops: LinOps, cfg: IPMConfig, sol: LPBatchSolution,
     and go back into the buffer through the same merge. ``flagged`` ([B]
     bool, or None for every lane) names the lanes whose scores the stage
     gates read."""
-    sub_cfg = dataclasses.replace(
-        cfg, restart_compact=0, large_m_schur=False, restarts=0,
-        escalate_passes=0,
-        iterations=(cfg.rescue_iterations
-                    if cfg.rescue_iterations is not None
-                    else cfg.iterations))
     idx = torch.topk(score, k).indices
     li, ui = l[idx], u[idx]
     wid = ui - li
@@ -574,6 +599,9 @@ def _rescue(c, b, l, u, ops: LinOps, cfg: IPMConfig, sol: LPBatchSolution,
     best = LPBatchSolution(*(t[idx] for t in sol))
     probe_x = best.x
     gated = None if flagged is None else flagged[idx]
+    run = _ipm(cs, bs, li, ui, sub_ops, cfg, _LARGE_KERNELS,
+               cfg.iterations if cfg.rescue_iterations is None
+               else cfg.rescue_iterations)
     for frac in cfg.rescue_stages:
         q = _quality(best)
         if not _gate(q if gated is None else torch.where(gated, q, 0.0),
@@ -581,8 +609,7 @@ def _rescue(c, b, l, u, ops: LinOps, cfg: IPMConfig, sol: LPBatchSolution,
             break
         x0 = (0.5 * (li + ui) if frac is None
               else torch.clamp(probe_x, li + frac * wid, ui - frac * wid))
-        s = solve_box_lp_ops(cs, bs, li, ui, sub_ops, sub_cfg, x_init=x0,
-                             kernels=_LARGE_KERNELS)
+        s = run(x0)
         if frac is not None:
             probe_x = s.x
         best = _merge_lanes(s, best)

@@ -2,8 +2,8 @@
 
 Port of ``powersystemsreliabilityassessment_tpu/engines/lp_ipm_structured.py``.
 The Mehrotra loop runs in the fused K1 kernel (``ops/ipm_fused.py``) on
-CUDA, or its plain PyTorch version on the CPU, as
-``lp_ipm_batched.lp_kernels`` routes it; the polish is the shared
+CUDA, or its plain PyTorch version on the CPU, as the structured route
+(``lp_ipm_batched.STRUCTURED``) gives it; the polish is the shared
 ``lp_ipm_batched.polish_box_lp`` with every A-product computed from the
 shared LP structure instead of a materialized [B, m, n] tensor.
 
@@ -27,7 +27,7 @@ from typing import NamedTuple
 import torch
 
 from powersystemsreliabilityassessment_tpu_torch.engines.lp_ipm_batched import (
-    _PALLAS_MAX_M, LPBatchSolution, _merge_lanes, _quality, lp_kernels,
+    STRUCTURED, LPBatchSolution, _merge_lanes, _quality, lp_route,
     polish_box_lp)
 from powersystemsreliabilityassessment_tpu_torch.ops import batched_chol
 # The structured A-products live beside the K1 kernel, whose plain
@@ -71,16 +71,13 @@ _chains = graphs.ChainCache(GRAPH_CHAINS)
 
 def lp_chain(key: tuple, device, m: int, lanes: int, keep):
     """The graph chain of ``key`` for an LP buffer of ``lanes`` lanes and
-    ``m`` rows on ``device``, or ``graphs.EAGER``: a chain only on a CUDA
-    device, at m <= 72 (the structured route), at most
-    ``GRAPH_MAX_LANES`` lanes and while no capture is under way. ``keep``
-    holds what ``key`` names by identity."""
-    dev = torch.device(device)
-    if (dev.type != "cuda" or m > _PALLAS_MAX_M or lanes > GRAPH_MAX_LANES
-            or torch.cuda.is_current_stream_capturing()):
-        return graphs.EAGER
-    return _chains.get((key, dev, lanes), lambda: graphs.Chain(
-        dev, "lp", keep, (batched_chol.launches,)))
+    ``m`` rows on ``device``, or ``graphs.EAGER``, by
+    ``graphs.chain_for``'s rule with m's route and at most
+    ``GRAPH_MAX_LANES`` lanes. ``keep`` holds what ``key`` names by
+    identity."""
+    return graphs.chain_for(_chains, key, device, "lp", lp_route(m).graphs,
+                            lanes, GRAPH_MAX_LANES, keep,
+                            (batched_chol.launches,))
 
 
 class _Pick(NamedTuple):
@@ -119,7 +116,7 @@ def solve_box_lp_structured(st: LPStructure, colscale, br_up, c, b, l, u,
     the segment :func:`_polish_and_pick` (a CUDA graph where
     :func:`lp_chain` gives one)."""
     lanes = (colscale, br_up, c, b, l, u)
-    iterate = lp_kernels(c.device, st.m).iterate
+    iterate = STRUCTURED.kernels(c.device).iterate
     fracs = [f for f in cfg.rescue_stages if f is not None]
     k = min(RESCUE_LANES, c.shape[0]) if fracs else 0
     chain = lp_chain(("solve", id(st), cfg, k), c.device, st.m, c.shape[0],

@@ -37,6 +37,11 @@ from powersystemsreliabilityassessment_tpu_torch.utils.profiling import span
 # RTS-96's m = 191 splits 56 + 56 + 56 + 23). The kernels take P <= 64.
 PANEL = 56
 MAX_P = 64
+# Largest m the blocked factor serves (reference _BLOCKED_MAX_M = 336, a
+# TPU crossover): the LP route of 72 < m <= 336
+# (engines/lp_ipm_batched.lp_route) and the explicit inverses of
+# ops/xla_chol.inv_spd_equilibrated. Past it the dense factor takes over.
+MAX_M = 336
 
 # Relative diagonal lift of each panel's Schur complement, removed from
 # the solution by REFINE_STEPS refinement steps against the unlifted M

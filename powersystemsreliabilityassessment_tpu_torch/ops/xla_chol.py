@@ -19,10 +19,11 @@ an NVIDIA H100 80GB HBM3 at 700 W one block factors 32 lanes of m = 792
 (``scripts/torch_xla_chol_bench.py``, which keeps the panel variant).
 
 ``inv_spd_equilibrated`` takes ``ops/blocked_chol.explicit_spd_inv`` (K2a
-and K3) for m <= 336 on any device and any batch: the reference takes it
-only on a TPU at a batch that is a multiple of 128, since the port's
-kernels take any batch. A non-positive-definite block gives NaN, as the
-reference's ``jnp.linalg.cholesky`` does, so the IPM freezes that lane.
+and K3) for m <= ``blocked_chol.MAX_M`` (336) on any device and any
+batch: the reference takes it only on a TPU at a batch that is a
+multiple of 128, since the port's kernels take any batch. A
+non-positive-definite block gives NaN, as the reference's
+``jnp.linalg.cholesky`` does, so the IPM freezes that lane.
 
 ``chol`` and ``cho_solve`` are the factor and the two triangular
 substitutions the large-m LP's dense solves take on this port in place
@@ -33,10 +34,6 @@ from __future__ import annotations
 import torch
 
 from powersystemsreliabilityassessment_tpu_torch.ops import blocked_chol
-
-# Largest m whose explicit inverse goes through the blocked K2a / K3
-# route (reference lp_ipm_batched._BLOCKED_MAX_M).
-BLOCKED_MAX_M = 336
 
 
 def chol(A: torch.Tensor) -> torch.Tensor:
@@ -76,15 +73,16 @@ def inv_spd_equilibrated(M: torch.Tensor, delta: float = 1e-6
     """Explicit [B, m, m] approximation of (M + delta diag(M))^-1: M is
     scaled to a unit diagonal, ridged by ``delta`` I, inverted and scaled
     back. Mirrors reference ``xla_chol.py::inv_spd_equilibrated``; the
-    route for m <= 336 is ``blocked_chol.explicit_spd_inv`` (K2a and K3
-    on the card, their plain versions on the CPU) at any batch, else
-    :func:`factor`. The callers refine against the true operator."""
+    route for m <= ``blocked_chol.MAX_M`` is
+    ``blocked_chol.explicit_spd_inv`` (K2a and K3 on the card, their plain
+    versions on the CPU) at any batch, else :func:`factor`. The callers
+    refine against the true operator."""
     m = M.shape[-1]
     s = torch.rsqrt(torch.clamp_min(torch.diagonal(M, dim1=1, dim2=2),
                                     1e-30))
     eye = torch.eye(m, dtype=M.dtype, device=M.device)
     Ms = (M * s[:, :, None] * s[:, None, :] + delta * eye).contiguous()
-    if m <= BLOCKED_MAX_M:
+    if m <= blocked_chol.MAX_M:
         Minv_s = blocked_chol.explicit_spd_inv(Ms)
     else:
         Linv = factor(Ms)

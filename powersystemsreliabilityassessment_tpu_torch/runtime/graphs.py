@@ -18,9 +18,10 @@ graph's static outputs, which the next replay overwrites: the caller
 takes :meth:`Chain.fresh` copies of whatever it hands on.
 
 :data:`EAGER` has the same interface and runs each segment as a plain
-call, so one code path serves both. The caller picks one or the other
-(``engines/lp_ipm_structured.lp_chain``, ``engines/dcopf.tier1_chain``)
-and keys the chains in a bounded :class:`ChainCache`.
+call, so one code path serves both. :func:`chain_for` is the one rule
+that picks one or the other; each layer (``engines/lp_ipm_structured.
+lp_chain``, ``engines/dcopf.tier1_chain``) hands it its own bounded
+:class:`ChainCache`, its key and its lane cap.
 """
 from __future__ import annotations
 
@@ -172,3 +173,23 @@ class ChainCache:
 
     def __contains__(self, key) -> bool:
         return key in self._chains
+
+
+def chain_for(cache: ChainCache, key, device, layer: str, route_graphs: bool,
+              lanes: int, max_lanes: float = float("inf"), keep=(),
+              launches: tuple = ()):
+    """The chain of ``key`` for ``lanes`` lanes on ``device`` from
+    ``cache`` (made on first use: a :class:`Chain` of ``layer``, holding
+    ``keep`` and advancing ``launches``), or :data:`EAGER`. A chain only
+    where the LP route allows graphs (``route_graphs``:
+    ``engines/lp_ipm_batched.LPRoute.graphs``), on a CUDA device, at most
+    ``max_lanes`` lanes and while no capture is under way (a segment may
+    call a layer that asks for a chain of its own, as ``dcopf._finalize``'s
+    certificate pass does). The cache key is
+    ``(key, device, lanes)``: the same call hits it every time."""
+    dev = torch.device(device)
+    if (not route_graphs or dev.type != "cuda" or lanes > max_lanes
+            or torch.cuda.is_current_stream_capturing()):
+        return EAGER
+    return cache.get((key, dev, lanes),
+                     lambda: Chain(dev, layer, keep, launches))

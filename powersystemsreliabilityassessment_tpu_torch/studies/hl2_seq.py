@@ -50,7 +50,7 @@ from powersystemsreliabilityassessment_tpu_torch.core.cases import CaseData
 from powersystemsreliabilityassessment_tpu_torch.core.system import (
     System, build_system)
 from powersystemsreliabilityassessment_tpu_torch.engines import (
-    copper_sheet, copt, dcopf, planning)
+    copper_sheet, copt, dcopf, lp_ipm_batched, planning)
 from powersystemsreliabilityassessment_tpu_torch.models import twostate
 from powersystemsreliabilityassessment_tpu_torch.parallel import (
     mesh as meshlib)
@@ -324,19 +324,18 @@ def maintenance_down(case: CaseData, hours: int,
 
 def seq_lp_cap(m: int, hours: int, years_per_device: int) -> int:
     """Per-year LP-buffer ceiling of the chronological study; mirrors
-    reference ``studies/hl2_seq.py::seq_lp_cap``. Systems with m <= 336
-    may grow to the whole year. Larger ones hold 4,096 LP lanes a block
-    (4,096 / Y a year), where the reference holds 4,096 / Y^2 a year (its
-    envelope on a 15.75 GB chip): on an 80 GB H100 a case300s step at
-    4,096 lanes peaks at 26.2 GB at Y = 2 and 26.3 GB at Y = 4, within
-    half the card (chip_smoke.py seq300full,
-    scripts/torch_seq300_step.py), and the 256-year case300s record at
-    Y = 2 needs 2,291 LP lanes in one block, past the reference's 2,048.
-    Hours past the cap keep their certified deficit bounds and are
-    counted in ``overflow_hours``."""
-    if m <= 336:
+    reference ``studies/hl2_seq.py::seq_lp_cap``. A year may grow to all
+    its hours unless the LP route of m caps a block
+    (``lp_ipm_batched.LPRoute.seq_block_lanes``: 4,096 lanes on the large
+    route, m > 336), then ``seq_block_lanes / Y`` a year, at least 128;
+    the reference holds 4,096 / Y^2 a year (its envelope on a 15.75 GB
+    chip). The 256-year case300s record at Y = 2 needs 2,291 LP lanes in
+    one block, past the reference's 2,048. Hours past the cap keep their
+    certified deficit bounds and are counted in ``overflow_hours``."""
+    block = lp_ipm_batched.lp_route(m).seq_block_lanes
+    if block is None:
         return hours
-    return min(hours, max(128, 4096 // years_per_device))
+    return min(hours, max(128, block // years_per_device))
 
 
 def run_seq_study(case: CaseData, cfg: MCSConfig = MCSConfig(),

@@ -6,7 +6,9 @@ meanings are the reference's. The port carries the fields its ported
 code reads: the NSQ and SEQ studies with the NSQ samplers (antithetic,
 importance with its scopes, the cross-entropy proposal), the control
 variate, the enumeration hybrid and ``island_blackout``, and the large-m
-LP solver.
+LP solver. It leaves out the reference's ``IPMConfig.structured_gram``
+and ``large_m_schur``: at m > 336 the port always takes the structured
+operator and its block-Schur pass (``engines/lp_ipm_batched.lp_route``).
 """
 from __future__ import annotations
 
@@ -111,8 +113,8 @@ class IPMConfig:
     # Below this mu, damped pure-centering steps replace Mehrotra steps.
     center_tol: float = 1e-4
     # Extra polished warm-restart passes of the batched IPM (the stall
-    # rescue at large m; lp_ipm_batched.solve_box_lp_ops). None = 1 when m
-    # exceeds the blocked-Cholesky range (case300 scale), else 0.
+    # rescue at large m; lp_ipm_batched.solve_box_lp_ops). None = 1 on the
+    # large LP route (past the blocked Cholesky's range), else 0.
     restarts: int | None = None
     # Large-m only: after the restarts, up to this many further warm-
     # restart passes, each run only when some lane's quality score
@@ -136,12 +138,3 @@ class IPMConfig:
     # score exceeds escalate_tol: warm 2% (escapes step-length jams) ->
     # cold (escapes a wrong basin) -> two 1e-3 feasibility restorations.
     rescue_stages: tuple = (0.02, None, 1e-3, 1e-3)
-    # Large m: the structured constraint operator (dcopf.make_dc_linops),
-    # which assembles A diag(w) A' from the DC-OPF blocks without a
-    # [B, m, n] tensor. False materializes A.
-    structured_gram: bool = True
-    # Large m with the structured operator: the block-Schur normal solve
-    # (two [B, nb, nb] explicit inverses, Woodbury through the flow block
-    # and a Schur complement onto the balance block) in place of the
-    # [B, m, m] dense factor. False = the dense factor.
-    large_m_schur: bool = True

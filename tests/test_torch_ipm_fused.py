@@ -168,29 +168,54 @@ def test_plain_solver_matches_reference_full_iterations(setup):
     assert bool((got.x >= l - 1e-5).all()) and bool((got.x <= u + 1e-5).all())
 
 
-def test_lp_route_table():
-    k = lp_ipm_batched.lp_kernels(torch.device("cpu"), 62)
-    assert k.iterate is ipm_fused.fused_ipm_iterations_plain
-    assert lp_ipm_batched.lp_kernels(torch.device("cuda"), 62).iterate \
-        is ipm_fused.fused_ipm_iterations
+@pytest.mark.parametrize("m, route", [
+    (1, "STRUCTURED"), (62, "STRUCTURED"), (72, "STRUCTURED"),
+    (73, "BLOCKED"), (191, "BLOCKED"), (336, "BLOCKED"),
+    (337, "LARGE"), (792, "LARGE")])
+def test_lp_route_table(m, route):
+    got = lp_ipm_batched.lp_route(m)
+    assert got is getattr(lp_ipm_batched, route)
+    # Graphs only where K1 leaves the host to pace the step; tier 1.5
+    # and a SEQ block cap only past the blocked factor's range.
+    assert got.graphs == (route == "STRUCTURED")
+    assert got.island_pf == (route == "LARGE")
+    assert (got.seq_block_lanes is None) == (route != "LARGE")
+    assert got.rescue == {"STRUCTURED": "warm", "BLOCKED": "flagged",
+                          "LARGE": "ladder"}[route]
+
+
+@pytest.mark.parametrize("dev, m, factor, solve, iterate", [
+    ("cpu", 62, None, None, ipm_fused.fused_ipm_iterations_plain),
+    ("cuda", 62, None, None, ipm_fused.fused_ipm_iterations),
     # 72 < m <= 336: the blocked Cholesky on both devices (its K2 and K3
     # wrappers pick kernel or plain version by the tensor's device).
-    for dev in ("cpu", "cuda"):
-        k = lp_ipm_batched.lp_kernels(torch.device(dev), 73)
-        assert k.factor is blocked_chol.blocked_cholesky
-        assert k.solve is blocked_chol.blocked_cho_solve
-        assert k.iterate is None
-    assert lp_ipm_batched.lp_kernels(torch.device("cuda"), 336).factor \
-        is blocked_chol.blocked_cholesky
+    ("cpu", 73, blocked_chol.blocked_cholesky,
+     blocked_chol.blocked_cho_solve, None),
+    ("cuda", 73, blocked_chol.blocked_cholesky,
+     blocked_chol.blocked_cho_solve, None),
+    ("cuda", 336, blocked_chol.blocked_cholesky,
+     blocked_chol.blocked_cho_solve, None),
     # m > 336: the dense xla_chol factor with refinement, any device (the
     # block-Schur bulk pass of solve_box_lp_ops runs K2a / K3 instead).
-    for dev in ("cpu", "cuda"):
-        k = lp_ipm_batched.lp_kernels(torch.device(dev), 337)
-        assert k.factor is lp_ipm_batched._large_factor
-        assert k.solve is lp_ipm_batched._large_solve
-        assert k.iterate is None
+    ("cpu", 337, lp_ipm_batched._large_factor, lp_ipm_batched._large_solve,
+     None),
+    ("cuda", 337, lp_ipm_batched._large_factor,
+     lp_ipm_batched._large_solve, None),
+])
+def test_lp_route_kernels(dev, m, factor, solve, iterate):
+    k = lp_ipm_batched.lp_route(m).kernels(torch.device(dev))
+    assert k.iterate is iterate
+    if factor is not None:
+        assert k.factor is factor and k.solve is solve
+
+
+def test_lp_route_kernels_are_read_at_each_call(monkeypatch):
+    # The benchmark's K1 recorder swaps the CUDA entry after import.
+    swapped = lp_ipm_batched._DIRECT_KERNELS["cuda"]._replace(iterate=len)
+    monkeypatch.setitem(lp_ipm_batched._DIRECT_KERNELS, "cuda", swapped)
+    assert lp_ipm_batched.lp_route(62).kernels("cuda") is swapped
     with pytest.raises(NotImplementedError):
-        lp_ipm_batched.lp_kernels(torch.device("meta"), 62)
+        lp_ipm_batched.lp_route(62).kernels(torch.device("meta"))
 
 
 def _hard_lanes():

@@ -1,9 +1,9 @@
 """The m <= 72 LP tier's CUDA graphs (``runtime/graphs.py``,
 ``engines/lp_ipm_structured.lp_chain``).
 
-On the CPU: the rule that picks a graph chain or the eager calls (a CUDA
-device, m <= 72, at most ``GRAPH_MAX_LANES`` lanes, no capture under
-way), the chains' cache and the eager stand-in. On the card: the graph
+On the CPU: a solve on CPU tensors takes no chain (the rule itself,
+``graphs.chain_for``, is tested through both of its layers in
+tests/test_torch_graph_rule.py). On the card: the graph
 path against the eager path, bit for bit, over three consecutive LP
 buffers (an RTS-24 SEQ step's 1,024-lane buffer and a 2,048-lane NSQ
 buffer), K1's four eager launches a solve and the inputs they were
@@ -29,103 +29,19 @@ from powersystemsreliabilityassessment_tpu_torch.sampling import chronological
 from powersystemsreliabilityassessment_tpu_torch.studies import (
     hl2_nsq, hl2_seq)
 from powersystemsreliabilityassessment_tpu_torch.utils import profiling
-from powersystemsreliabilityassessment_tpu_torch.utils.config import (
-    IPMConfig)
 
 torch.set_num_threads(1)
 
-CUDA0 = torch.device("cuda", 0)
 FIELDS = ("dns_mw", "nodal_mw", "gen_dispatch", "primal_residual",
           "failure", "infeasible")
 
 
 @pytest.fixture
 def chains(monkeypatch):
-    """A fresh chain cache, and no capture under way."""
+    """A fresh chain cache."""
     cache = graphs.ChainCache(ls.GRAPH_CHAINS)
     monkeypatch.setattr(ls, "_chains", cache)
-    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
-                        lambda: False)
     return cache
-
-
-def _solve_chain(lanes=1024, cfg=IPMConfig(), device=CUDA0, m=62):
-    return ls.lp_chain(("solve", 1, cfg, 16), device, m, lanes, None)
-
-
-@pytest.mark.parametrize("device, m, lanes", [
-    ("cpu", 62, 1024),                          # CPU tensors
-    (CUDA0, 80, 1024),                          # m > 72: RTS-96's route
-    (CUDA0, 62, ls.GRAPH_MAX_LANES + 1),        # above the cut-off
-    (CUDA0, 62, 65536),                         # the enumeration's buffer
-])
-def test_eager_off_the_graph_route(chains, device, m, lanes):
-    assert _solve_chain(lanes, device=device, m=m) is graphs.EAGER
-    assert len(chains) == 0
-
-
-def test_eager_while_a_capture_is_under_way(chains, monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
-                        lambda: True)
-    assert _solve_chain() is graphs.EAGER
-    assert len(chains) == 0
-
-
-def test_graph_chain_on_the_route(chains):
-    for lanes in (1, 1024, ls.GRAPH_MAX_LANES):
-        chain = _solve_chain(lanes)
-        assert isinstance(chain, graphs.Chain) and chain.graphed
-        assert chain.device == CUDA0 and chain.layer == "lp"
-        assert chain is _solve_chain(lanes)
-    assert len(chains) == 3
-
-
-def test_cache_key_separates_lanes_configs_and_keys(chains):
-    base = _solve_chain(1024)
-    assert _solve_chain(2048) is not base
-    assert _solve_chain(1024, IPMConfig(iterations=20)) is not base
-    assert ls.lp_chain(("finalize", 1, None, 2), CUDA0, 62, 1024,
-                       None) is not base
-    assert ls.lp_chain(("solve", 2, IPMConfig(), 16), CUDA0, 62, 1024,
-                       None) is not base
-    assert ls.lp_chain(("solve", 1, IPMConfig(), 16), torch.device(
-        "cuda", 1), 62, 1024, None) is not base
-    assert _solve_chain(1024) is base
-    assert len(chains) == 6
-
-
-def test_cache_stays_bounded_and_drops_the_least_recent(chains):
-    first = _solve_chain(1)
-    for lanes in range(2, ls.GRAPH_CHAINS + 1):
-        _solve_chain(lanes)
-    assert _solve_chain(1) is first          # now the most recent
-    for lanes in range(ls.GRAPH_CHAINS + 1, ls.GRAPH_CHAINS + 4):
-        _solve_chain(lanes)
-        assert len(chains) == ls.GRAPH_CHAINS
-    assert _solve_chain(1) is first
-    key = ("solve", 1, IPMConfig(), 16)
-    assert (key, CUDA0, 2) not in chains and (key, CUDA0, 1) in chains
-
-
-def test_chain_cache_lru_order():
-    cache = graphs.ChainCache(2)
-    a = cache.get("a", object)
-    b = cache.get("b", object)
-    assert cache.get("a", object) is a
-    cache.get("c", object)
-    assert "b" not in cache and "a" in cache and "c" in cache
-    assert cache.get("b", object) is not b and len(cache) == 2
-
-
-def test_eager_stand_in_runs_each_segment_as_a_call():
-    x = torch.arange(4.0)
-    out = graphs.EAGER.run("seg", lambda a, b: (a + b, a * b), x, x)
-    assert isinstance(out, tuple) and len(out) == 2
-    assert torch.equal(out[0], 2 * x) and torch.equal(out[1], x * x)
-    assert graphs.EAGER.fresh(x) is x and not graphs.EAGER.graphed
-    chain = graphs.Chain(CUDA0, "lp")
-    copy = chain.fresh(x)
-    assert copy is not x and torch.equal(copy, x)
 
 
 def test_cpu_solve_takes_no_chain(chains):

@@ -1,9 +1,9 @@
 """The screened evaluator's tier-1 pass as one CUDA graph a call
 (``engines/dcopf.tier1_chain``, ``runtime/graphs.py``).
 
-On the CPU: the rule that picks a graph chain or the eager call (a CUDA
-device, m <= 72, no capture under way), the chains' cache key, the bits
-of ``certify_states`` on the eager path (``DIGESTS``, recorded from the
+On the CPU (the rule that picks a graph chain or the eager call,
+``graphs.chain_for``, is tested through both of its layers in
+tests/test_torch_graph_rule.py): the bits of ``certify_states`` on the eager path (``DIGESTS``, recorded from the
 code before the chain was added, with one intra-op thread: ``python -m
 tests.test_torch_tier1_graphs`` prints them anew), that only the
 screened evaluator's own pass takes a chain (not ``calibrate_shed_hint``
@@ -20,7 +20,6 @@ Tests that need a card carry the ``gpu`` marker and skip without one:
     python -m pytest --noconftest -m gpu tests/test_torch_tier1_graphs.py
 """
 import hashlib
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -45,7 +44,6 @@ from powersystemsreliabilityassessment_tpu_torch.utils import profiling
 # intra-op thread per worker keeps them from oversubscribing the cores.
 torch.set_num_threads(1)
 
-CUDA0 = torch.device("cuda", 0)
 FIELDS = ("dns_mw", "nodal_mw", "gen_dispatch", "primal_residual",
           "failure", "infeasible")
 
@@ -118,75 +116,6 @@ def _digest(sys_, name, hint_rows=True, **kw) -> str:
 
 
 # -- on the CPU --------------------------------------------------------------
-
-@pytest.fixture
-def chains(monkeypatch):
-    """A fresh tier-1 chain cache, and no capture under way."""
-    cache = graphs.ChainCache(dcopf.TIER1_CHAINS)
-    monkeypatch.setattr(dcopf, "_tier1_chains", cache)
-    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
-                        lambda: False)
-    return cache
-
-
-RTS24_DIMS = SimpleNamespace(n_bus=24, n_branch=38)       # m = 62
-RTS96_DIMS = SimpleNamespace(n_bus=72, n_branch=119)      # m = 191
-
-
-def _chain(sys_=RTS24_DIMS, device=CUDA0, lanes=34944, repair_iters=3,
-           repair_buffer=4096, woodbury_k=2, hinted=False):
-    return dcopf.tier1_chain(sys_, device, lanes, repair_iters,
-                             repair_buffer, woodbury_k, hinted)
-
-
-@pytest.mark.parametrize("sys_, device", [
-    (RTS24_DIMS, "cpu"),                        # CPU tensors
-    (RTS96_DIMS, CUDA0),                        # m > 72: RTS-96
-])
-def test_eager_off_the_graph_route(chains, sys_, device):
-    assert _chain(sys_, device) is graphs.EAGER
-    assert len(chains) == 0
-
-
-def test_eager_while_a_capture_is_under_way(chains, monkeypatch):
-    # The LP tier's finalize graph captures certify_states inside it.
-    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
-                        lambda: True)
-    assert _chain() is graphs.EAGER
-    assert len(chains) == 0
-
-
-def test_graph_chain_on_the_route(chains):
-    for lanes in (8192, 34944, 139776):
-        chain = _chain(lanes=lanes)
-        assert isinstance(chain, graphs.Chain) and chain.graphed
-        assert chain.device == CUDA0 and chain.layer == "tier1"
-        assert chain.keep is RTS24_DIMS and chain.launches == ()
-        assert chain is _chain(lanes=lanes)
-    assert len(chains) == 3
-
-
-@pytest.mark.parametrize("change", [
-    dict(lanes=8192), dict(repair_buffer=2048), dict(repair_buffer=None),
-    dict(woodbury_k=3), dict(repair_iters=6), dict(hinted=True),
-    dict(sys_=SimpleNamespace(n_bus=24, n_branch=38)),
-    dict(device=torch.device("cuda", 1)),
-])
-def test_cache_key_separates(chains, change):
-    base = _chain()
-    other = _chain(**change)
-    assert isinstance(other, graphs.Chain) and other is not base
-    assert _chain() is base and _chain(**change) is other
-    assert len(chains) == 2
-
-
-def test_cache_stays_bounded(chains):
-    first = _chain(lanes=1)
-    for lanes in range(2, dcopf.TIER1_CHAINS + 3):
-        _chain(lanes=lanes)
-        assert len(chains) <= dcopf.TIER1_CHAINS
-    assert _chain(lanes=1) is not first
-
 
 @pytest.mark.parametrize("name", sorted(DIGESTS))
 def test_eager_path_keeps_its_bits(rts24_cpu, name):
